@@ -1,0 +1,640 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's flow-event fold path on one NVIDIA GPU.
+
+Run from the repository root: ``python3 chip_smoke.py``. It needs one
+CUDA card and the CUDA toolkit (``nvcc``), builds the port's kernels
+from ``gyeeta_tpu_torch/csrc`` into ``build/kernels/``, and fails
+(non-zero exit, no result line) on a machine without a GPU or outside a
+checkout of the repository. Phases:
+
+1. Sim records → wire frames → ``decode_frames`` → ``conn_batch`` /
+   ``resp_batch`` → ``(K, B)`` stacks on the card, at the bench's
+   north-star geometry: ``EngineCfg(svc_capacity=131072, n_hosts=50048,
+   task_capacity=65536)`` and ``ParthaSim(n_hosts=512, n_svcs=128,
+   n_clients=8192, cli_groups_per_svc=4)`` — 65,536 live services.
+2. Warm-up conn folds until every sim service is resident, then the main
+   path: ``fold_many`` dispatches under the bench's flush policy (stage
+   pressure read two dispatches back, ``td_flush_partial`` above
+   ``td_stage_cap // 2``), ``td_flush``, ``tick_5s``, ``svc_snapshot``
+   + ``svc_rows_to_host`` and ``flow_snapshot``. The kernels' launch
+   counters are zeroed just before and read just after.
+3. Checks on the result: live rows, ``n_conn``, ``n_resp_unknown``, each
+   service's p50 against the exact median of what it was fed, the CMS
+   total against the bytes fed, the global HLL against the distinct
+   flows fed.
+4. The same slice at the tiny test geometry on the card and on the CPU
+   (plain versions), compared leaf by leaf.
+5. Each kernel against its plain version at the shapes the main path
+   launched it with, and timed beside the plain version and the one
+   PyTorch call computing the same function: device time from
+   torch.profiler's CUDA events, and the host's issue rate from CUDA
+   events around back-to-back calls.
+6. Fold rate, memory, the card's name and power limit, the kernels' JSON
+   line, and last the result line.
+
+``--profile`` also prints where a dispatch's time goes: each half of
+``fold_many`` timed alone, the device's busy share under torch.profiler,
+and device time by kernel.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from collections import deque
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+DEV = "cuda"
+NS_CFG = dict(svc_capacity=131072, n_hosts=50048, task_capacity=65536)
+NS_SIM = dict(n_hosts=512, n_svcs=128, n_clients=8192, cli_groups_per_svc=4)
+K = 16                 # microbatches per fold_many dispatch
+N_DISTINCT = 16        # distinct staged slabs cycled by the main path:
+#                        about 16 resp samples per service in all
+N_DISPATCH = 64        # main-path fold_many dispatches
+MAX_WARMUP = 64        # conn-only warm-up folds before giving up
+REPS = 100             # launches per kernel timing
+# H100 SXM data-sheet peaks
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+KERNELS = {
+    "scatter_max": "gyeeta_tpu/sketch/pallas_scatter.py:81",
+    "scatter_add": "gyeeta_tpu/sketch/pallas_scatter.py:99",
+}
+# (kernel, call site, target shape at ns geometry, dtype) in the order
+# ingest_conn launches them
+NS_CALLS = (
+    ("scatter_max", "hyperloglog.update_entities", (131072, 1024), "int32"),
+    ("scatter_max", "hyperloglog.update", (16384,), "int32"),
+    ("scatter_add", "countmin.update", (2, 131072), "float32"),
+    ("scatter_max", "invertible.update", (2, 4096), "float32"),
+)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+    log(f"  ok: {msg}")
+
+
+class Fed:
+    """Host-side record of everything folded, for the phase 3 checks."""
+
+    def __init__(self):
+        self.conn_lanes = 0
+        self.conn_bytes = 0.0
+        self.flows = []
+        self.resp = []          # (glob id, value, times folded)
+
+    def conn(self, cb, times=1):
+        """A conn batch folded ``times`` times (its flows counted once)."""
+        ok = cb.valid & cb.is_accept
+        self.conn_lanes += int(cb.valid.sum()) * times
+        self.conn_bytes += float(
+            (cb.bytes_sent[ok].astype(np.float64)
+             + cb.bytes_rcvd[ok].astype(np.float64)).sum()) * times
+        v = cb.valid
+        self.flows.append((cb.flow_hi[v].astype(np.uint64) << np.uint64(32))
+                          | cb.flow_lo[v].astype(np.uint64))
+
+    def resp_slab(self, rb, times):
+        v = rb.valid
+        gid = (rb.svc_hi[v].astype(np.uint64) << np.uint64(32)) \
+            | rb.svc_lo[v].astype(np.uint64)
+        self.resp.append((gid, rb.resp_us[v], times))
+
+
+def concat(batches):
+    return type(batches[0])(*(np.concatenate(c) for c in zip(*batches)))
+
+
+def ns_phase(torch, scatter, profile: bool):
+    from gyeeta_tpu_torch.engine import aggstate, step
+    from gyeeta_tpu_torch.ingest import decode, wire
+    from gyeeta_tpu_torch.query import readback
+    from gyeeta_tpu_torch.sim import ParthaSim
+    from gyeeta_tpu_torch.sketch import countmin, hyperloglog as hll, loghist
+
+    cfg = aggstate.EngineCfg(**NS_CFG)
+    sim = ParthaSim(**NS_SIM)
+    n_svcs = sim.n_hosts * sim.n_svcs
+    fed = Fed()
+
+    def slab(kind):
+        """K microbatches of one stream: sim → wire → decode."""
+        if kind == "conn":
+            buf = sim.conn_frames(K * cfg.conn_batch)
+            sub, build, size = wire.NOTIFY_TCP_CONN, decode.conn_batch, \
+                cfg.conn_batch
+        else:
+            buf = sim.resp_frames(K * cfg.resp_batch)
+            sub, build, size = wire.NOTIFY_RESP_SAMPLE, decode.resp_batch, \
+                cfg.resp_batch
+        frames, used = wire.decode_frames(buf)
+        recs = np.concatenate([r for s, r in frames if s == sub])
+        if used != len(buf) or len(recs) != K * size:
+            raise AssertionError(f"{kind} frames did not decode whole")
+        return [build(recs[i * size:(i + 1) * size], size) for i in range(K)]
+
+    log("phase 1+2: north-star geometry "
+        f"(S={cfg.svc_capacity}, {n_svcs} sim services, K={K})")
+    t0 = time.perf_counter()
+    st = aggstate.init(cfg, DEV)
+    torch.cuda.synchronize()
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in _leaves(st))
+    log(f"  state: {state_bytes / 2**30:.3f} GiB in "
+        f"{time.perf_counter() - t0:.2f}s")
+
+    # warm-up: conn-only folds until every sim service is resident, so
+    # the main path runs the all-hit upsert and no resp sample is unknown
+    t0 = time.perf_counter()
+    n_warm = 0
+    while int(st.tbl.n_live) < n_svcs:
+        if n_warm == MAX_WARMUP:
+            raise AssertionError(f"{int(st.tbl.n_live)} of {n_svcs} services "
+                                 f"resident after {n_warm} warm-up folds")
+        cb = concat(slab("conn"))
+        fed.conn(cb)
+        st = step.ingest_conn(cfg, st, decode.to_device(cb, DEV))
+        n_warm += 1
+    torch.cuda.synchronize()
+    log(f"  warm-up: {n_warm} conn folds of {K * cfg.conn_batch} lanes, "
+        f"{int(st.tbl.n_live)} services resident, "
+        f"{time.perf_counter() - t0:.2f}s")
+
+    t0 = time.perf_counter()
+    host_slabs = [(slab("conn"), slab("resp")) for _ in range(N_DISTINCT)]
+    host_s = time.perf_counter() - t0
+    slabs = [(decode.to_device(c, DEV), decode.to_device(r, DEV))
+             for c, r in host_slabs]
+    torch.cuda.synchronize()
+    log(f"  staged {N_DISTINCT} slabs (sim+wire+decode {host_s:.2f}s, "
+        f"{N_DISTINCT * K * (cfg.conn_batch + cfg.resp_batch)} events)")
+
+    # one dispatch that records each kernel call's inputs (phase 5 holds
+    # the kernels against their plain versions at exactly these shapes)
+    captured = []
+    originals = (scatter.scatter_max, scatter.scatter_add)
+
+    def recorder(kind, fn):
+        def rec(target, idx, val):
+            captured.append((kind, target.clone(), idx.clone(), val.clone()))
+            return fn(target, idx, val)
+        return rec
+
+    scatter.scatter_max = recorder("scatter_max", originals[0])
+    scatter.scatter_add = recorder("scatter_add", originals[1])
+    try:
+        st = step.fold_many(cfg, st, *slabs[0])
+    finally:
+        scatter.scatter_max, scatter.scatter_add = originals
+    uses = [1] + [0] * (N_DISTINCT - 1)
+    got = [(k, tuple(t.shape), str(t.dtype).split(".")[1])
+           for k, t, _, _ in captured]
+    check(got == [(k, s, d) for k, _, s, d in NS_CALLS],
+          f"one dispatch launches {[c[0] for c in NS_CALLS]} at "
+          f"{[c[2] for c in NS_CALLS]}")
+
+    # ---- the main path, counted
+    scatter.reset_counts()
+    pressures: deque = deque()
+    n_flush = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(N_DISPATCH):
+        if len(pressures) >= 2 and \
+                int(pressures.popleft()) > cfg.td_stage_cap // 2:
+            st = step.td_flush_partial(cfg, st)
+            n_flush += 1
+        st = step.fold_many(cfg, st, *slabs[i % N_DISTINCT])
+        uses[i % N_DISTINCT] += 1
+        pressures.append(step.stage_pressure(st))
+    torch.cuda.synchronize()
+    fold_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    st = step.td_flush(cfg, st)
+    st = step.tick_5s(cfg, st)
+    snap = readback.svc_snapshot(cfg, st, 0)
+    rows = readback.svc_rows_to_host(cfg, snap)
+    flow = {k: v.cpu().numpy()
+            for k, v in readback.flow_snapshot(cfg, st, 64).items()}
+    torch.cuda.synchronize()
+    tail_s = time.perf_counter() - t1
+    launches = {"scatter_max": scatter.scatter_max_launches,
+                "scatter_add": scatter.scatter_add_launches}
+    ev = K * (cfg.conn_batch + cfg.resp_batch)
+    perf = {"dispatches": N_DISPATCH, "events_per_dispatch": ev,
+            "fold_s": fold_s, "ms_per_dispatch": fold_s / N_DISPATCH * 1e3,
+            "events_per_s": N_DISPATCH * ev / fold_s,
+            "n_partial_flushes": n_flush, "flush_tick_readback_s": tail_s,
+            "warmup_folds": n_warm, "state_gib": state_bytes / 2**30}
+    log(f"  main path: {N_DISPATCH} fold_many dispatches in {fold_s:.3f}s "
+        f"({perf['ms_per_dispatch']:.3f} ms/dispatch, "
+        f"{perf['events_per_s']:.0f} events/s, {n_flush} partial flushes); "
+        f"td_flush+tick+readback {tail_s:.2f}s")
+    log(f"  kernel launches on the main path: {launches}")
+    check(launches == {"scatter_max": 3 * N_DISPATCH,
+                       "scatter_add": N_DISPATCH},
+          "every dispatch launched scatter_max 3x and scatter_add 1x")
+
+    for (c, r), n in zip(host_slabs, uses):
+        fed.conn(concat(c), times=n)
+        fed.resp_slab(concat(r), n)
+
+    log("phase 3: checks at north-star geometry")
+    live = snap["live"].cpu().numpy()
+    check(int(st.tbl.n_live) == n_svcs == int(live.sum()) == len(rows),
+          f"live rows = {n_svcs}")
+    check(int(st.n_conn) == fed.conn_lanes,
+          f"n_conn = conn lanes fed ({fed.conn_lanes})")
+    check(float(st.n_resp_unknown) == 0.0, "n_resp_unknown = 0")
+    cols = [k for k in rows[0] if k != "glob_id"]
+    check(all(math.isfinite(r[k]) and r[k] >= 0 for r in rows for k in cols),
+          f"{len(cols)} snapshot columns finite and >= 0 on every live row")
+    for k in ("bytes_sent", "distinct_clients"):
+        check(all(r[k] > 0 for r in rows), f"{k} > 0 on every live row")
+    p50_off, n_fed, n_moved = _p50_vs_fed(torch, loghist, cfg, fed, rows)
+    check(p50_off <= 1, f"each of the {n_fed} services fed resp samples has "
+          "its resp_p50_us within one loghist bucket of the exact median "
+          f"of its samples (max offset {p50_off}); the other "
+          f"{len(rows) - n_fed} read 0")
+    log(f"  resp samples whose loghist bucket differs between CUDA and "
+        f"CPU logf: {n_moved}")
+    total = float(countmin.total(st.cms))
+    check(math.isclose(total, fed.conn_bytes, rel_tol=1e-6),
+          f"countmin.total {total:.6e} = accept-side bytes fed "
+          f"{fed.conn_bytes:.6e} (rtol 1e-6)")
+    distinct = len(np.unique(np.concatenate(fed.flows)))
+    est = float(hll.estimate(st.glob_hll))
+    sigma = 1.04 / math.sqrt(st.glob_hll.regs.numel()) * distinct
+    check(abs(est - distinct) <= 3 * sigma,
+          f"global HLL {est:.0f} within 3 std errors of {distinct} "
+          "distinct flows fed")
+    fb = flow["flow_bytes"]
+    check(bool(np.isfinite(fb).all() and (fb[:-1] >= fb[1:]).all()
+               and fb[0] > 0),
+          "flow_snapshot: heaviest flows finite and count-descending")
+    check(flow["total_bytes"] == np.float32(total),
+          "flow_snapshot total_bytes = countmin.total")
+    perf["distinct_flows_fed"] = distinct
+    perf["max_memory_allocated_gib"] = \
+        torch.cuda.max_memory_allocated() / 2**30
+    perf["p50_moved_samples"] = n_moved
+    if profile:      # after the checks: these dispatches fold more data
+        st, perf["profile"] = profile_dispatches(torch, cfg, st, step, slabs)
+    return st, captured, launches, perf
+
+
+def _leaves(st):
+    from gyeeta_tpu_torch.utils.tensor import tree_leaves
+    return tree_leaves(st)
+
+
+def _p50_vs_fed(torch, loghist, cfg, fed, rows):
+    """→ (max |bucket offset| between each fed service's device p50 and
+    the bucket of the exact weighted median of its samples — the sample
+    at which the cumulative count first reaches half the total, the
+    loghist's own rule — with buckets by the CPU formula; the number of
+    services fed; the count of fed samples whose bucket CUDA's logf
+    moves). A service fed nothing must read p50 = 0."""
+    spec = cfg.resp_spec
+    gid = np.concatenate([g for g, _, _ in fed.resp])
+    val = np.concatenate([v for _, v, _ in fed.resp])
+    w = np.concatenate([np.full(len(g), n, np.int64) for g, _, n in fed.resp])
+    keep = w > 0
+    gid, val, w = gid[keep], val[keep], w[keep]
+    tv = torch.from_numpy(val)
+    b_cpu = loghist.bucket_of(spec, tv).numpy()
+    b_gpu = loghist.bucket_of(spec, tv.to(DEV)).cpu().numpy()
+    n_moved = int((b_cpu != b_gpu).sum())
+    order = np.lexsort((b_cpu, gid))
+    g_s, b_s, w_s = gid[order], b_cpu[order], w[order]
+    starts = np.flatnonzero(np.r_[True, g_s[1:] != g_s[:-1]])
+    cum = np.cumsum(w_s)
+    before = np.r_[0, cum[:-1]][starts]
+    tot = np.add.reduceat(w_s, starts)
+    pos = np.searchsorted(cum, before + 0.5 * tot - 1e-6, side="left")
+    want = dict(zip(g_s[starts].tolist(), b_s[pos].tolist()))
+    got = {r["glob_id"]: r["resp_p50_us"] for r in rows}
+    if not set(want) <= set(got):
+        raise AssertionError("resp samples fed for a service not live")
+    if any(p != 0.0 for g, p in got.items() if g not in want):
+        raise AssertionError("a service fed no resp sample reads p50 != 0")
+    gids = list(want)
+    got_b = loghist.bucket_of(
+        spec, torch.tensor([got[g] for g in gids])).numpy()
+    off = max(abs(int(b) - want[g]) for g, b in zip(gids, got_b))
+    return int(off), len(gids), n_moved
+
+
+def device_us(torch, prof):
+    """Device time (µs) of a profile: the sum of its CUDA events (kernels,
+    memcpys, memsets), each counted once."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == cuda)
+
+
+def profile_dispatches(torch, cfg, st, step, slabs, n=4):
+    """Where a dispatch's time goes → (state, summary): the wall time of
+    each half of ``fold_many`` (synchronised), then torch.profiler over
+    ``n`` plain dispatches — device busy share and device time by kernel.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    # spread of the plain dispatch time: three more windows of 16
+    windows = []
+    for w in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(16):
+            st = step.fold_many(cfg, st, *slabs[i % len(slabs)])
+        torch.cuda.synchronize()
+        windows.append((time.perf_counter() - t0) / 16 * 1e3)
+    halves = {"ingest_conn": 0.0, "ingest_resp_bulk": 0.0}
+    for i in range(n):
+        cbs, rbs = slabs[i % len(slabs)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = step.ingest_conn(cfg, st, step.flatten(cbs))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st = step.ingest_resp_bulk(cfg, st, rbs)
+        torch.cuda.synchronize()
+        halves["ingest_conn"] += (t1 - t0) * 1e3 / n
+        halves["ingest_resp_bulk"] += (time.perf_counter() - t1) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            st = step.fold_many(cfg, st, *slabs[i % len(slabs)])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = device_us(torch, prof)
+    n_dev = sum(1 for e in prof.events() if e.device_type == cuda)
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages() if e.device_type == cuda),
+                  reverse=True)
+    log(f"  profile: ms/dispatch in three more windows of 16: "
+        f"{', '.join(f'{w:.3f}' for w in windows)}")
+    log(f"  profile: halves (synchronised) ingest_conn "
+        f"{halves['ingest_conn']:.3f} ms, ingest_resp_bulk "
+        f"{halves['ingest_resp_bulk']:.3f} ms; {n} dispatches under the "
+        f"profiler: wall {wall_us / n / 1e3:.3f} ms/dispatch, device busy "
+        f"{busy_us / n / 1e3:.3f} ms/dispatch ({busy_us / wall_us:.1%}), "
+        f"{n_dev / n:.0f} device ops/dispatch")
+    for dev_us, count, key in rows[:20]:
+        log(f"    {dev_us / n:9.1f} us/dispatch  {count / n:6.1f} calls  "
+            f"{key[:100]}")
+    return st, {"window_ms_per_dispatch": windows, "halves_ms": halves,
+                "wall_ms_per_dispatch": wall_us / n / 1e3,
+                "device_busy_ms_per_dispatch": busy_us / n / 1e3,
+                "device_busy_share": busy_us / wall_us,
+                "device_ops_per_dispatch": n_dev / n}
+
+
+# ----------------------------------------------------------- phase 4
+def tiny_cfg(aggstate, loghist):
+    """``__graft_entry__._tiny_cfg()``, the tests' geometry."""
+    return aggstate.EngineCfg(
+        svc_capacity=64, n_hosts=16,
+        resp_spec=loghist.LogHistSpec(vmin=1.0, vmax=1e8, nbuckets=64),
+        hll_p_svc=6, hll_p_global=8, cms_depth=2, cms_width=1 << 10,
+        topk_capacity=32, td_capacity=16,
+        conn_batch=64, resp_batch=64, listener_batch=64)
+
+
+def tiny_run(device):
+    """fold_step, 3 fold_many dispatches of K=4, td_flush_partial,
+    td_flush, tick_5s → (leaves, resp values fed)."""
+    from gyeeta_tpu_torch.engine import aggstate, step
+    from gyeeta_tpu_torch.ingest import decode
+    from gyeeta_tpu_torch.sim import ParthaSim
+    from gyeeta_tpu_torch.sketch import loghist
+
+    cfg = tiny_cfg(aggstate, loghist)
+    sim = ParthaSim(n_hosts=cfg.n_hosts, n_svcs=4, n_clients=256)
+    resp = []
+
+    def pair():
+        cb = decode.conn_batch(sim.conn_records(cfg.conn_batch),
+                               cfg.conn_batch)
+        rb = decode.resp_batch(sim.resp_records(cfg.resp_batch),
+                               cfg.resp_batch)
+        resp.append(rb.resp_us[rb.valid])
+        return cb, rb
+
+    st = aggstate.init(cfg, device)
+    cb, rb = pair()
+    st = step.fold_step(cfg, st, decode.to_device(cb, device),
+                        decode.to_device(rb, device))
+    for _ in range(3):
+        bs = [pair() for _ in range(4)]
+        st = step.fold_many(cfg, st,
+                            decode.to_device([c for c, _ in bs], device),
+                            decode.to_device([r for _, r in bs], device))
+    st = step.td_flush_partial(cfg, st)
+    st = step.td_flush(cfg, st)
+    st = step.tick_5s(cfg, st)
+    return aggstate.state_to_numpy(st), np.concatenate(resp), cfg
+
+
+def tiny_phase(torch):
+    from gyeeta_tpu_torch.engine import aggstate
+    from gyeeta_tpu_torch.sketch import loghist
+    from gyeeta_tpu_torch.utils.tensor import tree_paths
+
+    log("phase 4: tiny geometry, card vs CPU (plain versions)")
+    gpu, resp, cfg = tiny_run(DEV)
+    cpu, _, _ = tiny_run("cpu")
+    tv = torch.from_numpy(resp)
+    moved = int((loghist.bucket_of(cfg.resp_spec, tv).numpy()
+                 != loghist.bucket_of(cfg.resp_spec, tv.to(DEV)).cpu()
+                 .numpy()).sum())
+    log(f"  resp samples whose bucket CUDA's logf moves: {moved}")
+    names = tree_paths(aggstate.init(cfg, "meta"))
+    n_exact = n_close = 0
+    for name, a, b in zip(names, cpu, gpu):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{name}: {a.shape}/{a.dtype} vs "
+                                 f"{b.shape}/{b.dtype}")
+        if name.startswith("resp_win.") and a.dtype.kind == "f" and moved:
+            # a moved sample is one count in a neighbouring bucket
+            if np.abs(a - b).sum() > 2 * moved:
+                raise AssertionError(f"{name}: differs beyond {moved} "
+                                     "moved samples")
+            n_close += 1
+        elif a.dtype.kind != "f" or name in ("inv.prio", "svc_td.vmin",
+                                             "svc_td.vmax"):
+            np.testing.assert_array_equal(b, a, err_msg=name)
+            n_exact += 1
+        else:
+            # f32 sums: atomics add in no fixed order (rtol 1e-6, the
+            # reference's own bar); digest centroids rtol 1e-5
+            rtol = 1e-5 if name.startswith("svc_td.") else 1e-6
+            np.testing.assert_allclose(b, a, rtol=rtol, atol=0,
+                                       err_msg=name)
+            n_close += 1
+    check(len(names) == len(cpu) == 85,
+          f"85 leaves agree ({n_exact} exactly, {n_close} within "
+          "tolerance)")
+
+
+# ----------------------------------------------------------- phase 5
+def timed(torch, fn, reps=REPS):
+    """→ (device ms, issue ms) per call of ``fn``: the device time of its
+    CUDA work under torch.profiler, and CUDA events around ``reps``
+    back-to-back calls (bound by the host's launch rate when the device
+    work is short)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):      # a window whose CUDA events the profiler lost
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev_ms = device_us(torch, prof) / reps / 1e3
+        if dev_ms > 0:
+            break
+    else:
+        raise AssertionError("torch.profiler recorded no device time")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return dev_ms, a.elapsed_time(b) / reps
+
+
+def kernel_phase(torch, scatter, captured, launches):
+    log("phase 5: each kernel vs its plain version at the main path's "
+        "shapes (max: exact; add: rtol 1e-6)")
+    calls = {k: [] for k in KERNELS}
+    for (kind, target, idx, val), (_, site, _, _) in zip(captured,
+                                                        NS_CALLS):
+        wrapper = getattr(scatter, kind)
+        plain = getattr(scatter, kind + "_plain")
+        got = wrapper(target.clone(), idx, val)
+        want = plain(target.clone(), idx, val)
+        torch.cuda.synchronize()
+        if kind == "scatter_max":
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        err = float((got.double() - want.double()).abs().max())
+        idx64 = idx.to(torch.int64)
+        flat = target.clone().view(-1)
+        if kind == "scatter_max":
+            lib = lambda: flat.scatter_reduce_(0, idx64, val, "amax",  # noqa: E731,E501
+                                               include_self=True)
+        else:
+            lib = lambda: flat.index_add_(0, idx64, val)  # noqa: E731
+        work = target.clone()
+        ms, issue_ms = timed(torch, lambda: wrapper(work, idx, val))
+        plain_ms, plain_issue_ms = timed(torch, lambda: plain(work, idx, val))
+        library_ms, library_issue_ms = timed(torch, lib)
+        n = idx.numel()
+        distinct = int(torch.unique(idx).numel())
+        nbytes = 8 * n + 8 * distinct   # idx+val read; element read+written
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n / F32_OPS_PER_S * 1e3
+        c = {"site": site, "target": list(target.shape),
+             "dtype": str(target.dtype).split(".")[1], "lanes": n,
+             "distinct_targets": distinct, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "library_ms": library_ms,
+             "issue_ms": issue_ms, "plain_issue_ms": plain_issue_ms,
+             "library_issue_ms": library_issue_ms,
+             "bound_ms": max(bytes_ms, ops_ms), "bound_bytes": nbytes,
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        calls[kind].append(c)
+        log(f"  {kind} @ {site} {c['target']} {c['dtype']}, {n} lanes, "
+            f"{distinct} targets: device kernel {ms * 1e3:.2f} us, plain "
+            f"{plain_ms * 1e3:.2f} us, library {library_ms * 1e3:.2f} us, "
+            f"bound {c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}); issue "
+            f"rate {issue_ms * 1e3:.1f} / {plain_issue_ms * 1e3:.1f} / "
+            f"{library_issue_ms * 1e3:.1f} us per call; max_abs_err {err}")
+    out = []
+    for kind, cs in calls.items():
+        # per-dispatch totals over the kernel's call sites
+        out.append({
+            "name": kind, "route": "cuda",
+            "source": "gyeeta_tpu_torch/csrc/scatter.cu",
+            "replaces": KERNELS[kind], "launches": launches[kind],
+            "max_abs_err": max(c["max_abs_err"] for c in cs),
+            "ms": sum(c["ms"] for c in cs),
+            "plain_ms": sum(c["plain_ms"] for c in cs),
+            "bound_ms": sum(c["bound_ms"] for c in cs),
+            "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in cs)
+            else "operations",
+            "library_ms": sum(c["library_ms"] for c in cs),
+            "calls": cs})
+    return out
+
+
+def main(argv) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if not (ROOT / "gyeeta_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no gyeeta_tpu_torch package beside {ROOT}; run "
+              "it from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from gyeeta_tpu_torch.sketch import scatter
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    lib = scatter.build()
+    log(f"phase 0: built {lib.relative_to(ROOT)} in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    torch.cuda.reset_peak_memory_stats()
+    st, captured, launches, perf = ns_phase(torch, scatter,
+                                                 "--profile" in argv)
+    del st
+    torch.cuda.empty_cache()
+    tiny_phase(torch)
+    kernels = kernel_phase(torch, scatter, captured, launches)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log("phase 6:")
+    log(f"fold rate: {perf['events_per_s']:.1f} events/s, "
+        f"{perf['ms_per_dispatch']:.4f} ms/dispatch")
+    log(f"max_memory_allocated: {perf['max_memory_allocated_gib']:.3f} GiB")
+    log(json.dumps({"fold": perf}))
+    log(smi)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

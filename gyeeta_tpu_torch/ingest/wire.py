@@ -1,0 +1,224 @@
+"""GYT wire format: the subset the flow-event fold path needs.
+
+Counterpart of ``gyeeta_tpu/ingest/wire.py`` (a copy, since the port
+imports nothing of the reference): COMM_HEADER-compatible framing
+(``HEADER_DT`` — magic/total_sz/data_type/padding, 8-byte aligned, 16MB
+cap), ``EVENT_NOTIFY`` (subtype + nevents) and the two hot record types
+of this path, ``TCP_CONN`` and ``RESP_SAMPLE``. Records are fixed width,
+so a whole batch decodes with one ``np.frombuffer``.
+
+Only these two subtypes are known here; frames of any other subtype are
+skipped and their records counted (``counts["unknown_records"]``), the
+reference's treatment of a subtype it does not know.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+MAGIC_PM = 0x47590001   # partha-equivalent agent -> aggregation tier
+MAGIC_MS = 0x47590002   # aggregation tier -> global tier
+MAGIC_NQ = 0x47590003   # query client (node webserver analogue)
+
+MAX_COMM_DATA_SZ = 16 * 1024 * 1024   # 16MB frame cap
+
+COMM_EVENT_NOTIFY = 1
+
+NOTIFY_TCP_CONN = 10          # flow close/open records
+NOTIFY_RESP_SAMPLE = 13       # raw response-time samples
+
+MAX_CONNS_PER_BATCH = 2048
+MAX_RESP_PER_BATCH = 4096
+
+HEADER_DT = np.dtype([
+    ("magic", "<u4"),
+    ("total_sz", "<u4"),      # header + notify + payload, 8-aligned
+    ("data_type", "<u4"),
+    ("padding_sz", "<u4"),
+])
+
+EVENT_NOTIFY_DT = np.dtype([
+    ("subtype", "<u4"),
+    ("nevents", "<u4"),
+])
+
+IP_PORT_DT = np.dtype([
+    ("ip", "u1", (16,)),      # IPv6 bytes; IPv4 mapped ::ffff:a.b.c.d
+    ("port", "<u2"),
+    ("pad", "u1", (6,)),
+])
+
+TCP_CONN_DT = np.dtype([
+    ("cli", IP_PORT_DT),
+    ("ser", IP_PORT_DT),
+    ("nat_cli", IP_PORT_DT),
+    ("nat_ser", IP_PORT_DT),
+    ("tusec_start", "<u8"),
+    ("tusec_close", "<u8"),
+    ("cli_task_aggr_id", "<u8"),
+    ("cli_related_listen_id", "<u8"),
+    ("cli_madhava_id", "<u8"),
+    ("peer_machine_id_hi", "<u8"),
+    ("peer_machine_id_lo", "<u8"),
+    ("ser_related_listen_id", "<u8"),
+    ("ser_glob_id", "<u8"),
+    ("ser_madhava_id", "<u8"),
+    ("bytes_sent", "<u8"),     # client perspective
+    ("bytes_rcvd", "<u8"),
+    ("cli_pid", "<i4"),
+    ("ser_pid", "<i4"),
+    ("ser_conn_hash", "<u4"),
+    ("ser_sock_inode", "<u4"),
+    ("cli_comm_id", "<u8"),
+    ("ser_comm_id", "<u8"),
+    ("cli_cmdline_id", "<u8"),
+    ("host_id", "<u4"),        # source agent index
+    ("flags", "<u4"),          # bit0 connect, bit1 accept, bit2 loopback,
+                               # bit3 pre-existing, bit4 notified-before
+])
+
+RESP_SAMPLE_DT = np.dtype([
+    ("glob_id", "<u8"),
+    ("resp_usec", "<u4"),
+    ("host_id", "<u4"),
+])
+
+DTYPE_OF_SUBTYPE = {
+    NOTIFY_TCP_CONN: TCP_CONN_DT,
+    NOTIFY_RESP_SAMPLE: RESP_SAMPLE_DT,
+}
+
+# per-type batch caps enforced at decode
+MAX_OF_SUBTYPE = {
+    NOTIFY_TCP_CONN: MAX_CONNS_PER_BATCH,
+    NOTIFY_RESP_SAMPLE: MAX_RESP_PER_BATCH,
+}
+
+for _name, _dt in [("HEADER_DT", HEADER_DT),
+                   ("EVENT_NOTIFY_DT", EVENT_NOTIFY_DT),
+                   ("TCP_CONN_DT", TCP_CONN_DT),
+                   ("RESP_SAMPLE_DT", RESP_SAMPLE_DT)]:
+    if _dt.itemsize % 8:
+        raise AssertionError((_name, _dt.itemsize))
+
+# Checksum: a frame whose padding_sz carries CHK_FLAG holds, in bits
+# 8..15, the XOR fold of every byte after the 16B header. It detects
+# every single-byte corruption; flagless frames skip verification.
+CHK_FLAG = 0x80000000
+_CHK_SHIFT = 8
+
+
+def _xor8(b) -> int:
+    a = np.frombuffer(b, np.uint8)
+    return int(np.bitwise_xor.reduce(a)) if a.size else 0
+
+
+class FrameError(ValueError):
+    """Corrupt / hostile framing. ``reason`` is a short machine label
+    (``bad_magic`` / ``bad_size`` / ``checksum`` / ``bad_dtype`` /
+    ``bad_frame``)."""
+
+    def __init__(self, msg: str, reason: str = "bad_frame"):
+        super().__init__(msg)
+        self.reason = reason
+
+
+def encode_frame(subtype: int, records: np.ndarray,
+                 magic: int = MAGIC_PM) -> bytes:
+    """Frame a structured record array as COMM_HEADER+EVENT_NOTIFY+payload.
+
+    Raises FrameError for frames the decoder would reject (per-subtype
+    batch caps, 16MB frame cap)."""
+    cap = MAX_OF_SUBTYPE.get(subtype)
+    if cap is not None and len(records) > cap:
+        raise FrameError(
+            f"{len(records)} records > cap {cap} for subtype {subtype}")
+    payload = records.tobytes()
+    total = HEADER_DT.itemsize + EVENT_NOTIFY_DT.itemsize + len(payload)
+    if total >= MAX_COMM_DATA_SZ:
+        raise FrameError(f"frame {total} bytes exceeds 16MB cap")
+    hdr = np.zeros((), HEADER_DT)
+    hdr["magic"] = magic
+    hdr["total_sz"] = total          # records are 8-aligned → no padding
+    hdr["data_type"] = COMM_EVENT_NOTIFY
+    ev = np.zeros((), EVENT_NOTIFY_DT)
+    ev["subtype"] = subtype
+    ev["nevents"] = len(records)
+    ev_b = ev.tobytes()
+    hdr["padding_sz"] = CHK_FLAG | (
+        (_xor8(ev_b) ^ _xor8(payload)) << _CHK_SHIFT)
+    return hdr.tobytes() + ev_b + payload
+
+
+def encode_frames_chunked(subtype: int, records: np.ndarray,
+                          magic: int = MAGIC_PM) -> bytes:
+    """Frame a record array of any length, split at the subtype's cap."""
+    cap = MAX_OF_SUBTYPE.get(subtype, len(records) or 1)
+    return b"".join(encode_frame(subtype, records[i:i + cap], magic)
+                    for i in range(0, len(records), cap))
+
+
+def decode_frames(buf: bytes, counts: Optional[dict] = None,
+                  event_only: bool = False):
+    """Parse a byte stream of frames → (list of (subtype, records),
+    bytes_consumed). A trailing partial frame is left for the caller.
+
+    Hardening, as in the reference: known subtypes enforce EXACT sizing
+    (``nevents·itemsize`` must fill the frame) and their batch caps;
+    frames flagged with :data:`CHK_FLAG` verify the XOR checksum; records
+    of skipped unknown-subtype frames accumulate under
+    ``counts["unknown_records"]``; with ``event_only`` a non-EVENT
+    ``data_type`` raises instead of being skipped.
+    """
+    frames = []
+    off = 0
+    n = len(buf)
+    hsz = HEADER_DT.itemsize
+    esz = EVENT_NOTIFY_DT.itemsize
+    while off + hsz <= n:
+        hdr = np.frombuffer(buf, HEADER_DT, count=1, offset=off)[0]
+        if hdr["magic"] not in (MAGIC_PM, MAGIC_MS, MAGIC_NQ):
+            raise FrameError(f"bad magic {hdr['magic']:#x} at {off}",
+                             reason="bad_magic")
+        total = int(hdr["total_sz"])
+        if total < hsz + esz or total >= MAX_COMM_DATA_SZ:
+            raise FrameError(f"bad total_sz {total} at {off}",
+                             reason="bad_size")
+        if off + total > n:
+            break  # partial frame
+        padf = int(hdr["padding_sz"])
+        if padf & CHK_FLAG and \
+                _xor8(buf[off + hsz: off + total]) \
+                != (padf >> _CHK_SHIFT) & 0xFF:
+            raise FrameError(f"payload checksum mismatch at {off}",
+                             reason="checksum")
+        if hdr["data_type"] == COMM_EVENT_NOTIFY:
+            ev = np.frombuffer(buf, EVENT_NOTIFY_DT, 1, off + hsz)[0]
+            subtype = int(ev["subtype"])
+            nev = int(ev["nevents"])
+            dt = DTYPE_OF_SUBTYPE.get(subtype)
+            if dt is not None:
+                if nev > MAX_OF_SUBTYPE[subtype]:
+                    raise FrameError(
+                        f"nevents {nev} > cap {MAX_OF_SUBTYPE[subtype]} "
+                        f"for subtype {subtype} at {off}",
+                        reason="bad_size")
+                need = hsz + esz + nev * dt.itemsize
+                if need != total:
+                    raise FrameError(
+                        f"nevents {nev} does not fill frame at {off} "
+                        f"(need {need}, total {total})",
+                        reason="bad_size")
+                recs = np.frombuffer(buf, dt, nev, off + hsz + esz)
+                frames.append((subtype, recs))
+            elif counts is not None:
+                counts["unknown_records"] = \
+                    counts.get("unknown_records", 0) + nev
+        elif event_only:
+            raise FrameError(
+                f"unexpected data_type {int(hdr['data_type'])} on the "
+                f"event stream at {off}", reason="bad_dtype")
+        off += total
+    return frames, off

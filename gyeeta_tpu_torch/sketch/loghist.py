@@ -1,0 +1,81 @@
+"""Log-bucketed histogram — the per-entity quantile sketch.
+
+Counterpart of ``gyeeta_tpu/sketch/loghist.py``: ``(..., B)`` counts
+over geometric buckets, one scatter-add per microbatch. The bucket is
+``floor(log(v/vmin)/log γ)`` taken in f32 torch exactly as the
+reference writes it (never through numpy, whose f32 log rounds some
+boundary samples differently). On the card CUDA's ``logf`` may still
+move a boundary sample by one bucket.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+
+class LogHistSpec(NamedTuple):
+    vmin: float
+    vmax: float
+    nbuckets: int
+
+    @property
+    def gamma(self) -> float:
+        return float((self.vmax / self.vmin) ** (1.0 / self.nbuckets))
+
+    @property
+    def rel_error(self) -> float:
+        """Guaranteed max relative quantile error (midpoint interpolation)."""
+        g = self.gamma
+        return (g - 1.0) / (g + 1.0)
+
+
+def bucket_of(spec: LogHistSpec, values):
+    """values → bucket index [0, B) (int32), clamped at both ends."""
+    v = torch.clamp(values.to(torch.float32), min=spec.vmin)
+    inv_log_gamma = float(1.0 / np.log(spec.gamma))
+    b = torch.floor(torch.log(v / spec.vmin) * inv_log_gamma).to(torch.int32)
+    return torch.clamp(b, 0, spec.nbuckets - 1)
+
+
+def bucket_mid(spec: LogHistSpec, bucket):
+    """Geometric midpoint of each bucket."""
+    g = spec.gamma
+    return spec.vmin * torch.exp(
+        (bucket.to(torch.float32) + 0.5) * float(np.float32(np.log(g))))
+
+
+def update_entities(hist, spec: LogHistSpec, entity_row, values,
+                    weights=None, valid=None):
+    """Per-entity scatter-add at (row, bucket), in place (lane order on
+    the CPU)."""
+    b = bucket_of(spec, values)
+    w = torch.ones_like(values, dtype=hist.dtype) if weights is None \
+        else weights.to(hist.dtype)
+    if valid is not None:
+        w = torch.where(valid, w, torch.zeros_like(w))
+        entity_row = torch.where(valid, entity_row, 0)
+    hist.index_put_((entity_row.to(torch.int64), b.to(torch.int64)), w,
+                    accumulate=True)
+    return hist
+
+
+def quantiles(hist, spec: LogHistSpec, qs):
+    """Quantile estimates per entity: hist (..., B), qs (Q,) → (..., Q).
+    Empty histograms return 0."""
+    qs = torch.as_tensor(qs, dtype=torch.float32, device=hist.device)
+    cdf = torch.cumsum(hist.to(torch.float32), dim=-1)       # (..., B)
+    tot = cdf[..., -1:]                                      # (..., 1)
+    target = qs * tot                                        # (..., Q)
+    # first bucket where cdf >= target
+    ge = cdf[..., None, :] >= target[..., :, None] - 1e-6    # (..., Q, B)
+    idx = torch.argmax(ge.to(torch.uint8), dim=-1).to(torch.int32)
+    val = bucket_mid(spec, idx)
+    return torch.where(tot > 0, val, 0.0)
+
+
+def counts_total(hist):
+    return hist.sum(dim=-1)

@@ -1,0 +1,100 @@
+"""Tensor helpers that keep the port's results equal to the reference's.
+
+- :func:`top_k` — ``lax.top_k`` order: descending, the LOWER index first
+  on ties. ``torch.topk`` promises no tie order, and ties are the normal
+  case here (padding and cold lanes all score −1, stage fills repeat),
+  so every top-k of the port goes through one stable descending sort.
+- :func:`set_drop` / :func:`add_drop` — JAX's ``mode="drop"`` scatters:
+  lanes whose ``keep`` is False write nothing. PyTorch raises on an
+  out-of-range index, so dropped lanes are pointed at element 0 and
+  made harmless there, without a device→host sync.
+- :func:`tree_leaves` / :func:`tree_unflatten` — flatten a NamedTuple /
+  tuple tree of tensors in ``jax.tree_util.tree_flatten`` order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the ``k`` largest entries of a 1-D tensor,
+    descending, lower index first on ties (``lax.top_k``'s order)."""
+    v, i = torch.sort(x, descending=True, stable=True)
+    return v[:k], i[:k]
+
+
+def set_drop(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+             keep: torch.Tensor) -> None:
+    """In place: ``dst.view(-1)[idx[i]] = vals[i]`` where ``keep[i]``.
+
+    Kept lanes that share an index must carry equal values (the callers'
+    invariant, as in the reference: the write is well defined only
+    then). Dropped lanes are aimed at element 0, which is restored
+    afterwards unless a kept lane wrote it."""
+    flat = dst.view(-1)
+    vals = vals.to(flat.dtype)
+    tgt = torch.where(keep, idx.to(torch.int64), 0)
+    old0 = flat[0].clone()
+    flat.index_put_((tgt,), vals)
+    kept0 = keep & (tgt == 0)
+    lowest = (torch.finfo(flat.dtype).min if flat.dtype.is_floating_point
+              else torch.iinfo(flat.dtype).min)
+    v0 = torch.where(kept0, vals, torch.full_like(vals, lowest)).max() \
+        if vals.numel() else old0
+    flat[0] = torch.where(kept0.any(), v0, old0)
+
+
+def add_drop(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+             keep: torch.Tensor) -> None:
+    """In place: ``dst[idx[i]] += vals[i]`` (along dim 0) where ``keep[i]``,
+    in lane order on the CPU. Dropped lanes add zero to row 0, which
+    leaves it unchanged (the callers' sums never hold −0.0)."""
+    tgt = torch.where(keep, idx.to(torch.int64), 0)
+    shape = (-1,) + (1,) * (vals.dim() - 1)
+    v = torch.where(keep.view(shape), vals.to(dst.dtype),
+                    torch.zeros((), dtype=dst.dtype, device=dst.device))
+    dst.index_put_((tgt,), v, accumulate=True)
+
+
+def _is_node(x) -> bool:
+    return isinstance(x, tuple)
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of a NamedTuple/tuple tree, depth first, in field order."""
+    if _is_node(tree):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    return [tree]
+
+
+def tree_paths(tree, prefix: str = "") -> list:
+    """Dotted names of :func:`tree_leaves`' leaves (``resp_win.rings.0``)."""
+    if not _is_node(tree):
+        return [prefix]
+    names = tree._fields if hasattr(tree, "_fields") \
+        else [str(i) for i in range(len(tree))]
+    return [p for name, sub in zip(names, tree)
+            for p in tree_paths(sub, f"{prefix}.{name}" if prefix else name)]
+
+
+def tree_unflatten(template, leaves):
+    """Rebuild ``template``'s structure from ``leaves`` (an iterator or
+    list, consumed in :func:`tree_leaves` order)."""
+    it = iter(leaves)
+
+    def build(node):
+        if _is_node(node):
+            kids = [build(sub) for sub in node]
+            return type(node)(*kids) if hasattr(node, "_fields") \
+                else type(node)(kids)
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
+
+
+def tree_map(fn, tree):
+    return tree_unflatten(tree, [fn(x) for x in tree_leaves(tree)])
