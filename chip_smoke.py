@@ -17,24 +17,27 @@ checkout of the repository. Phases:
    pressure read two dispatches back, ``td_flush_partial`` above
    ``td_stage_cap // 2``), ``td_flush``, ``tick_5s``, ``svc_snapshot``
    + ``svc_rows_to_host`` and ``flow_snapshot``. The kernels' launch
-   counters are zeroed just before and read just after.
+   counters are zeroed just before and read just after: each dispatch
+   launches the fused ``hll_update`` twice and ``cms_update`` and
+   ``inv_update`` once, and no generic scatter kernel.
 3. Checks on the result: live rows, ``n_conn``, ``n_resp_unknown``, each
    service's p50 against the exact median of what it was fed, the CMS
    total against the bytes fed, the global HLL against the distinct
-   flows fed.
+   flows fed. Then where a dispatch's time goes: each half of
+   ``fold_many`` timed alone, and torch.profiler over a few dispatches —
+   device ops, the device's busy share, device time by kernel.
 4. The same slice at the tiny test geometry on the card and on the CPU
    (plain versions), compared leaf by leaf.
-5. Each kernel against its plain version at the shapes the main path
-   launched it with, and timed beside the plain version and the one
-   PyTorch call computing the same function: device time from
-   torch.profiler's CUDA events, and the host's issue rate from CUDA
-   events around back-to-back calls.
-6. Fold rate, memory, the card's name and power limit, the kernels' JSON
-   line, and last the result line.
-
-``--profile`` also prints where a dispatch's time goes: each half of
-``fold_many`` timed alone, the device's busy share under torch.profiler,
-and device time by kernel.
+5. Each fused kernel against its plain version at the inputs one main
+   path dispatch gave it (5a), then each generic scatter kernel at the
+   lanes the plain hash chains give for the same inputs (5b), each timed
+   beside its plain version (and, for the generic kernels, the one
+   PyTorch call computing the same function; for the fused HLL and CMS
+   calls, the route they replaced: hash chain + generic kernel): device
+   time from torch.profiler's CUDA events, and the host's issue rate
+   from CUDA events around back-to-back calls.
+6. Fold rate and device ops a dispatch, memory, the card's name and
+   power limit, the kernels' JSON line, and last the result line.
 """
 
 from __future__ import annotations
@@ -64,17 +67,33 @@ REPS = 100             # launches per kernel timing
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-KERNELS = {
+INT32_OPS_PER_S = 16.7e12   # 132 SMs x 64 INT32 lanes x 1.98 GHz (Hopper
+#                             white paper): the hash arithmetic's type
+
+# the fused kernels of the main path and the Pallas kernel each replaces;
+# each sketch module counts its launches in `launches`
+FUSED_SOURCE = "gyeeta_tpu_torch/csrc/sketch_update.cu"
+FUSED = {
+    "hll_update": "gyeeta_tpu/sketch/pallas_scatter.py:81",
+    "cms_update": "gyeeta_tpu/sketch/pallas_scatter.py:99",
+    "inv_update": "gyeeta_tpu/sketch/pallas_scatter.py:81",
+}
+# the generic scatter kernels, function for function the Pallas calls; the
+# main path no longer launches them
+GENERIC = {
     "scatter_max": "gyeeta_tpu/sketch/pallas_scatter.py:81",
     "scatter_add": "gyeeta_tpu/sketch/pallas_scatter.py:99",
 }
-# (kernel, call site, target shape at ns geometry, dtype) in the order
-# ingest_conn launches them
+# (fused kernel, module, function, target shape at ns geometry, dtype,
+# generic kernel its lanes feed) in the order ingest_conn calls them
 NS_CALLS = (
-    ("scatter_max", "hyperloglog.update_entities", (131072, 1024), "int32"),
-    ("scatter_max", "hyperloglog.update", (16384,), "int32"),
-    ("scatter_add", "countmin.update", (2, 131072), "float32"),
-    ("scatter_max", "invertible.update", (2, 4096), "float32"),
+    ("hll_update", "hyperloglog", "update_entities", (131072, 1024), "int32",
+     "scatter_max"),
+    ("hll_update", "hyperloglog", "update", (16384,), "int32", "scatter_max"),
+    ("cms_update", "countmin", "update", (2, 131072), "float32",
+     "scatter_add"),
+    ("inv_update", "invertible", "write_candidates", (2, 4096), "float32",
+     "scatter_max"),
 )
 
 
@@ -119,7 +138,7 @@ def concat(batches):
     return type(batches[0])(*(np.concatenate(c) for c in zip(*batches)))
 
 
-def ns_phase(torch, scatter, profile: bool):
+def ns_phase(torch, scatter):
     from gyeeta_tpu_torch.engine import aggstate, step
     from gyeeta_tpu_torch.ingest import decode, wire
     from gyeeta_tpu_torch.query import readback
@@ -183,32 +202,35 @@ def ns_phase(torch, scatter, profile: bool):
     log(f"  staged {N_DISTINCT} slabs (sim+wire+decode {host_s:.2f}s, "
         f"{N_DISTINCT * K * (cfg.conn_batch + cfg.resp_batch)} events)")
 
-    # one dispatch that records each kernel call's inputs (phase 5 holds
-    # the kernels against their plain versions at exactly these shapes)
+    # one dispatch that records each fused call's inputs (phase 5 holds
+    # each kernel against its plain version at exactly these shapes)
     captured = []
-    originals = (scatter.scatter_max, scatter.scatter_add)
+    mods = sketch_modules()
+    originals = {(m, f): getattr(mods[m], f) for _, m, f, *_ in NS_CALLS}
 
-    def recorder(kind, fn):
-        def rec(target, idx, val):
-            captured.append((kind, target.clone(), idx.clone(), val.clone()))
-            return fn(target, idx, val)
+    def recorder(mod, fn_name, fn):
+        def rec(sk, *args, **kw):
+            captured.append((mod, fn_name, _clone(sk), _clone(args),
+                             _clone(kw)))
+            return fn(sk, *args, **kw)
         return rec
 
-    scatter.scatter_max = recorder("scatter_max", originals[0])
-    scatter.scatter_add = recorder("scatter_add", originals[1])
+    for (m, f), fn in originals.items():
+        setattr(mods[m], f, recorder(m, f, fn))
     try:
         st = step.fold_many(cfg, st, *slabs[0])
     finally:
-        scatter.scatter_max, scatter.scatter_add = originals
+        for (m, f), fn in originals.items():
+            setattr(mods[m], f, fn)
     uses = [1] + [0] * (N_DISTINCT - 1)
-    got = [(k, tuple(t.shape), str(t.dtype).split(".")[1])
-           for k, t, _, _ in captured]
-    check(got == [(k, s, d) for k, _, s, d in NS_CALLS],
-          f"one dispatch launches {[c[0] for c in NS_CALLS]} at "
-          f"{[c[2] for c in NS_CALLS]}")
+    got = [(m, f, tuple(sk[0].shape), str(sk[0].dtype).split(".")[1])
+           for m, f, sk, _, _ in captured]
+    check(got == [(m, f, s_, d) for _, m, f, s_, d, _ in NS_CALLS],
+          f"one dispatch calls {[f'{m}.{f}' for _, m, f, *_ in NS_CALLS]} "
+          f"at {[c[3] for c in NS_CALLS]}")
 
     # ---- the main path, counted
-    scatter.reset_counts()
+    reset_launches(scatter, mods)
     pressures: deque = deque()
     n_flush = 0
     torch.cuda.synchronize()
@@ -232,8 +254,7 @@ def ns_phase(torch, scatter, profile: bool):
             for k, v in readback.flow_snapshot(cfg, st, 64).items()}
     torch.cuda.synchronize()
     tail_s = time.perf_counter() - t1
-    launches = {"scatter_max": scatter.scatter_max_launches,
-                "scatter_add": scatter.scatter_add_launches}
+    launches = read_launches(scatter, mods)
     ev = K * (cfg.conn_batch + cfg.resp_batch)
     perf = {"dispatches": N_DISPATCH, "events_per_dispatch": ev,
             "fold_s": fold_s, "ms_per_dispatch": fold_s / N_DISPATCH * 1e3,
@@ -245,9 +266,11 @@ def ns_phase(torch, scatter, profile: bool):
         f"{perf['events_per_s']:.0f} events/s, {n_flush} partial flushes); "
         f"td_flush+tick+readback {tail_s:.2f}s")
     log(f"  kernel launches on the main path: {launches}")
-    check(launches == {"scatter_max": 3 * N_DISPATCH,
-                       "scatter_add": N_DISPATCH},
-          "every dispatch launched scatter_max 3x and scatter_add 1x")
+    check(launches == {"hll_update": 2 * N_DISPATCH,
+                       "cms_update": N_DISPATCH, "inv_update": N_DISPATCH,
+                       "scatter_max": 0, "scatter_add": 0},
+          "every dispatch launched hll_update 2x, cms_update 1x and "
+          "inv_update 1x, and no generic scatter kernel")
 
     for (c, r), n in zip(host_slabs, uses):
         fed.conn(concat(c), times=n)
@@ -292,14 +315,44 @@ def ns_phase(torch, scatter, profile: bool):
     perf["max_memory_allocated_gib"] = \
         torch.cuda.max_memory_allocated() / 2**30
     perf["p50_moved_samples"] = n_moved
-    if profile:      # after the checks: these dispatches fold more data
-        st, perf["profile"] = profile_dispatches(torch, cfg, st, step, slabs)
+    # after the checks: these dispatches fold more data
+    st, perf["profile"] = profile_dispatches(torch, cfg, st, step, slabs)
     return st, captured, launches, perf
 
 
 def _leaves(st):
     from gyeeta_tpu_torch.utils.tensor import tree_leaves
     return tree_leaves(st)
+
+
+def sketch_modules():
+    from gyeeta_tpu_torch.sketch import countmin, hyperloglog, invertible
+    return {"hyperloglog": hyperloglog, "countmin": countmin,
+            "invertible": invertible}
+
+
+def reset_launches(scatter, mods) -> None:
+    scatter.reset_counts()
+    for mod in mods.values():
+        mod.launches = 0
+
+
+def read_launches(scatter, mods) -> dict:
+    return {"hll_update": mods["hyperloglog"].launches,
+            "cms_update": mods["countmin"].launches,
+            "inv_update": mods["invertible"].launches,
+            "scatter_max": scatter.scatter_max_launches,
+            "scatter_add": scatter.scatter_add_launches}
+
+
+def _clone(x):
+    """A copy of a tensor, or of a tuple / dict of them."""
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return type(x)(*(_clone(v) for v in x)) if hasattr(x, "_fields") \
+            else tuple(_clone(v) for v in x)
+    return x.clone() if hasattr(x, "clone") else x
 
 
 def _p50_vs_fed(torch, loghist, cfg, fed, rows):
@@ -524,12 +577,151 @@ def timed(torch, fn, reps=REPS):
     return dev_ms, a.elapsed_time(b) / reps
 
 
-def kernel_phase(torch, scatter, captured, launches):
-    log("phase 5: each kernel vs its plain version at the main path's "
-        "shapes (max: exact; add: rtol 1e-6)")
-    calls = {k: [] for k in KERNELS}
-    for (kind, target, idx, val), (_, site, _, _) in zip(captured,
-                                                        NS_CALLS):
+def _bound(nbytes: float, ops: float) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bound_bytes": nbytes,
+            "bound_ops": ops,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+# integer operations a lane (a row, for inv) the fused kernels need: mix64
+# is two fmix32 (5 ops each, two of them multiplies) and 4 more; the HLL
+# adds index, shift, clz, min and the flat address (7); the CMS hashes two
+# streams and per row adds a multiply-add, a high multiply and an address
+# (3); inv hashes its bucket stream and range-maps (16), compares twice
+# (2), and each winner hashes its fingerprint and two masks (24)
+MIX64_OPS = 14
+
+
+def generic_lanes(torch, mods, mod, fn, target, args, kw):
+    """A fused call's plain hash chain → the ``(idx, val)`` lanes the
+    generic scatter kernel took for it before the fusion, and the lane
+    mask of those that change the target."""
+    m = mods[mod]
+    if mod == "hyperloglog":
+        row = args[0] if fn == "update_entities" else None
+        hi, lo = args[-2:] if fn == "update_entities" else args[:2]
+        valid = kw.get("valid")
+        idx, val = m.lanes(target, row, hi, lo, valid)
+    elif mod == "countmin":
+        valid = kw.get("valid")
+        idx, val = m.lanes(target, *args, **kw)
+    else:
+        hi, lo, prio, valid = args
+        _, idx, val = m.lanes(target, hi, lo, torch.where(valid, prio, 0.0))
+    keep = torch.ones_like(idx, dtype=torch.bool) if valid is None \
+        else valid.repeat(idx.numel() // valid.numel())
+    return idx, val, keep
+
+
+def fused_bound(torch, mods, mod, fn, sk, args, kw, after) -> dict:
+    """The least time of a fused call from the bytes it must move (each
+    lane column read once at its dtype, each register / bucket its valid
+    lanes touch read and written once, each won bucket's key and
+    fingerprint written) and its integer operations, at this call's
+    data."""
+    idx, _, keep = generic_lanes(torch, mods, mod, fn, sk[0], args, kw)
+    touched = int(torch.unique(idx[keep]).numel())
+    n = args[-1].numel()
+    lane_bytes = sum(t.element_size() for t in (*args, *kw.values())
+                     if t is not None)
+    if mod == "hyperloglog":
+        return _bound(n * lane_bytes + 8 * touched,
+                      n * (MIX64_OPS + 7)) | {"touched": touched}
+    if mod == "countmin":
+        d = sk.counts.shape[0]
+        return _bound(n * lane_bytes + 8 * touched,
+                      n * (2 * MIX64_OPS + 1 + 3 * d)) | {"touched": touched}
+    d = sk.prio.shape[0]
+    won = int((after.prio > sk.prio).sum())
+    return _bound(n * lane_bytes + 8 * touched + 24 * won,
+                  d * n * (MIX64_OPS + 4) + won * (MIX64_OPS + 10)) \
+        | {"touched": touched, "won": won}
+
+
+def _same_sketch(torch, kind, got, want) -> float:
+    """Hold a fused kernel's state against its plain version's → the
+    largest absolute difference (HLL, inv: exact; CMS: rtol 1e-6)."""
+    err = 0.0
+    for name, a, b in zip(got._fields, got, want):
+        rtol = 1e-6 if kind == "cms_update" else 0
+        torch.testing.assert_close(a, b, rtol=rtol, atol=0,
+                                   msg=lambda m: f"{kind} {name}: {m}")
+        err = max(err, float((a.double() - b.double()).abs().max()))
+    return err
+
+
+def fused_phase(torch, scatter, captured, launches):
+    log("phase 5a: each fused kernel vs its plain version at the main "
+        "path's inputs (hll, inv: exact; cms: rtol 1e-6)")
+    mods = sketch_modules()
+    calls = {k: [] for k in FUSED}
+    for (kind, mod, fn, _, _, generic), (_, _, sk, args, kw) in zip(
+            NS_CALLS, captured):
+        m = mods[mod]
+        kernel, plain = getattr(m, fn), getattr(m, fn + "_plain")
+        got, want = _clone(sk), _clone(sk)
+        kernel(got, *args, **kw)
+        plain(want, *args, **kw)
+        torch.cuda.synchronize()
+        err = _same_sketch(torch, kind, got, want)
+        work = _clone(sk)
+        ms, issue_ms = timed(torch, lambda: kernel(work, *args, **kw))
+        plain_ms, plain_issue_ms = timed(torch, lambda: plain(work, *args,
+                                                              **kw))
+        # the route it replaced: the plain hash chain, then the generic
+        # scatter kernel (hll, cms; inv's election has no such split)
+        chain_ms = None
+        if mod != "invertible":
+            gen = getattr(scatter, generic)
+            chain_ms, _ = timed(torch, lambda: gen(work[0], *generic_lanes(
+                torch, mods, mod, fn, work[0], args, kw)[:2]))
+        c = {"site": f"{mod}.{fn}", "target": list(sk[0].shape),
+             "dtype": str(sk[0].dtype).split(".")[1],
+             "lanes": args[-1].numel(),
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "issue_ms": issue_ms, "plain_issue_ms": plain_issue_ms,
+             "chain_ms": chain_ms}
+        c |= fused_bound(torch, mods, mod, fn, sk, args, kw, want)
+        calls[kind].append(c)
+        log(f"  {kind} @ {c['site']} {c['target']} {c['dtype']}, "
+            f"{c['lanes']} lanes: device kernel {ms * 1e3:.2f} us, plain "
+            f"{plain_ms * 1e3:.2f} us, unfused route (hash chain + generic "
+            f"kernel) {'-' if chain_ms is None else f'{chain_ms * 1e3:.2f}'}"
+            f" us, bound {c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}, "
+            f"{c['bound_bytes']} B); issue rate {issue_ms * 1e3:.1f} / "
+            f"{plain_issue_ms * 1e3:.1f} us per call; max_abs_err {err}")
+    return [_entry(kind, FUSED_SOURCE, FUSED[kind], launches[kind], cs,
+                   library=False) for kind, cs in calls.items()]
+
+
+def _entry(kind, source, replaces, launches, cs, library) -> dict:
+    """A kernel's line of the kernels JSON: per-dispatch totals over its
+    call sites."""
+    return {
+        "name": kind, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(c["max_abs_err"] for c in cs),
+        "ms": sum(c["ms"] for c in cs),
+        "plain_ms": sum(c["plain_ms"] for c in cs),
+        "bound_ms": sum(c["bound_ms"] for c in cs),
+        "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in cs)
+        else "operations",
+        "library_ms": sum(c["library_ms"] for c in cs) if library else None,
+        "calls": cs}
+
+
+def generic_phase(torch, scatter, captured, launches):
+    log("phase 5b: each generic scatter kernel vs its plain version at the "
+        "lanes the fused calls' hash chains give (max: exact; add: rtol "
+        "1e-6)")
+    mods = sketch_modules()
+    calls = {k: [] for k in GENERIC}
+    for (_, mod, fn, _, _, kind), (_, _, sk, args, kw) in zip(NS_CALLS,
+                                                             captured):
+        idx, val, _ = generic_lanes(torch, mods, mod, fn, sk[0], args, kw)
+        target = sk[0]
         wrapper = getattr(scatter, kind)
         plain = getattr(scatter, kind + "_plain")
         got = wrapper(target.clone(), idx, val)
@@ -553,17 +745,15 @@ def kernel_phase(torch, scatter, captured, launches):
         library_ms, library_issue_ms = timed(torch, lib)
         n = idx.numel()
         distinct = int(torch.unique(idx).numel())
-        nbytes = 8 * n + 8 * distinct   # idx+val read; element read+written
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = n / F32_OPS_PER_S * 1e3
+        site = f"{mod}.{fn}"
         c = {"site": site, "target": list(target.shape),
              "dtype": str(target.dtype).split(".")[1], "lanes": n,
              "distinct_targets": distinct, "max_abs_err": err, "ms": ms,
              "plain_ms": plain_ms, "library_ms": library_ms,
              "issue_ms": issue_ms, "plain_issue_ms": plain_issue_ms,
-             "library_issue_ms": library_issue_ms,
-             "bound_ms": max(bytes_ms, ops_ms), "bound_bytes": nbytes,
-             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+             "library_issue_ms": library_issue_ms}
+        # idx + val read once; each element read and written once
+        c |= _bound(8 * n + 8 * distinct, n)
         calls[kind].append(c)
         log(f"  {kind} @ {site} {c['target']} {c['dtype']}, {n} lanes, "
             f"{distinct} targets: device kernel {ms * 1e3:.2f} us, plain "
@@ -571,22 +761,9 @@ def kernel_phase(torch, scatter, captured, launches):
             f"bound {c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}); issue "
             f"rate {issue_ms * 1e3:.1f} / {plain_issue_ms * 1e3:.1f} / "
             f"{library_issue_ms * 1e3:.1f} us per call; max_abs_err {err}")
-    out = []
-    for kind, cs in calls.items():
-        # per-dispatch totals over the kernel's call sites
-        out.append({
-            "name": kind, "route": "cuda",
-            "source": "gyeeta_tpu_torch/csrc/scatter.cu",
-            "replaces": KERNELS[kind], "launches": launches[kind],
-            "max_abs_err": max(c["max_abs_err"] for c in cs),
-            "ms": sum(c["ms"] for c in cs),
-            "plain_ms": sum(c["plain_ms"] for c in cs),
-            "bound_ms": sum(c["bound_ms"] for c in cs),
-            "bound_by": "bytes" if all(c["bound_by"] == "bytes" for c in cs)
-            else "operations",
-            "library_ms": sum(c["library_ms"] for c in cs),
-            "calls": cs})
-    return out
+    return [_entry(kind, "gyeeta_tpu_torch/csrc/scatter.cu", GENERIC[kind],
+                   launches[kind], cs, library=True)
+            for kind, cs in calls.items()]
 
 
 def main(argv) -> int:
@@ -607,25 +784,29 @@ def main(argv) -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    lib = scatter.build()
-    log(f"phase 0: built {lib.relative_to(ROOT)} in "
-        f"{time.perf_counter() - t0:.1f}s")
+    libs = scatter.build()
+    log(f"phase 0: built {', '.join(str(p.relative_to(ROOT)) for p in libs)}"
+        f" in {time.perf_counter() - t0:.1f}s")
 
     torch.cuda.reset_peak_memory_stats()
-    st, captured, launches, perf = ns_phase(torch, scatter,
-                                                 "--profile" in argv)
+    st, captured, launches, perf = ns_phase(torch, scatter)
     del st
     torch.cuda.empty_cache()
     tiny_phase(torch)
-    kernels = kernel_phase(torch, scatter, captured, launches)
+    kernels = fused_phase(torch, scatter, captured, launches) + \
+        generic_phase(torch, scatter, captured, launches)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log("phase 6:")
+    prof = perf["profile"]
     log(f"fold rate: {perf['events_per_s']:.1f} events/s, "
-        f"{perf['ms_per_dispatch']:.4f} ms/dispatch")
+        f"{perf['ms_per_dispatch']:.4f} ms/dispatch; under the profiler "
+        f"{prof['device_ops_per_dispatch']:.1f} device ops/dispatch, device "
+        f"busy {prof['device_busy_ms_per_dispatch']:.4f} of "
+        f"{prof['wall_ms_per_dispatch']:.4f} ms/dispatch")
     log(f"max_memory_allocated: {perf['max_memory_allocated_gib']:.3f} GiB")
     log(json.dumps({"fold": perf}))
     log(smi)

@@ -1,14 +1,20 @@
 """Count-Min sketch as a device tensor.
 
 Counterpart of ``gyeeta_tpu/sketch/countmin.py``: ``(depth, width)``
-f32 counts, row streams from Kirsch-Mitzenmacher double hashing. The
-update flattens every row into one scatter-add with row offsets
-``r*width`` and goes through :func:`scatter.scatter_add`, the CUDA
-kernel on the card. Estimates are upper bounds.
+f32 counts, row streams from Kirsch-Mitzenmacher double hashing.
+Estimates are upper bounds.
+
+On a CUDA tensor :func:`update` launches one fused kernel,
+``gyt_cms_update`` (``csrc/sketch_update.cu``): each lane hashes its key
+once and adds its value to its bucket in every row, each launch counted
+in :data:`launches`. On a CPU tensor it runs :func:`update_plain`: the
+hash chain of :func:`lanes` (every row flattened into one scatter-add
+with row offsets ``r*width``) followed by ``scatter.scatter_add_plain``.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -16,6 +22,10 @@ import torch
 from gyeeta_tpu_torch.device import resolve
 from gyeeta_tpu_torch.sketch import scatter
 from gyeeta_tpu_torch.utils import hashing as H
+
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+
+launches = 0                # gyt_cms_update launches
 
 
 class CMS(NamedTuple):
@@ -28,16 +38,50 @@ def init(depth: int = 4, width: int = 1 << 16, dtype=torch.float32,
                                   device=resolve(device)))
 
 
-def update(sk: CMS, key_hi, key_lo, values, valid=None) -> CMS:
-    """Scatter-add ``values`` for 64-bit keys, in place; padding lanes
-    (``valid`` False) add 0."""
-    depth, width = sk.counts.shape
-    vals = values.to(sk.counts.dtype)
+def lanes(counts: torch.Tensor, key_hi, key_lo, values, valid=None):
+    """The plain hash chain → (flat index int32, value), the
+    ``scatter_add`` lanes of an update: row r's lanes at offset
+    ``r*width``; padding lanes (``valid`` False) add 0."""
+    depth, width = counts.shape
+    vals = values.to(counts.dtype)
     if valid is not None:
         vals = torch.where(valid, vals, torch.zeros_like(vals))
     buckets = H.bucket_indices_km(key_hi, key_lo, depth, width)
     flat_idx = torch.cat([b + r * width for r, b in enumerate(buckets)])
-    scatter.scatter_add(sk.counts, flat_idx, vals.repeat(depth))
+    return flat_idx, vals.repeat(depth)
+
+
+def update_plain(sk: CMS, key_hi, key_lo, values, valid=None) -> CMS:
+    """Plain PyTorch version of :func:`update` (in place)."""
+    scatter.scatter_add_plain(sk.counts, *lanes(sk.counts, key_hi, key_lo,
+                                                values, valid))
+    return sk
+
+
+def update(sk: CMS, key_hi, key_lo, values, valid=None) -> CMS:
+    """Add ``values`` for 64-bit keys into every row, in place; padding
+    lanes (``valid`` False) add nothing."""
+    global launches
+    counts = sk.counts
+    if counts.device.type == "cpu":
+        return update_plain(sk, key_hi, key_lo, values, valid)
+    if counts.dtype != torch.float32 or not counts.is_contiguous():
+        raise TypeError(f"counts must be contiguous float32, got "
+                        f"{counts.dtype}")
+    depth, width = counts.shape
+    n = key_hi.shape[0]
+    dev = counts.device
+    hi = scatter.lane_column(key_hi, torch.int64, n, dev, "key_hi")
+    lo = scatter.lane_column(key_lo, torch.int64, n, dev, "key_lo")
+    vals = scatter.lane_column(values, torch.float32, n, dev, "values")
+    ok = None if valid is None else \
+        scatter.lane_column(valid, torch.bool, n, dev, "valid")
+    if n == 0:
+        return sk
+    scatter.launch("gyt_cms_update", _ARGS, dev, counts.data_ptr(),
+                   hi.data_ptr(), lo.data_ptr(), vals.data_ptr(),
+                   None if ok is None else ok.data_ptr(), n, depth, width)
+    launches += 1
     return sk
 
 

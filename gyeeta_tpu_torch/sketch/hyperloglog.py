@@ -2,12 +2,19 @@
 
 Counterpart of ``gyeeta_tpu/sketch/hyperloglog.py``: a fixed
 2^p-register sketch per entity row (``(..., m)`` int32), updated by
-scatter-max — here always through :func:`scatter.scatter_max`, the CUDA
-kernel on the card — and merged by elementwise max.
+scatter-max and merged by elementwise max.
+
+On a CUDA tensor :func:`update` and :func:`update_entities` launch one
+fused kernel, ``gyt_hll_update`` (``csrc/sketch_update.cu``): hash,
+register index, rank and ``atomicMax`` in one pass over the keys, each
+launch counted in :data:`launches`. On a CPU tensor they run their plain
+versions (:func:`update_plain`, :func:`update_entities_plain`): the
+hash chain of :func:`lanes` followed by ``scatter.scatter_max_plain``.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -17,7 +24,11 @@ from gyeeta_tpu_torch.device import resolve
 from gyeeta_tpu_torch.sketch import scatter
 from gyeeta_tpu_torch.utils import hashing as H
 
-_HLL_SALT = 0x1F123BB5
+_HLL_SALT = 0x1F123BB5      # csrc/sketch_update.cu kHllSalt
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_longlong]
+
+launches = 0                # gyt_hll_update launches
 
 
 class HLL(NamedTuple):
@@ -43,28 +54,81 @@ def _idx_rank(key_hi, key_lo, p: int):
     return idx, rank
 
 
-def update(sk: HLL, key_hi, key_lo, valid=None) -> HLL:
-    """Global (no entity axis) register update, in place. Rank is
-    pre-masked to 0 on invalid lanes (a max-with-0 no-op)."""
-    p = int(np.log2(sk.regs.shape[-1]))
+def lanes(regs: torch.Tensor, entity_row, key_hi, key_lo, valid=None):
+    """The plain hash chain → (flat register index int32, rank int32),
+    the ``scatter_max`` lanes of an update. ``entity_row`` None: the
+    global update (no entity axis). Invalid lanes carry rank 0 at row 0
+    (a max-with-0 no-op)."""
+    m = regs.shape[-1]
+    p = int(np.log2(m))
     idx, rank = _idx_rank(key_hi, key_lo, p)
     if valid is not None:
         rank = torch.where(valid, rank, 0)
-    scatter.scatter_max(sk.regs, idx, rank.to(torch.int32))
+        if entity_row is not None:
+            entity_row = torch.where(valid, entity_row, 0)
+    if entity_row is not None:
+        idx = (entity_row.to(torch.int64) * m + idx).to(torch.int32)
+    return idx, rank.to(torch.int32)
+
+
+def update_plain(sk: HLL, key_hi, key_lo, valid=None) -> HLL:
+    """Plain PyTorch version of :func:`update` (in place)."""
+    scatter.scatter_max_plain(sk.regs, *lanes(sk.regs, None, key_hi, key_lo,
+                                              valid))
+    return sk
+
+
+def update_entities_plain(sk: HLL, entity_row, key_hi, key_lo,
+                          valid=None) -> HLL:
+    """Plain PyTorch version of :func:`update_entities` (in place)."""
+    scatter.scatter_max_plain(sk.regs, *lanes(sk.regs, entity_row, key_hi,
+                                              key_lo, valid))
+    return sk
+
+
+def _launch(regs: torch.Tensor, entity_row, key_hi, key_lo, valid) -> None:
+    global launches
+    if regs.dtype != torch.int32 or not regs.is_contiguous():
+        raise TypeError(f"registers must be contiguous int32, got "
+                        f"{regs.dtype}")
+    m = regs.shape[-1]
+    p = m.bit_length() - 1
+    if m != 1 << p or not 1 <= p <= 31:
+        raise ValueError(f"{m} registers a row: need 2^p, 1 <= p <= 31")
+    n = key_hi.shape[0]
+    dev = regs.device
+    hi = scatter.lane_column(key_hi, torch.int64, n, dev, "key_hi")
+    lo = scatter.lane_column(key_lo, torch.int64, n, dev, "key_lo")
+    row = None if entity_row is None else \
+        scatter.lane_column(entity_row, torch.int64, n, dev, "entity_row")
+    ok = None if valid is None else \
+        scatter.lane_column(valid, torch.bool, n, dev, "valid")
+    if n == 0:
+        return
+    scatter.launch("gyt_hll_update", _ARGS, dev, regs.data_ptr(),
+                   hi.data_ptr(), lo.data_ptr(),
+                   None if row is None else row.data_ptr(),
+                   None if ok is None else ok.data_ptr(), n, p,
+                   regs.numel() // m)
+    launches += 1
+
+
+def update(sk: HLL, key_hi, key_lo, valid=None) -> HLL:
+    """Global (no entity axis) register update, in place; lanes whose
+    ``valid`` is False write nothing."""
+    if sk.regs.device.type == "cpu":
+        return update_plain(sk, key_hi, key_lo, valid)
+    _launch(sk.regs, None, key_hi, key_lo, valid)
     return sk
 
 
 def update_entities(sk: HLL, entity_row, key_hi, key_lo, valid=None) -> HLL:
     """Per-entity update, in place: scatter-max at (entity_row, register),
-    flattened to ``row*m + register``."""
-    m = sk.regs.shape[-1]
-    p = int(np.log2(m))
-    idx, rank = _idx_rank(key_hi, key_lo, p)
-    if valid is not None:
-        rank = torch.where(valid, rank, 0)
-        entity_row = torch.where(valid, entity_row, 0)
-    flat_idx = (entity_row.to(torch.int64) * m + idx).to(torch.int32)
-    scatter.scatter_max(sk.regs, flat_idx, rank.to(torch.int32))
+    flattened to ``row*m + register``. A valid lane's row must lie in
+    the register file (the kernel traps otherwise)."""
+    if sk.regs.device.type == "cpu":
+        return update_entities_plain(sk, entity_row, key_hi, key_lo, valid)
+    _launch(sk.regs, entity_row, key_hi, key_lo, valid)
     return sk
 
 

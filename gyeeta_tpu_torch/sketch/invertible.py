@@ -4,15 +4,22 @@ Counterpart of ``gyeeta_tpu/sketch/invertible.py`` (update side; decode
 comes with heavy-hitter recovery in a later slice): a ``(depth, width)``
 bucket array where each bucket keeps the key with the highest CMS
 priority that ever hashed there, XOR-folded with a fingerprint-derived
-mask. The ``prio`` scatter-max goes through :func:`scatter.scatter_max`
-(f32; the CUDA kernel on the card). Candidate replacement settles one
-winner per bucket by lexicographic (prio, key_hi, key_lo) max rounds, so
-duplicate lanes of one key write identical values and the result never
-depends on scatter order.
+mask. Candidate replacement settles one winner per bucket by
+lexicographic (prio, key_hi, key_lo) max rounds, so duplicate lanes of
+one key write identical values and the result never depends on scatter
+order.
+
+:func:`update` keeps the hot count and the budgeted candidate selection
+in PyTorch and hands the surviving lanes to :func:`write_candidates`. On
+a CUDA tensor that launches one fused kernel, ``gyt_inv_update``
+(``csrc/sketch_update.cu``: the priority scatter-max and the winner
+election of each row in shared memory), counted in :data:`launches`; on
+a CPU tensor it runs :func:`write_candidates_plain`.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -23,10 +30,14 @@ from gyeeta_tpu_torch.sketch import scatter
 from gyeeta_tpu_torch.utils import hashing as H
 from gyeeta_tpu_torch.utils.tensor import set_drop, top_k
 
+# the kernel's own copies: csrc/sketch_update.cu kInvSalt* / kInvMask*
 _SALT_BUCKET = 0x1B5E12A7
 _SALT_FP = 0x7F4A7C15
 _MASK_HI = 0xA5A5A5A5
 _MASK_LO = 0x5A5A5A5A
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+
+launches = 0                # gyt_inv_update launches
 
 
 class InvSketch(NamedTuple):
@@ -66,32 +77,26 @@ def encode_key(key_hi, key_lo, fp):
             H.u32(key_lo) ^ H.fmix32(fp ^ _MASK_LO))
 
 
-def update(sk: InvSketch, key_hi, key_lo, prio, valid,
-           hot=None, budget: int = 0) -> InvSketch:
-    """Fold a batch of key lanes with per-lane ``prio``, in place.
+def lanes(prio: torch.Tensor, key_hi, key_lo, pr):
+    """The plain hash chain of the priority update → (per-row bucket
+    indices, flat index int32, value): the ``scatter_max`` lanes, row
+    r's at offset ``r*width``, ``pr`` pre-masked (0 on invalid lanes)."""
+    d, w = prio.shape
+    bks = buckets(key_hi, key_lo, d, w)
+    flat_idx = torch.cat([b + r * w for r, b in enumerate(bks)])
+    return bks, flat_idx, pr.repeat(d)
 
-    ``hot``: optional bool mask of lanes at/above the hot admission
-    threshold (counted into ``n_hot`` before compaction). ``budget``:
-    only the ``budget`` highest-priority lanes enter the candidate
-    writes (0 = every lane competes)."""
-    d, w = sk.prio.shape
+
+def write_candidates_plain(sk: InvSketch, key_hi, key_lo, prio,
+                           valid) -> None:
+    """Plain PyTorch version of :func:`write_candidates` (in place)."""
+    w = sk.prio.shape[1]
     key_hi = H.u32(key_hi)
     key_lo = H.u32(key_lo)
     pr = torch.where(valid, prio.to(torch.float32), 0.0)
-    n = key_hi.shape[0]
-    n_hot = sk.n_hot
-    if hot is not None:
-        n_hot = n_hot + torch.sum(valid & hot).to(torch.float32)
-    if 0 < budget < n:
-        score = torch.where(valid, pr, -1.0)
-        _, sel = top_k(score, budget)
-        key_hi, key_lo = key_hi[sel], key_lo[sel]
-        pr = torch.where(score[sel] >= 0, pr[sel], 0.0)
-        valid = valid[sel] & (score[sel] >= 0)
-    bks = buckets(key_hi, key_lo, d, w)
+    bks, flat_idx, flat_pr = lanes(sk.prio, key_hi, key_lo, pr)
     old = [sk.prio[r][b.to(torch.int64)] for r, b in enumerate(bks)]
-    flat_idx = torch.cat([b + r * w for r, b in enumerate(bks)])
-    scatter.scatter_max(sk.prio, flat_idx, pr.repeat(d))
+    scatter.scatter_max_plain(sk.prio, flat_idx, flat_pr)
 
     fp_l = fingerprint(key_hi, key_lo)
     e_hi, e_lo = encode_key(key_hi, key_lo, fp_l)
@@ -109,4 +114,59 @@ def update(sk: InvSketch, key_hi, key_lo, prio, valid,
         set_drop(sk.enc_hi[r], bl, e_hi, win)
         set_drop(sk.enc_lo[r], bl, e_lo, win)
         set_drop(sk.fp[r], bl, fp_l, win)
+
+
+def write_candidates(sk: InvSketch, key_hi, key_lo, prio, valid) -> None:
+    """Fold lanes with priority ``prio`` (0 where ``valid`` is False) into
+    the buckets, in place: each bucket's priority becomes its max, and a
+    lane that strictly raised it, with the largest (key_hi, key_lo) among
+    such lanes, writes its encoded key and fingerprint there."""
+    global launches
+    if sk.prio.device.type == "cpu":
+        write_candidates_plain(sk, key_hi, key_lo, prio, valid)
+        return
+    d, w = sk.prio.shape
+    if sk.prio.dtype != torch.float32 or any(
+            t.dtype != torch.int64 for t in (sk.enc_hi, sk.enc_lo, sk.fp)):
+        raise TypeError("prio must be float32 and enc_hi/enc_lo/fp int64")
+    if not all(t.is_contiguous() and t.shape == (d, w)
+               for t in (sk.prio, sk.enc_hi, sk.enc_lo, sk.fp)):
+        raise ValueError("prio, enc_hi, enc_lo and fp must be contiguous "
+                         f"({d}, {w})")
+    n = key_hi.shape[0]
+    dev = sk.prio.device
+    hi = scatter.lane_column(key_hi, torch.int64, n, dev, "key_hi")
+    lo = scatter.lane_column(key_lo, torch.int64, n, dev, "key_lo")
+    pr = scatter.lane_column(prio, torch.float32, n, dev, "prio")
+    ok = scatter.lane_column(valid, torch.bool, n, dev, "valid")
+    if n == 0:
+        return
+    scatter.launch(
+        "gyt_inv_update", _ARGS, dev, sk.prio.data_ptr(),
+        sk.enc_hi.data_ptr(), sk.enc_lo.data_ptr(), sk.fp.data_ptr(),
+        hi.data_ptr(), lo.data_ptr(), pr.data_ptr(), ok.data_ptr(), n, d, w,
+        refused=f"a row of {w} buckets needs {12 * w} B of shared memory, "
+        "more than a block of this card may use")
+    launches += 1
+
+
+def update(sk: InvSketch, key_hi, key_lo, prio, valid,
+           hot=None, budget: int = 0) -> InvSketch:
+    """Fold a batch of key lanes with per-lane ``prio``, in place.
+
+    ``hot``: optional bool mask of lanes at/above the hot admission
+    threshold (counted into ``n_hot`` before compaction). ``budget``:
+    only the ``budget`` highest-priority lanes enter the candidate
+    writes (0 = every lane competes)."""
+    prio = prio.to(torch.float32)
+    n = key_hi.shape[0]
+    n_hot = sk.n_hot
+    if hot is not None:
+        n_hot = n_hot + torch.sum(valid & hot).to(torch.float32)
+    if 0 < budget < n:
+        score = torch.where(valid, prio, -1.0)
+        _, sel = top_k(score, budget)
+        key_hi, key_lo, prio = key_hi[sel], key_lo[sel], prio[sel]
+        valid = valid[sel] & (score[sel] >= 0)
+    write_candidates(sk, key_hi, key_lo, prio, valid)
     return sk._replace(n_hot=n_hot)

@@ -1,25 +1,31 @@
-"""Scatter-max / scatter-add register updates: the port of the two Pallas
-kernels (``gyeeta_tpu/sketch/pallas_scatter.py``).
+"""Scatter-max / scatter-add register updates, the function-for-function
+port of the two Pallas kernels (``gyeeta_tpu/sketch/pallas_scatter.py``),
+and the build of every kernel in ``gyeeta_tpu_torch/csrc``.
 
-- :func:`scatter_max` — ``regs.flat[idx] = max(regs.flat[idx], val)``:
-  the HLL register writes (int32, ``hyperloglog.update`` and
-  ``update_entities``) and the invertible-sketch priorities (f32,
-  ``invertible.update``). Replaces ``_scatter_max_call``.
-- :func:`scatter_add` — ``counts.flat[idx] += val``: the Count-Min rows
-  (f32, ``countmin.update``). Replaces ``_scatter_add_call``.
+- :func:`scatter_max` — ``regs.flat[idx] = max(regs.flat[idx], val)``,
+  int32 or f32. Replaces ``_scatter_max_call``.
+- :func:`scatter_add` — ``counts.flat[idx] += val``, f32. Replaces
+  ``_scatter_add_call``.
 
 Both update their first argument in place (the Pallas kernels alias it
 to their output) and return it. ``val`` must be pre-masked by the
-caller: padding lanes carry 0.
+caller: padding lanes carry 0. The sketch updates of the fold path do
+not call them on the card: there each launches one fused hash → bucket →
+atomic kernel of ``csrc/sketch_update.cu`` (``hyperloglog``,
+``countmin``, ``invertible``), and their plain versions are the hash
+chain followed by :func:`scatter_max_plain` / :func:`scatter_add_plain`.
 
 On a CUDA tensor each wrapper launches its kernel from
-``csrc/scatter.cu`` (built with ``nvcc`` for ``sm_90a`` at first use
-into ``build/kernels/``, keyed on a hash of the source, and loaded with
-``ctypes``) and counts the launch in ``scatter_max_launches`` /
+``csrc/scatter.cu`` and counts the launch in ``scatter_max_launches`` /
 ``scatter_add_launches``. On a CPU tensor it runs the plain PyTorch
 version (:func:`scatter_max_plain`, :func:`scatter_add_plain`), the
-reference the kernels are held against. Nothing falls back from the
-kernel to the plain version.
+reference the kernels are held against. Nothing falls back from a
+kernel to a plain version.
+
+:func:`build` compiles each source of ``csrc`` with ``nvcc`` for
+``sm_90a`` into its own shared library under ``build/kernels/``, keyed
+on a hash of the source, the headers and the flags, all sources at once;
+:func:`kernel` loads them with ``ctypes`` at first use.
 """
 
 from __future__ import annotations
@@ -33,16 +39,21 @@ from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-_SOURCES = (_PKG / "csrc" / "scatter.cu",)
-BUILD_DIR = _PKG.parent / "build" / "kernels"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+# one shared library per source, all built at once
+_SOURCES = (_CSRC / "scatter.cu", _CSRC / "sketch_update.cu")
+_HEADERS = (_CSRC / "hash32.cuh",)
+BUILD_DIR = _CSRC.parents[1] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+_SCATTER_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_int]
 
 scatter_max_launches = 0
 scatter_add_launches = 0
 
-_lib = None
+_libs = None
+_fns: dict = {}
 
 
 def _nvcc() -> str:
@@ -54,43 +65,88 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build csrc/scatter.cu")
+                           "build the kernels in gyeeta_tpu_torch/csrc")
     return found
 
 
-def build() -> Path:
-    """Compile the kernels (once per source hash) → the shared library."""
-    h = hashlib.sha256()
-    for src in _SOURCES:
-        h.update(src.read_bytes())
+def _lib_path(src: Path) -> Path:
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in _HEADERS:
+        h.update(hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"libgyt_scatter_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
+    return BUILD_DIR / f"libgyt_{src.stem}_{h.hexdigest()[:16]}.so"
+
+
+def build() -> list:
+    """Compile each source that has no library for its hash yet (every
+    ``nvcc`` started at once) → the shared libraries, in source order."""
+    outs = [_lib_path(s) for s in _SOURCES]
+    todo = [(s, o) for s, o in zip(_SOURCES, outs) if not o.exists()]
+    if not todo:
+        return outs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, out)
-    return out
+    nvcc = _nvcc()
+    jobs = []
+    for src, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        jobs.append((cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for cmd, tmp, out, proc in jobs:
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{text}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name in ("gyt_scatter_max_i32", "gyt_scatter_max_f32",
-                     "gyt_scatter_add_f32"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def kernel(name: str, argtypes: list):
+    """The C entry ``name`` of the built libraries, declared as taking
+    ``argtypes`` and then the stream, and returning an int."""
+    global _libs
+    fn = _fns.get(name)
+    if fn is None:
+        if _libs is None:
+            _libs = [ctypes.CDLL(str(p)) for p in build()]
+        lib = next((lb for lb in _libs if hasattr(lb, name)), None)
+        if lib is None:
+            raise RuntimeError(f"no kernel library exports {name}")
+        fn = getattr(lib, name)
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def launch(name: str, argtypes: list, device: torch.device, *args,
+           refused: str = "") -> None:
+    """Launch the C entry ``name`` on ``device``'s current stream. Raises
+    on a CUDA error, and with ``refused`` when the entry returns -1 (the
+    shapes it was given do not fit the kernel)."""
+    fn = kernel(name, argtypes)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err == -1:
+        raise ValueError(f"{name}: {refused}")
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def lane_column(t: torch.Tensor, dtype: torch.dtype, n: int,
+                device: torch.device, what: str) -> torch.Tensor:
+    """A kernel's ``(n,)`` lane column as a contiguous ``dtype`` tensor
+    on ``device`` (no copy when it already is one), or raise."""
+    if t.dim() != 1 or t.shape[0] != n:
+        raise ValueError(f"{what}: shape {tuple(t.shape)}, want ({n},)")
+    if t.device != device:
+        raise ValueError(f"{what} on {t.device}, the state on {device}")
+    return t.to(dtype).contiguous()
 
 
 def _check(target: torch.Tensor, idx: torch.Tensor, val: torch.Tensor,
@@ -122,13 +178,8 @@ def _launch(name: str, target, idx, val) -> bool:
     n = idx.numel()
     if n == 0:
         return False
-    with torch.cuda.device(target.device):
-        stream = torch.cuda.current_stream(target.device).cuda_stream
-        err = getattr(_load(), name)(
-            target.data_ptr(), idx.data_ptr(), val.data_ptr(), n,
-            target.numel(), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launch(name, _SCATTER_ARGS, target.device, target.data_ptr(),
+           idx.data_ptr(), val.data_ptr(), n, target.numel())
     return True
 
 
