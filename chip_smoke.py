@@ -27,7 +27,11 @@ checkout of the repository. Phases:
    ``fold_many`` timed alone, and torch.profiler over a few dispatches —
    device ops, the device's busy share, device time by kernel.
 4. The same slice at the tiny test geometry on the card and on the CPU
-   (plain versions), compared leaf by leaf.
+   (plain versions), compared leaf by leaf; then (4b) the fold_all
+   stream of ``tests/test_torch_fold_all.py`` — every sweep section and
+   a conn/resp slab with split halves a dispatch, then the tick's
+   classify / age / compact — card vs CPU over all 85 AggState and 29
+   DepGraph leaves.
 5. Each fused kernel against its plain version at the inputs one main
    path dispatch gave it (5a), then each generic scatter kernel at the
    lanes the plain hash chains give for the same inputs (5b), each timed
@@ -36,8 +40,23 @@ checkout of the repository. Phases:
    calls, the route they replaced: hash chain + generic kernel): device
    time from torch.profiler's CUDA events, and the host's issue rate
    from CUDA events around back-to-back calls.
+7. ``fold_all`` at north-star geometry on a fresh state (dep capacities
+   65,536 pairs / 524,288 edges, the runtime's section lanes): four
+   ticks, each 64 dispatches of a K=16 conn/resp slab (one conn lane in
+   eight a split half) carrying that tick's sweep (65,536 listeners,
+   4,096 process groups, 512 hosts' state and cpu/mem, pings, traces of
+   256 services), then the tick's upkeep, each step timed. The kernels'
+   launch counters are zeroed before and read after. Checks: live
+   services, edges = the distinct (client, service) pairs fed,
+   ``n_paired`` = the split flows fed, no drops, ``api_tbl.n_live`` =
+   the (svc, api) keys fed, ``classify_pass`` on the card = the port's
+   CPU run on the same state, the pressure scalar. Then ms per dispatch
+   (connresp only, with sections), the synchronised dependency-fold
+   share, host syncs a dispatch (CUDA sync debug mode, with their
+   lines) and device ops and busy share under torch.profiler.
 6. Fold rate and device ops a dispatch, memory, the card's name and
-   power limit, the kernels' JSON line, and last the result line.
+   power limit, the JSON lines (fold, fold_all, kernels), and last the
+   result line.
 """
 
 from __future__ import annotations
@@ -505,33 +524,122 @@ def tiny_run(device):
     return aggstate.state_to_numpy(st), np.concatenate(resp), cfg
 
 
-def tiny_phase(torch):
-    from gyeeta_tpu_torch.engine import aggstate
-    from gyeeta_tpu_torch.sketch import loghist
-    from gyeeta_tpu_torch.utils.tensor import tree_paths
+TINY_DEP = (64, 256)        # pair chunks of 16 lanes
+TINY_K, TINY_B = 3, 40      # 120 conn lanes: 7 chunks + a remainder
 
-    log("phase 4: tiny geometry, card vs CPU (plain versions)")
-    gpu, resp, cfg = tiny_run(DEV)
-    cpu, _, _ = tiny_run("cpu")
-    tv = torch.from_numpy(resp)
-    moved = int((loghist.bucket_of(cfg.resp_spec, tv).numpy()
-                 != loghist.bucket_of(cfg.resp_spec, tv.to(DEV)).cpu()
-                 .numpy()).sum())
-    log(f"  resp samples whose bucket CUDA's logf moves: {moved}")
-    names = tree_paths(aggstate.init(cfg, "meta"))
+
+def tiny_fold_all_run(device):
+    """The fold_all stream of tests/test_torch_fold_all.py: four ticks,
+    each one dispatch of every sweep section + a conn/resp slab with
+    split halves (some partnered a tick later, some never), then
+    td_flush → classify_pass → tick_5s → depgraph.age → age_tasks /
+    age_apis → delete_services (tick 1) → compact_state / compact_tasks
+    → (state leaves, dep leaves, {spec name: loghist inputs fed}, cfg)."""
+    import torch
+    from gyeeta_tpu_torch.engine import aggstate, compact, step
+    from gyeeta_tpu_torch.ingest import decode, wire
+    from gyeeta_tpu_torch.parallel import depgraph
+    from gyeeta_tpu_torch.semantic import derive
+    from gyeeta_tpu_torch.sim import ParthaSim
+    from gyeeta_tpu_torch.sketch import loghist
+
+    cfg = tiny_cfg(aggstate, loghist)._replace(
+        n_hosts=8, task_capacity=128, api_capacity=256)
+    sim = ParthaSim(n_hosts=8, n_svcs=4, n_clients=256)
+    st = aggstate.init(cfg, device)
+    dep = depgraph.init(*TINY_DEP, device)
+    fed = {k: [] for k in ("resp_spec", "apiresp_spec", "qps_spec",
+                           "active_spec", "taskcpu_spec")}
+    dev = lambda b: decode.to_device(b, device)  # noqa: E731
+    late = None
+    for tick in range(4):
+        tasks = sim.aggr_task_records()
+        tasks = tasks[:8] if tick == 2 else tasks
+        pings = np.zeros(8, wire.TASK_PING_DT)
+        pings["aggr_task_id"] = tasks["aggr_task_id"][-8:]
+        pings["host_id"] = tasks["host_id"][-8:]
+        lb = decode.listener_batch(sim.listener_state_records(), 48)
+        tb = decode.task_batch(tasks, 80)
+        secs = dict(
+            listener=lb,
+            host=decode.host_batch(sim.host_state_records(), 16),
+            task=tb,
+            cpumem=decode.cpumem_batch(sim.cpu_mem_records(
+                hot_cpu=[tick % 8], hot_mem=[(tick + 3) % 8]), 16),
+            trace=decode.trace_batch(sim.trace_records(80), 96),
+            ping=decode.ping_batch(pings, 16))
+        fed["qps_spec"].append(lb.stats[lb.valid, decode.STAT_NQRYS] / 5.0)
+        fed["active_spec"].append(
+            lb.stats[lb.valid, decode.STAT_NCONNS_ACTIVE])
+        fed["taskcpu_spec"].append(tb.stats[tb.valid, decode.TASK_CPU_PCT])
+        fed["apiresp_spec"].append(
+            secs["trace"].resp_us[secs["trace"].valid])
+        cbs, rbs = [], []
+        for k in range(TINY_K):
+            cli, ser = sim.svc_conn_records(8, split_halves=True)
+            parts = [sim.conn_records(12), sim.svc_conn_records(4), cli]
+            if k < TINY_K - 1:
+                parts.append(ser)
+            elif tick % 2 == 0:
+                late = ser
+            if k == 0 and late is not None and tick % 2 == 1:
+                parts.append(late)
+            cbs.append(decode.conn_batch(np.concatenate(parts), TINY_B))
+            rbs.append(decode.resp_batch(sim.resp_records(TINY_B), TINY_B))
+            fed["resp_spec"].append(rbs[-1].resp_us[rbs[-1].valid])
+        st, dep, _ = step.fold_all(
+            cfg, st, dep, tick, connresp=(dev(cbs), dev(rbs)),
+            **{k: dev(v) for k, v in secs.items()})
+        st = step.td_flush(cfg, st)
+        st = derive.classify_pass(cfg, st)
+        st = step.tick_5s(cfg, st)
+        dep = depgraph.age(dep, tick, 1, 2)
+        st = step.age_tasks(cfg, st, 1)
+        st = step.age_apis(cfg, st, 2)
+        if tick == 1:
+            gid = sim.glob_ids[0, :2]
+            st, _ = compact.delete_services(
+                cfg, st,
+                torch.from_numpy((gid >> np.uint64(32)).astype(np.int64))
+                .to(device),
+                torch.from_numpy((gid & np.uint64(0xFFFFFFFF))
+                                 .astype(np.int64)).to(device))
+        st = compact.compact_state(cfg, st)
+        st = step.compact_tasks(cfg, st)
+    return (aggstate.state_to_numpy(st), depgraph.dep_to_numpy(dep),
+            {k: np.concatenate(v).astype(np.float32)
+             for k, v in fed.items()}, cfg)
+
+
+# loghist leaves of each spec: a sample whose bucket CUDA's logf moves is
+# one count in a neighbouring bucket there
+HIST_LEAVES = {"resp_spec": "resp_win.", "apiresp_spec": "api_resp_hist",
+               "qps_spec": "qps_hist", "active_spec": "active_hist",
+               "taskcpu_spec": "task_cpu_hist"}
+
+
+def _moved(torch, loghist, spec, values) -> int:
+    tv = torch.from_numpy(np.ascontiguousarray(values, np.float32))
+    return int((loghist.bucket_of(spec, tv).numpy()
+                != loghist.bucket_of(spec, tv.to(DEV)).cpu().numpy()).sum())
+
+
+def _compare_leaves(names, cpu, gpu, moved: dict) -> tuple:
+    """Card vs CPU, leaf by leaf → (n exact, n within tolerance)."""
     n_exact = n_close = 0
     for name, a, b in zip(names, cpu, gpu):
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"{name}: {a.shape}/{a.dtype} vs "
                                  f"{b.shape}/{b.dtype}")
-        if name.startswith("resp_win.") and a.dtype.kind == "f" and moved:
-            # a moved sample is one count in a neighbouring bucket
-            if np.abs(a - b).sum() > 2 * moved:
-                raise AssertionError(f"{name}: differs beyond {moved} "
+        n_moved = sum(n for spec, n in moved.items()
+                      if name.startswith(HIST_LEAVES[spec]))
+        if a.dtype.kind == "f" and n_moved:
+            if np.abs(a - b).sum() > 2 * n_moved:
+                raise AssertionError(f"{name}: differs beyond {n_moved} "
                                      "moved samples")
             n_close += 1
         elif a.dtype.kind != "f" or name in ("inv.prio", "svc_td.vmin",
-                                             "svc_td.vmax"):
+                                             "svc_td.vmax", "h_bytes"):
             np.testing.assert_array_equal(b, a, err_msg=name)
             n_exact += 1
         else:
@@ -541,9 +649,47 @@ def tiny_phase(torch):
             np.testing.assert_allclose(b, a, rtol=rtol, atol=0,
                                        err_msg=name)
             n_close += 1
+    return n_exact, n_close
+
+
+def tiny_phase(torch):
+    from gyeeta_tpu_torch.engine import aggstate
+    from gyeeta_tpu_torch.parallel import depgraph
+    from gyeeta_tpu_torch.sketch import loghist
+    from gyeeta_tpu_torch.utils.tensor import tree_paths
+
+    log("phase 4: tiny geometry, card vs CPU (plain versions)")
+    gpu, resp, cfg = tiny_run(DEV)
+    cpu, _, _ = tiny_run("cpu")
+    moved = _moved(torch, loghist, cfg.resp_spec, resp)
+    log(f"  resp samples whose bucket CUDA's logf moves: {moved}")
+    names = tree_paths(aggstate.init(cfg, "meta"))
+    n_exact, n_close = _compare_leaves(names, cpu, gpu,
+                                       {"resp_spec": moved})
     check(len(names) == len(cpu) == 85,
           f"85 leaves agree ({n_exact} exactly, {n_close} within "
           "tolerance)")
+
+    log("phase 4b: the fold_all stream and ticks at tiny geometry, card "
+        "vs CPU")
+    g_st, g_dep, fed, cfg = tiny_fold_all_run(DEV)
+    c_st, c_dep, _, _ = tiny_fold_all_run("cpu")
+    moved = {k: _moved(torch, loghist, getattr(cfg, k), v)
+             for k, v in fed.items()}
+    log(f"  loghist inputs whose bucket CUDA's logf moves: {moved}")
+    n_exact, n_close = _compare_leaves(names, c_st, g_st, moved)
+    check(len(c_st) == len(g_st) == 85,
+          f"AggState: 85 leaves agree ({n_exact} exactly, {n_close} within "
+          "tolerance)")
+    dnames = tree_paths(depgraph.init(1, 1, "meta"))
+    n_exact, n_close = _compare_leaves(dnames, c_dep, g_dep, {})
+    check(len(c_dep) == len(g_dep) == 29,
+          f"DepGraph: 29 leaves agree ({n_exact} exactly, {n_close} within "
+          "tolerance)")
+    at = dict(zip(names, g_st))
+    check(len(np.unique(at["svc_state"])) >= 3
+          and float(dict(zip(dnames, g_dep))["n_paired"]) > 0,
+          "the stream classified services into 3+ states and paired halves")
 
 
 # ----------------------------------------------------------- phase 5
@@ -766,6 +912,458 @@ def generic_phase(torch, scatter, captured, launches):
             for kind, cs in calls.items()]
 
 
+# ----------------------------------------------------------- phase 7
+NS_DEP = (65536, 524288)    # bench.py:_geometry("ns") pair/edge capacity
+# section lanes of the runtime's fused slab (runtime.py:_slab_lanes)
+NS_LANES = dict(listener=1024, host=4096, task=2400, cpumem=4096,
+                trace=4096, ping=2048)
+NS_TICKS = 4
+TICK_DISPATCHES = 64        # 65,536 listeners at 1,024 lanes a dispatch
+SPLIT_FLOWS = 128           # split flows a microbatch: 256 of its 2,048
+#                             conn lanes are halves (one in eight)
+TRACE_SVCS = 256            # services with tracing on: 1,280 (svc, api)
+TRACE_DRAWS = 3800 * 256    # trace records drawn a tick (~3,800 kept)
+# the runtime's defaults (gyeeta_tpu/utils/config.py)
+PAIR_TTL, EDGE_TTL, TASK_AGE, API_AGE = 24, 720, 36, 360
+SYNC_SITES = ("gyeeta_tpu_torch",)
+
+
+def _u64(hi, lo):
+    return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+
+
+def _edges_of(cb):
+    """The (client entity, service) edges a conn batch's two-sided lanes
+    fold (halves_from_conn's rule), as a set of 128-bit int pairs."""
+    rel = (cb.cli_rel_hi | cb.cli_rel_lo) != 0
+    cli = np.where(rel, _u64(cb.cli_rel_hi, cb.cli_rel_lo),
+                   _u64(cb.cli_task_hi, cb.cli_task_lo))
+    svc = _u64(cb.svc_hi, cb.svc_lo)
+    ok = cb.valid & (cli != 0) & (svc != 0)
+    return set(zip(cli[ok].tolist(), svc[ok].tolist()))
+
+
+def split_slab(sim, cfg, decode, wire):
+    """K conn microbatches (7 in 8 lanes plain flows, 1 in 8 split
+    halves) + K resp microbatches. Each split flow's client half lands
+    in microbatch k and its server half in k+K/2 (mod K): the other
+    pairing chunk, before or after it. Flow keys of the split flows are
+    unique within the slab (a repeated key is dropped with both its
+    halves), so every flow fed pairs exactly once a dispatch → (conns,
+    resps, n split flows, their (caller, callee) edges)."""
+    seen, edges = set(), set()
+    cli_parts = [[] for _ in range(K)]
+    ser_parts = [[] for _ in range(K)]
+    for k in range(K):
+        cli, ser = sim.svc_conn_records(SPLIT_FLOWS, split_halves=True)
+        cb = decode.conn_batch(cli, len(cli))
+        keep = []
+        for key in _u64(cb.flow_hi, cb.flow_lo).tolist():
+            keep.append(key not in seen)
+            seen.add(key)
+        keep = np.asarray(keep)
+        cli_parts[k].append(cli[keep])
+        ser_parts[(k + K // 2) % K].append(ser[keep])
+        edges |= set(zip(cli["cli_related_listen_id"][keep].tolist(),
+                         ser["ser_glob_id"][keep].tolist()))
+    n_plain = cfg.conn_batch - 2 * SPLIT_FLOWS
+    conns, resps = [], []
+    for k in range(K):
+        recs = np.concatenate([sim.conn_records(n_plain)] + cli_parts[k]
+                              + ser_parts[k])
+        buf = wire.encode_frames_chunked(wire.NOTIFY_TCP_CONN, recs)
+        frames, _ = wire.decode_frames(buf)
+        conns.append(decode.conn_batch(
+            np.concatenate([r for _, r in frames]), cfg.conn_batch))
+        frames, _ = wire.decode_frames(sim.resp_frames(cfg.resp_batch))
+        resps.append(decode.resp_batch(frames[0][1], cfg.resp_batch))
+    return conns, resps, len(seen), edges
+
+
+def sweep_batches(sim, decode, wire, trace_svcs):
+    """One tick's sweep: every listener, process group, host (state and
+    cpu/mem), keepalive pings for every group, and the traced services'
+    transactions → {section: [batches]}."""
+    def recs(buf, sub):
+        frames, used = wire.decode_frames(buf)
+        if used != len(buf):
+            raise AssertionError("sweep frames did not decode whole")
+        return np.concatenate([r for s_, r in frames if s_ == sub])
+
+    def split(r, build, lanes):
+        return [build(r[i:i + lanes], lanes) for i in range(0, len(r), lanes)]
+
+    lst = recs(sim.listener_frames(), wire.NOTIFY_LISTENER_STATE)
+    tasks = recs(sim.task_frames(), wire.NOTIFY_AGGR_TASK_STATE)
+    pings = np.zeros(len(tasks), wire.TASK_PING_DT)
+    pings["aggr_task_id"] = tasks["aggr_task_id"]
+    pings["host_id"] = tasks["host_id"]
+    return {
+        "listener": split(lst, decode.listener_batch, NS_LANES["listener"]),
+        "task": split(tasks, decode.task_batch, NS_LANES["task"]),
+        "host": split(recs(wire.encode_frames_chunked(
+            wire.NOTIFY_HOST_STATE, sim.host_state_records()),
+            wire.NOTIFY_HOST_STATE), decode.host_batch, NS_LANES["host"]),
+        "cpumem": split(recs(wire.encode_frames_chunked(
+            wire.NOTIFY_CPU_MEM_STATE, sim.cpu_mem_records()),
+            wire.NOTIFY_CPU_MEM_STATE), decode.cpumem_batch,
+            NS_LANES["cpumem"]),
+        "trace": split(recs(sim.trace_frames(TRACE_DRAWS,
+                                             only_svcs=trace_svcs),
+                            wire.NOTIFY_REQ_TRACE), decode.trace_batch,
+                       NS_LANES["trace"]),
+        "ping": split(recs(wire.encode_frames_chunked(
+            wire.NOTIFY_TASK_PING, pings), wire.NOTIFY_TASK_PING),
+            decode.ping_batch, NS_LANES["ping"]),
+    }
+
+
+def _spread(sweep) -> list:
+    """A tick's sweep batches → TICK_DISPATCHES section dicts: listener
+    batch i rides dispatch i, the other sections' batches the dispatches
+    after the listeners' first (one each)."""
+    out = [{"listener": b} for b in sweep["listener"]]
+    if len(out) != TICK_DISPATCHES:
+        raise AssertionError(f"{len(out)} listener batches a tick")
+    i = 1
+    for name in ("task", "host", "cpumem", "trace", "ping"):
+        for b in sweep[name]:
+            out[i][name] = b
+            i += 1
+    return out
+
+
+def _edge_diff(torch, depgraph, dep, edges_fed) -> tuple:
+    """Live edges against the pairs fed → (fed but not live, live but
+    not fed, how many of the former have every probe slot held by a
+    live key: a key the table cannot place, counted in its n_drop)."""
+    tbl = depgraph.table
+    live_t = tbl.live_mask(dep.edge_tbl).cpu()
+    live = live_t.numpy()
+    col = lambda x: x.cpu().numpy()[live]  # noqa: E731
+    got = set(zip(_u64(col(dep.e_cli_hi), col(dep.e_cli_lo)).tolist(),
+                  _u64(col(dep.e_ser_hi), col(dep.e_ser_lo)).tolist()))
+    missing, extra = edges_fed - got, got - edges_fed
+    exhausted = 0
+    if missing:
+        cs = np.array(sorted(missing), np.uint64)
+        halves = [torch.from_numpy((x >> np.uint64(32)).astype(np.int64))
+                  for x in (cs[:, 0], cs[:, 1])]
+        halves += [torch.from_numpy((x & np.uint64(0xFFFFFFFF))
+                                    .astype(np.int64))
+                   for x in (cs[:, 0], cs[:, 1])]
+        khi, klo = depgraph.edge_key(halves[0], halves[2], halves[1],
+                                     halves[3])
+        slots = tbl._probe_slots(khi, klo, live.shape[0])
+        exhausted = int(live_t[slots].all(dim=1).sum())
+        log(f"  edges fed but not live: {len(missing)} (e.g. "
+            f"{sorted(missing)[:2]}), {exhausted} of them with all "
+            f"{tbl.PROBES} probe slots held by live keys")
+    return missing, extra, exhausted
+
+
+def count_syncs(torch, fn) -> list:
+    """Run ``fn`` under CUDA sync debugging → the (file:line) of each
+    device→host synchronisation it made in the port's code (the deepest
+    frame of the port on the stack; one with none is listed by the
+    warning's own location)."""
+    import traceback
+    import warnings
+
+    sites = []
+    orig = warnings.showwarning
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        stack = [f for f in traceback.extract_stack()
+                 if any(k in f.filename for k in SYNC_SITES)]
+        f = stack[-1] if stack else None
+        sites.append(f"{Path(f.filename).relative_to(ROOT)}:{f.lineno}"
+                     if f else f"{filename}:{lineno}")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        warnings.showwarning = show
+        try:
+            fn()
+        finally:
+            warnings.showwarning = orig
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sites
+
+
+def fold_all_phase(torch, scatter):
+    """fold_all at north-star geometry on a fresh state: four ticks of
+    TICK_DISPATCHES dispatches, each a conn/resp K-slab with split
+    halves plus that dispatch's share of the tick's sweep, then the
+    tick's upkeep; checks, then where the time goes."""
+    from gyeeta_tpu_torch.engine import aggstate, compact, step
+    from gyeeta_tpu_torch.ingest import decode, wire
+    from gyeeta_tpu_torch.parallel import depgraph
+    from gyeeta_tpu_torch.semantic import derive
+    from gyeeta_tpu_torch.sim import ParthaSim
+    from gyeeta_tpu_torch.utils.tensor import tree_map
+
+    cfg = aggstate.EngineCfg(**NS_CFG)
+    sim = ParthaSim(**NS_SIM, seed=7)
+    n_svcs = sim.n_hosts * sim.n_svcs
+    log(f"phase 7: fold_all at north-star geometry, dep {NS_DEP}, "
+        f"{NS_TICKS} ticks of {TICK_DISPATCHES} dispatches (K={K}, one "
+        f"conn lane in {cfg.conn_batch // (2 * SPLIT_FLOWS)} a split half)")
+    t0 = time.perf_counter()
+    staged, n_split, edges_fed = [], [], set()
+    for _ in range(N_DISTINCT):
+        conns, resps, n, edges = split_slab(sim, cfg, decode, wire)
+        for cb in conns:
+            edges |= _edges_of(cb)
+        edges_fed |= edges
+        n_split.append(n)
+        staged.append((decode.to_device(conns, DEV),
+                       decode.to_device(resps, DEV)))
+    trace_svcs = list(sim.glob_ids.reshape(-1)[::n_svcs // TRACE_SVCS])
+    sweeps, api_keys = [], set()
+    for _ in range(NS_TICKS):
+        sw = sweep_batches(sim, decode, wire, trace_svcs)
+        for tb in sw["trace"]:
+            api_keys |= set(_u64(tb.key_hi, tb.key_lo)[tb.valid].tolist())
+        sweeps.append([{k: decode.to_device(b, DEV) for k, b in d.items()}
+                       for d in _spread(sw)])
+    torch.cuda.synchronize()
+    log(f"  staged {N_DISTINCT} conn/resp slabs and {NS_TICKS} sweeps in "
+        f"{time.perf_counter() - t0:.2f}s: {sum(n_split)} split flows, "
+        f"{len(edges_fed)} distinct (client, service) edges, "
+        f"{len(api_keys)} (svc, api) keys of {len(trace_svcs)} services")
+
+    st = aggstate.init(cfg, DEV)
+    dep = depgraph.init(*NS_DEP, device=DEV)
+    mods = sketch_modules()
+    reset_launches(scatter, mods)
+    pressures: deque = deque()
+    tick_ms, upkeep_ms = [], {}
+    n_paired = n_flush = n_dispatch = 0
+    for tick in range(NS_TICKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for secs in sweeps[tick]:
+            if len(pressures) >= 2 and \
+                    int(pressures.popleft()) > cfg.td_stage_cap // 2:
+                st = step.td_flush_partial(cfg, st)
+                n_flush += 1
+            i = n_dispatch % N_DISTINCT
+            st, dep, pressure = step.fold_all(cfg, st, dep, tick,
+                                              connresp=staged[i], **secs)
+            n_paired += n_split[i]
+            n_dispatch += 1
+            pressures.append(pressure)
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) / TICK_DISPATCHES * 1e3)
+        last = tick == NS_TICKS - 1
+        if last:
+            check(int(pressure) == int(step.stage_pressure(st)),
+                  f"fold_all's pressure scalar ({int(pressure)}) = "
+                  "stage_pressure")
+        upkeep = (
+            ("td_flush", lambda s, d: (step.td_flush(cfg, s), d)),
+            ("classify_pass", lambda s, d: (derive.classify_pass(cfg, s),
+                                            d)),
+            ("tick_5s", lambda s, d: (step.tick_5s(cfg, s), d)),
+            ("dep_age", lambda s, d: (s, depgraph.age(d, tick, PAIR_TTL,
+                                                      EDGE_TTL))),
+            ("age_tasks", lambda s, d: (step.age_tasks(cfg, s, TASK_AGE),
+                                        d)),
+            ("age_apis", lambda s, d: (step.age_apis(cfg, s, API_AGE), d)),
+            ("compact_state", lambda s, d: (compact.compact_state(cfg, s),
+                                            d)),
+            ("compact_tasks", lambda s, d: (step.compact_tasks(cfg, s), d)),
+        )
+        for name, fn in upkeep:
+            if last and name == "classify_pass":
+                # the port's CPU run on the same state, copied over
+                on_cpu = derive.classify_pass(
+                    cfg, tree_map(lambda x: x.cpu(), st))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            st, dep = fn(st, dep)
+            torch.cuda.synchronize()
+            upkeep_ms.setdefault(name, []).append(
+                (time.perf_counter() - t1) * 1e3)
+            if last and name == "classify_pass":
+                diff = {leaf: int((getattr(st, leaf).cpu()
+                                   != getattr(on_cpu, leaf)).sum())
+                        for leaf in ("svc_state", "svc_issue",
+                                     "resp_hi_bits")}
+                states = np.bincount(st.svc_state.cpu().numpy(),
+                                     minlength=6).tolist()
+                check(not any(diff.values()),
+                      "classify_pass on the card = the port's CPU run on "
+                      f"the same state (rows differing: {diff}; states "
+                      f"{states})")
+                del on_cpu
+    launches = read_launches(scatter, mods)
+    log(f"  ms per fold_all dispatch with sweep sections, by tick: "
+        f"{', '.join(f'{m:.3f}' for m in tick_ms)} ({n_flush} partial "
+        "flushes)")
+    log("  tick upkeep ms (synchronised), by tick: " + "; ".join(
+        f"{k} {', '.join(f'{v:.2f}' for v in vs)}"
+        for k, vs in upkeep_ms.items()))
+    log(f"  kernel launches on the fold_all path: {launches}")
+    check(launches == {"hll_update": 2 * n_dispatch,
+                       "cms_update": n_dispatch, "inv_update": n_dispatch,
+                       "scatter_max": 0, "scatter_add": 0},
+          f"each of the {n_dispatch} fold_all dispatches launched "
+          "hll_update 2x, cms_update 1x and inv_update 1x, and no generic "
+          "scatter kernel")
+
+    # ---- checks
+    check(int(st.tbl.n_live) == n_svcs, f"live services = {n_svcs}")
+    drops = (int(dep.half_tbl.n_drop), int(dep.edge_tbl.n_drop),
+             float(dep.n_dropped))
+    check(drops[0] == 0 and drops[2] == drops[0] + drops[1],
+          f"half table n_drop 0; n_dropped = the half and edge tables' "
+          f"n_drop (half, edge, n_dropped: {drops})")
+    missing, extra, exhausted = _edge_diff(torch, depgraph, dep, edges_fed)
+    check(not extra and len(missing) == exhausted
+          and int(dep.edge_tbl.n_live) + len(missing) == len(edges_fed),
+          f"live edges {int(dep.edge_tbl.n_live)} + {len(missing)} whose "
+          f"{depgraph.table.PROBES} probe slots are all held by live keys "
+          f"(the table's counted drop) = distinct (client id, service) "
+          f"pairs fed ({len(edges_fed)}); none live but not fed "
+          f"({len(extra)})")
+    check(float(dep.n_paired) == n_paired,
+          f"n_paired {float(dep.n_paired):.0f} = split flows whose two "
+          f"halves were fed ({n_paired})")
+    check(int(dep.half_tbl.n_live) == 0, "no half left unpaired")
+    check(int(st.api_tbl.n_live) == len(api_keys),
+          f"api_tbl.n_live = distinct (svc, api) keys fed ({len(api_keys)})")
+    check(int(st.task_tbl.n_live) == sim.n_hosts * sim.n_groups,
+          f"task groups live = {sim.n_hosts * sim.n_groups}")
+    check(bool((st.host_last_tick[:sim.n_hosts] == NS_TICKS - 1).all()
+               & (st.cm_last_tick[:sim.n_hosts] == NS_TICKS - 1).all()),
+          "every sim host's state and cpu/mem landed in the last tick")
+
+    # ---- where the time goes (after the checks: these fold more data)
+    perf = {"tick_ms_per_dispatch": tick_ms, "upkeep_ms": upkeep_ms,
+            "dispatches": n_dispatch, "launches": launches,
+            "partial_flushes": n_flush}
+    sections = sweeps[-1][1]            # listener + task
+    every = {}                          # every section, one batch each
+    for d in sweeps[-1][1:]:
+        every.update(d)
+        if len(every) == len(NS_LANES):
+            break
+    if sorted(every) != sorted(NS_LANES):
+        raise AssertionError(f"sections {sorted(every)}")
+
+    def window(n, secs):
+        nonlocal st, dep
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(n):
+            st, dep, _ = step.fold_all(cfg, st, dep, NS_TICKS,
+                                       connresp=staged[j % N_DISTINCT],
+                                       **secs)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    perf["connresp_only_ms"] = [window(16, {}) for _ in range(3)]
+    perf["with_sections_ms"] = [window(16, sections) for _ in range(3)]
+    perf["every_section_ms"] = window(4, every)
+    log(f"  ms per fold_all dispatch, three windows of 16: connresp only "
+        f"{', '.join(f'{m:.3f}' for m in perf['connresp_only_ms'])}; with "
+        "listener+task sections "
+        f"{', '.join(f'{m:.3f}' for m in perf['with_sections_ms'])}; with "
+        f"every section (4 dispatches) {perf['every_section_ms']:.3f}")
+    # the synchronised split of a dispatch with listener + task sections:
+    # the sections, fold_many, and dep_fold_many's two halves (the
+    # direct-edge fold, the chunked pairing)
+    parts = dict.fromkeys(("sections", "fold_many", "dep_direct",
+                           "dep_pairing"), 0.0)
+    n_rep = 8
+
+    def timed_part(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] += (time.perf_counter() - t0) * 1e3 / n_rep
+        return out
+
+    for j in range(n_rep):
+        cbs, rbs = staged[j % N_DISTINCT]
+        st = timed_part("sections", lambda: step.ingest_task(
+            cfg, step.ingest_listener(cfg, st, sections["listener"]),
+            sections["task"]))
+        st = timed_part("fold_many", lambda: step.fold_many(cfg, st, cbs,
+                                                            rbs))
+        flat = step.flatten(cbs)
+        direct, hv = depgraph.halves_from_conn(flat)
+        dep = timed_part("dep_direct", lambda: depgraph.fold_edges(
+            dep, *direct, NS_TICKS))
+
+        def pairing():
+            d = dep
+            chunk = d.h_last_tick.shape[0] // 4
+            for lo in range(0, hv.valid.shape[0], chunk):
+                d = depgraph.pair_halves(d, tree_map(
+                    lambda x: x[lo:lo + chunk], hv), NS_TICKS)
+            return d
+        dep = timed_part("dep_pairing", pairing)
+    perf["split_ms"] = parts
+    dep_ms = parts["dep_direct"] + parts["dep_pairing"]
+    perf["dep_share_of_connresp"] = dep_ms / (parts["fold_many"] + dep_ms)
+    log("  synchronised split of a listener+task dispatch (ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f"; dependency-fold share of the connresp work "
+        f"{perf['dep_share_of_connresp']:.1%}")
+    # host syncs of one dispatch
+    syncs = {}
+    for name, secs in (("connresp_only", {}), ("every_section", every)):
+        def one(secs=secs):
+            nonlocal st, dep
+            st, dep, _ = step.fold_all(cfg, st, dep, NS_TICKS,
+                                       connresp=staged[0], **secs)
+        syncs[name] = count_syncs(torch, one)
+        log(f"  host syncs in one {name} fold_all dispatch: "
+            f"{len(syncs[name])} at {syncs[name]}")
+    syncs["tick"] = count_syncs(torch, lambda: derive.classify_pass(cfg, st))
+    log(f"  host syncs in classify_pass: {len(syncs['tick'])} at "
+        f"{syncs['tick']}")
+    perf["syncs"] = syncs
+    # device ops and busy share under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    perf["profile"] = {}
+    for name, secs in (("connresp_only", {}), ("with_sections", sections)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = window(4, secs)
+        busy_us = device_us(torch, prof)
+        n_dev = sum(1 for e in prof.events() if e.device_type == cuda)
+        perf["profile"][name] = {
+            "wall_ms_per_dispatch": wall,
+            "device_busy_ms_per_dispatch": busy_us / 4 / 1e3,
+            "device_busy_share": busy_us / 4 / 1e3 / wall,
+            "device_ops_per_dispatch": n_dev / 4}
+        log(f"  profile, {name}: wall {wall:.3f} ms/dispatch, device busy "
+            f"{busy_us / 4 / 1e3:.3f} ms ({busy_us / 4 / 1e3 / wall:.1%}), "
+            f"{n_dev / 4:.0f} device ops/dispatch")
+        rows = sorted(((e.self_device_time_total, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == cuda), reverse=True)
+        for dev_us, count, key in rows[:8]:
+            log(f"    {dev_us / 4:9.1f} us/dispatch  {count / 4:6.1f} calls"
+                f"  {key[:90]}")
+        rows = sorted(((e.self_cpu_time_total, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type != cuda), reverse=True)
+        log("    host ops by self CPU time: " + "; ".join(
+            f"{key} {cpu_us / 4 / 1e3:.2f} ms x{count / 4:.0f}"
+            for cpu_us, count, key in rows[:8]))
+    return perf
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -795,6 +1393,10 @@ def main(argv) -> int:
     tiny_phase(torch)
     kernels = fused_phase(torch, scatter, captured, launches) + \
         generic_phase(torch, scatter, captured, launches)
+    torch.cuda.empty_cache()
+    fa = fold_all_phase(torch, scatter)
+    for k in kernels:
+        k["launches_fold_all"] = fa["launches"][k["name"]]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -809,6 +1411,7 @@ def main(argv) -> int:
         f"{prof['wall_ms_per_dispatch']:.4f} ms/dispatch")
     log(f"max_memory_allocated: {perf['max_memory_allocated_gib']:.3f} GiB")
     log(json.dumps({"fold": perf}))
+    log(json.dumps({"fold_all": fa}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,18 +1,22 @@
 """Microbatch fold steps — the hot loop, on tensors.
 
-Counterpart of ``gyeeta_tpu/engine/step.py`` for the flow-event path:
-``ingest_conn`` (entity-table upsert, windowed counters, per-service
-HLL, global HLL, CMS, budgeted top-K, invertible heavy-hitter buckets),
+Counterpart of ``gyeeta_tpu/engine/step.py``: ``ingest_conn``
+(entity-table upsert, windowed counters, per-service HLL, global HLL,
+CMS, budgeted top-K, invertible heavy-hitter buckets),
 ``ingest_resp_flat`` (loghist and t-digest staging), ``fold_step`` /
-``fold_many``, the digest flushes and ``tick_5s``.
+``fold_many``, the sweep sections (``ingest_listener``, ``ingest_host``,
+``ingest_task``, ``ingest_cpumem``, ``ingest_trace``, ``ping_tasks``),
+``fold_all`` (every section + the conn/resp slab + the dependency graph
+in one dispatch), the digest flushes, ``tick_5s``, the tick's upkeep
+(``age_tasks``, ``age_apis``, ``compact_tasks``) and the health vector.
 
 The reference jits these with state donation (``jit_fold_step``); here
 every function updates the large state buffers IN PLACE and returns the
 state with its small leaves replaced. The state passed in is consumed,
 as a donated one is: keep using the returned state. Batches are the
 tensor columns of ``ingest/decode.to_device``. PyTorch runs eagerly, so
-there is nothing to compile; the table upsert's any-miss test is one
-device→host sync per conn fold.
+there is nothing to compile; each ``upsert_fast2`` any-miss test (conn
+fold, trace fold, dependency edges) is one device→host sync.
 """
 
 from __future__ import annotations
@@ -22,10 +26,13 @@ import torch
 
 from gyeeta_tpu_torch.engine import table
 from gyeeta_tpu_torch.engine.aggstate import AggState, EngineCfg
+from gyeeta_tpu_torch.ingest import decode as D
+from gyeeta_tpu_torch.parallel import depgraph as dg
+from gyeeta_tpu_torch.semantic import cpumem as CM
 from gyeeta_tpu_torch.sketch import countmin, hyperloglog as hll, \
     invertible, loghist, tdigest, topk, windows
-from gyeeta_tpu_torch.utils.tensor import add_drop, set_drop, top_k, \
-    tree_map
+from gyeeta_tpu_torch.utils.tensor import add_drop, set_drop, \
+    set_rows_drop, top_k, tree_map
 
 
 def ingest_conn(cfg: EngineCfg, st: AggState, cb) -> AggState:
@@ -166,6 +173,154 @@ def ingest_resp_flat(cfg: EngineCfg, st: AggState, flat) -> AggState:
     )
 
 
+def ingest_listener(cfg: EngineCfg, st: AggState, lb) -> AggState:
+    """Fold a ListenerBatch: gauges + learned QPS/active-conn baselines
+    (one QPS and one active-conn sample per service per 5s sweep, the
+    classifier's self-learned percentiles)."""
+    valid = lb.valid
+    tbl, rows = table.upsert(st.tbl, lb.svc_hi, lb.svc_lo, valid)
+    ok = valid & (rows >= 0)
+    rowz = torch.where(ok, rows, 0)
+    set_rows_drop(st.svc_stats, rows, lb.stats, ok)
+    set_rows_drop(st.svc_host, rows, lb.host_id, ok)
+    loghist.update_entities(st.qps_hist, cfg.qps_spec, rowz,
+                            lb.stats[:, D.STAT_NQRYS] / 5.0, valid=ok)
+    loghist.update_entities(st.active_hist, cfg.active_spec, rowz,
+                            lb.stats[:, D.STAT_NCONNS_ACTIVE], valid=ok)
+    return st._replace(tbl=tbl)
+
+
+def ingest_task(cfg: EngineCfg, st: AggState, tb) -> AggState:
+    """Fold a TaskBatch (5s process-group sweep): gauges + agent state +
+    learned CPU% baseline + last-seen tick for ageing."""
+    valid = tb.valid
+    tbl, rows = table.upsert(st.task_tbl, tb.key_hi, tb.key_lo, valid)
+    ok = valid & (rows >= 0)
+    rowz = torch.where(ok, rows, 0)
+    for col, v in ((st.task_stats, tb.stats), (st.task_state, tb.state),
+                   (st.task_issue, tb.issue), (st.task_host, tb.host_id),
+                   (st.task_comm_hi, tb.comm_hi),
+                   (st.task_comm_lo, tb.comm_lo),
+                   (st.task_rel_hi, tb.rel_hi), (st.task_rel_lo, tb.rel_lo)):
+        set_rows_drop(col, rows, v, ok)
+    loghist.update_entities(st.task_cpu_hist, cfg.taskcpu_spec, rowz,
+                            tb.stats[:, D.TASK_CPU_PCT], valid=ok)
+    set_rows_drop(st.task_last_tick, rows, st.resp_win.tick, ok)
+    return st._replace(task_tbl=tbl)
+
+
+# api_ctr column indices
+APIC_NREQ = 0
+APIC_NERR = 1
+APIC_BYTES_IN = 2
+APIC_BYTES_OUT = 3
+
+
+def ingest_trace(cfg: EngineCfg, st: AggState, tb) -> AggState:
+    """Fold a TraceBatch into the per-(svc, api) slab: counters +
+    response-time loghist. Also upserts the SERVICE row (a parsed
+    server-side transaction is evidence of a live listener) and adds
+    parsed server errors into its ser_errors gauge."""
+    svc_tbl, svc_rows = table.upsert_fast(st.tbl, tb.svc_hi, tb.svc_lo,
+                                          tb.valid)
+    svc_ok = tb.valid & (svc_rows >= 0)
+    set_rows_drop(st.svc_host, svc_rows, tb.host_id, svc_ok)
+    add_drop(st.svc_stats[:, D.STAT_SER_ERRORS], svc_rows,
+             tb.is_err.to(torch.float32), svc_ok)
+    st = st._replace(tbl=svc_tbl)
+    valid = tb.valid
+    tbl, rows = table.upsert(st.api_tbl, tb.key_hi, tb.key_lo, valid)
+    ok = valid & (rows >= 0)
+    rowz = torch.where(ok, rows, 0)
+    # one row add of the (B, 4) block in APIC_* column order
+    add_drop(st.api_ctr, rows, torch.stack(
+        [torch.ones_like(tb.byin), tb.is_err.to(torch.float32), tb.byin,
+         tb.byout], dim=1), ok)
+    loghist.update_entities(st.api_resp_hist, cfg.apiresp_spec, rowz,
+                            tb.resp_us, valid=ok)
+    for col, v in ((st.api_svc_hi, tb.svc_hi), (st.api_svc_lo, tb.svc_lo),
+                   (st.api_id_hi, tb.api_hi), (st.api_id_lo, tb.api_lo),
+                   (st.api_proto, tb.proto), (st.api_host, tb.host_id),
+                   (st.api_last_tick, st.resp_win.tick)):
+        set_rows_drop(col, rows, v, ok)
+    return st._replace(api_tbl=tbl)
+
+
+def age_apis(cfg: EngineCfg, st: AggState, max_age_ticks: int) -> AggState:
+    """Tombstone (svc, api) rows unseen for ``max_age_ticks`` ticks."""
+    stale = (st.api_last_tick >= 0) & (st.resp_win.tick - st.api_last_tick
+                                       > max_age_ticks)
+    tbl, killed = table.tombstone_rows(st.api_tbl, stale)
+    for col in (st.api_svc_hi, st.api_svc_lo, st.api_id_hi, st.api_id_lo,
+                st.api_proto):
+        col.masked_fill_(killed, 0)
+    st.api_resp_hist.masked_fill_(killed[:, None], 0.0)
+    st.api_ctr.masked_fill_(killed[:, None], 0.0)
+    st.api_host.masked_fill_(killed, -1)
+    st.api_last_tick.masked_fill_(killed, -1)
+    return st._replace(api_tbl=tbl)
+
+
+def ping_tasks(cfg: EngineCfg, st: AggState, pb) -> AggState:
+    """Fold a PingBatch (process-group keepalives): refresh
+    ``task_last_tick`` of rows that EXIST — lookup, never upsert."""
+    rows = table.lookup(st.task_tbl, pb.key_hi, pb.key_lo, pb.valid)
+    set_rows_drop(st.task_last_tick, rows, st.resp_win.tick, rows >= 0)
+    return st
+
+
+def age_tasks(cfg: EngineCfg, st: AggState, max_age_ticks: int) -> AggState:
+    """Tombstone process groups not seen for ``max_age_ticks`` base
+    ticks (by last-sweep tick)."""
+    stale = (st.task_last_tick >= 0) & (st.resp_win.tick
+                                        - st.task_last_tick > max_age_ticks)
+    tbl, killed = table.tombstone_rows(st.task_tbl, stale)
+    st.task_stats.masked_fill_(killed[:, None], 0.0)
+    st.task_state.masked_fill_(killed, 0)
+    st.task_issue.masked_fill_(killed, 0)
+    st.task_host.masked_fill_(killed, -1)
+    # cpu_hist is scatter-added, never overwritten: zero it here or a
+    # reclaimed slot inherits the dead group's learned baseline
+    st.task_cpu_hist.masked_fill_(killed[:, None], 0.0)
+    st.task_last_tick.masked_fill_(killed, -1)
+    return st._replace(task_tbl=tbl)
+
+
+def compact_tasks(cfg: EngineCfg, st: AggState) -> AggState:
+    """Reclaim the task slab's tombstones in place (cf. compact_state)."""
+    tbl = table.compact(st.task_tbl, (
+        st.task_stats, st.task_state, st.task_issue, st.task_host,
+        st.task_comm_hi, st.task_comm_lo, st.task_rel_hi, st.task_rel_lo,
+        st.task_cpu_hist, st.task_last_tick))
+    dead = ~table.live_mask(tbl)
+    st.task_host.masked_fill_(dead, -1)
+    st.task_last_tick.masked_fill_(dead, -1)
+    return st._replace(task_tbl=tbl)
+
+
+def ingest_host(cfg: EngineCfg, st: AggState, hb) -> AggState:
+    """Fold a HostBatch: dense panel write by host_id."""
+    ok = hb.valid & (hb.host_id >= 0) & (hb.host_id < cfg.n_hosts)
+    set_rows_drop(st.host_panel, hb.host_id, hb.panel, ok)
+    set_rows_drop(st.host_last_tick, hb.host_id, st.resp_win.tick, ok)
+    return st
+
+
+def ingest_cpumem(cfg: EngineCfg, st: AggState, cm) -> AggState:
+    """Fold a CpuMemBatch (the 2s path): panel write + fleet-wide
+    classification (``semantic/cpumem.py``)."""
+    ok = cm.valid & (cm.host_id >= 0) & (cm.host_id < cfg.n_hosts)
+    set_rows_drop(st.host_cm, cm.host_id, cm.vals, ok)
+    cpu_state, cpu_issue = CM.classify_cpu(st.host_cm)
+    mem_state, mem_issue = CM.classify_mem(st.host_cm)
+    st.cm_cpu_state.copy_(cpu_state)
+    st.cm_cpu_issue.copy_(cpu_issue)
+    st.cm_mem_state.copy_(mem_state)
+    st.cm_mem_issue.copy_(mem_issue)
+    set_rows_drop(st.cm_last_tick, cm.host_id, st.resp_win.tick, ok)
+    return st
+
+
 def tick_5s(cfg: EngineCfg, st: AggState) -> AggState:
     """Close the 5s base slab on all windowed state."""
     windows.tick(st.resp_win, cfg.levels)
@@ -186,3 +341,82 @@ def fold_many(cfg: EngineCfg, st: AggState, cbs, rbs) -> AggState:
     :func:`stage_pressure` and runs :func:`td_flush_partial`."""
     st = ingest_conn(cfg, st, flatten(cbs))
     return ingest_resp_bulk(cfg, st, rbs)
+
+
+# ------------------------------------------------------- health readback
+# engine_health_vec layout: one f32 scalar per key, read back in one
+# small transfer per report cadence (never per event)
+HEALTH_KEYS = (
+    "svc_live", "svc_tomb", "svc_drop",
+    "task_live", "task_tomb", "task_drop",
+    "api_live", "api_tomb", "api_drop",
+    "td_stage_max",
+    "n_conn", "n_resp", "n_resp_unknown", "n_td_overflow",
+    "dep_half_live", "dep_edge_live", "dep_edge_drop",
+    "dep_paired", "dep_expired", "dep_dropped",
+    "topk_evicted", "hh_occupied", "hh_hot_lanes",
+)
+
+
+def engine_health_vec(cfg: EngineCfg, st: AggState, dep) -> torch.Tensor:
+    """Device-state health as ONE (len(HEALTH_KEYS),) f32 tensor: slab
+    fills, tombstones and probe-failure drops of every keyed table,
+    digest-stage pressure, dep-graph fill and drop counters, the event
+    counters and the heavy-hitter tier's fill."""
+    def s(v):
+        return v.sum().to(torch.float32)
+
+    return torch.stack((
+        s(st.tbl.n_live), s(st.tbl.n_tomb), s(st.tbl.n_drop),
+        s(st.task_tbl.n_live), s(st.task_tbl.n_tomb),
+        s(st.task_tbl.n_drop),
+        s(st.api_tbl.n_live), s(st.api_tbl.n_tomb), s(st.api_tbl.n_drop),
+        st.td_stage_n.max().to(torch.float32),
+        s(st.n_conn), s(st.n_resp), s(st.n_resp_unknown),
+        s(st.n_td_overflow),
+        s(dep.half_tbl.n_live), s(dep.edge_tbl.n_live),
+        s(dep.edge_tbl.n_drop),
+        s(dep.n_paired), s(dep.n_expired), s(dep.n_dropped),
+        s(st.flow_topk.evicted), s(st.inv.prio > 0), s(st.inv.n_hot),
+    ))
+
+
+# --------------------------------------------------------- fused dispatch
+# Canonical sub-fold order inside fold_all (the reference's order, so a
+# fused dispatch equals the section-by-section sequence)
+FOLD_ALL_ORDER = ("listener", "host", "task", "cpumem", "trace", "ping",
+                  "delta", "connresp")
+
+
+def fold_all(cfg: EngineCfg, st: AggState, dep, tick, *, listener=None,
+             host=None, task=None, cpumem=None, trace=None, ping=None,
+             delta=None, connresp=None):
+    """One feed dispatch: every present sweep section in
+    :data:`FOLD_ALL_ORDER`, then the conn/resp K-slab (``connresp`` =
+    ``(cbs, rbs)``, stacked ``(K, B)``) with the dependency-graph fold
+    → ``(state, dep, pressure)``. ``pressure`` is :func:`stage_pressure`
+    as a 0-d device tensor, not read back. Absent sections are ``None``
+    and cost nothing. The ``delta`` section (edge pre-aggregation) is
+    not ported yet and raises."""
+    if delta is not None:
+        raise NotImplementedError(
+            "fold_all(delta=...): the edge pre-aggregation section "
+            "(sketch/edgefold.py, decode.delta_batch, step.ingest_delta) "
+            "is not ported yet; see ROADMAP.md, queue 1")
+    if listener is not None:
+        st = ingest_listener(cfg, st, listener)
+    if host is not None:
+        st = ingest_host(cfg, st, host)
+    if task is not None:
+        st = ingest_task(cfg, st, task)
+    if cpumem is not None:
+        st = ingest_cpumem(cfg, st, cpumem)
+    if trace is not None:
+        st = ingest_trace(cfg, st, trace)
+    if ping is not None:
+        st = ping_tasks(cfg, st, ping)
+    if connresp is not None:
+        cbs, rbs = connresp
+        st = fold_many(cfg, st, cbs, rbs)
+        dep = dg.dep_fold_many(dep, cbs, tick)
+    return st, dep, stage_pressure(st)

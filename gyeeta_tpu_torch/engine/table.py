@@ -6,9 +6,11 @@ carrier of ``utils/hashing.py``), resolved for a whole batch in
 ``PROBES`` double-hash rounds. Intra-batch insert races are settled by a
 scatter-min over lane numbers, so one batch always gives one slab.
 
-:func:`upsert` and :func:`upsert_fast2` update the table in place (the
-reference donates it). :func:`upsert_fast2`'s ``lax.cond`` becomes a
-Python ``if`` on the any-miss flag: one device→host sync per call.
+:func:`upsert`, :func:`upsert_fast` / :func:`upsert_fast2`,
+:func:`delete`, :func:`tombstone_rows` and :func:`compact` update the
+table (and :func:`compact` the state columns) in place, the reference
+donates them. :func:`upsert_fast2`'s ``lax.cond`` becomes a Python
+``if`` on the any-miss flag: one device→host sync per call.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 
 from gyeeta_tpu_torch.device import resolve
 from gyeeta_tpu_torch.utils import hashing as H
-from gyeeta_tpu_torch.utils.tensor import set_drop
+from gyeeta_tpu_torch.utils.tensor import set_drop, set_rows_drop
 
 # Key sentinels (u32 carrier values).
 EMPTY = 0xFFFFFFFF
@@ -121,6 +123,12 @@ def upsert(tbl: Table, khi, klo, valid=None):
     return tbl, rows
 
 
+def upsert_fast(tbl: Table, khi, klo, valid=None):
+    """:func:`upsert_fast2` without the flag → (table, rows)."""
+    tbl, rows, _ = upsert_fast2(tbl, khi, klo, valid)
+    return tbl, rows
+
+
 def upsert_fast2(tbl: Table, khi, klo, valid=None):
     """Upsert that skips the insert rounds when every key already
     resolves → (table, rows, any_miss). ``any_miss`` (a Python bool) is
@@ -160,3 +168,52 @@ def lookup(tbl: Table, khi, klo, valid=None):
 def live_mask(tbl: Table):
     return ~_is_empty(tbl.key_hi, tbl.key_lo) & \
         ~_is_tomb(tbl.key_hi, tbl.key_lo)
+
+
+def delete(tbl: Table, khi, klo, valid=None):
+    """Tombstone a batch of keys in place → (table, rows_deleted).
+
+    Callers clear state columns at the returned rows (>= 0). A row stays
+    unusable until :func:`compact` or until an insert reclaims it."""
+    rows = lookup(tbl, khi, klo, valid)
+    hit_lane = rows >= 0
+    set_rows_drop(tbl.key_hi, rows, TOMB, hit_lane)
+    set_rows_drop(tbl.key_lo, rows, TOMB, hit_lane)
+    # count distinct rows: duplicate lanes of one key must not double-count
+    hit = torch.zeros_like(tbl.key_hi, dtype=torch.bool)
+    set_rows_drop(hit, rows, True, hit_lane)
+    ndel = hit.sum().to(torch.int32)
+    tbl.n_live.sub_(ndel)
+    tbl.n_tomb.add_(ndel)
+    return tbl, rows
+
+
+def tombstone_rows(tbl: Table, row_mask):
+    """Tombstone every live row where ``row_mask`` is True, in place →
+    (table, killed_mask). Callers zero the state columns at killed rows
+    (or leave them for :func:`compact`)."""
+    kill = live_mask(tbl) & row_mask
+    n = kill.sum().to(torch.int32)
+    tbl.key_hi.masked_fill_(kill, TOMB)
+    tbl.key_lo.masked_fill_(kill, TOMB)
+    tbl.n_live.sub_(n)
+    tbl.n_tomb.add_(n)
+    return tbl, kill
+
+
+def compact(tbl: Table, state_cols):
+    """Reclaim tombstones and zero dead state columns, in place.
+
+    A tombstone is operationally an empty slot here (lookups scan every
+    probe position; inserts claim either), so compaction never moves a
+    key: TOMB becomes EMPTY and every row that holds no live key has its
+    state zeroed. ``state_cols``: an iterable of ``(S, ...)`` tensors
+    indexed by row (views are written through). Returns the table."""
+    tomb = _is_tomb(tbl.key_hi, tbl.key_lo)
+    dead = ~live_mask(tbl)
+    tbl.key_hi.masked_fill_(tomb, EMPTY)
+    tbl.key_lo.masked_fill_(tomb, EMPTY)
+    tbl.n_tomb.zero_()
+    for col in state_cols:
+        col.masked_fill_(dead.view((-1,) + (1,) * (col.dim() - 1)), 0)
+    return tbl

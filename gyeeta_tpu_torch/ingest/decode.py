@@ -1,7 +1,8 @@
 """Structured wire records → fixed-shape columnar microbatches (numpy).
 
-Counterpart of ``gyeeta_tpu/ingest/decode.py`` for the two record types
-of the fold path. The builders stay numpy, exactly as in the reference:
+Counterpart of ``gyeeta_tpu/ingest/decode.py`` for the record types of
+``fold_all``: the conn/resp slab and the sweep sections (listener, host,
+task, cpu/mem, trace, ping). The builders stay numpy, exactly as in the reference:
 64-bit ids split into ``(hi, lo)`` uint32 pairs, IPs folded to two
 uint32 words, the flow 5-tuple hashed to a 64-bit key on the host
 (bit-identical to the device hash), and a ``valid`` lane mask marking
@@ -21,12 +22,97 @@ from gyeeta_tpu_torch.device import resolve
 from gyeeta_tpu_torch.ingest import wire
 from gyeeta_tpu_torch.utils import hashing as H
 
-# listener-stat / host-panel / task / cpu-mem column counts: the widths
-# of the state leaves these streams fill (not folded on this path)
+# stat column indices of ListenerBatch.stats (and AggState.svc_stats)
+STAT_NQRYS = 0
+STAT_TOTAL_RESP_MS = 1
+STAT_NCONNS = 2
+STAT_NCONNS_ACTIVE = 3
+STAT_NTASKS = 4
+STAT_KB_IN = 5
+STAT_KB_OUT = 6
+STAT_SER_ERRORS = 7
+STAT_CLI_ERRORS = 8
+STAT_TASKS_DELAY_US = 9
+STAT_TASKS_CPUDELAY_US = 10
+STAT_TASKS_BLKIODELAY_US = 11
+STAT_USER_CPU = 12
+STAT_SYS_CPU = 13
+STAT_RSS_MB = 14
+STAT_NTASKS_ISSUE = 15
 NSTAT = 16
+
+# task stat column indices of TaskBatch.stats (and AggState.task_stats)
+TASK_TCP_KB = 0
+TASK_TCP_CONNS = 1
+TASK_CPU_PCT = 2
+TASK_RSS_MB = 3
+TASK_CPU_DELAY_MS = 4
+TASK_VM_DELAY_MS = 5
+TASK_BLKIO_DELAY_MS = 6
+TASK_NTASKS = 7
+TASK_NTASKS_ISSUE = 8
+TASK_FORKS_SEC = 9
 NTASKSTAT = 10
+
+_TASK_STAT_FIELDS = (
+    "tcp_kbytes", "tcp_conns", "total_cpu_pct", "rss_mb", "cpu_delay_msec",
+    "vm_delay_msec", "blkio_delay_msec", "ntasks_total", "ntasks_issue",
+    "forks_sec",
+)
+
+# host panel column indices of HostBatch.panel (and AggState.host_panel)
+HOST_NTASKS = 0
+HOST_NTASKS_ISSUE = 1
+HOST_NTASKS_SEVERE = 2
+HOST_NLISTEN = 3
+HOST_NLISTEN_ISSUE = 4
+HOST_NLISTEN_SEVERE = 5
+HOST_CPU_ISSUE = 6
+HOST_MEM_ISSUE = 7
+HOST_SEVERE_CPU = 8
+HOST_SEVERE_MEM = 9
+HOST_STATE = 10
 NHOSTCOL = 11
+
+_HOST_PANEL_FIELDS = (
+    "ntasks", "ntasks_issue", "ntasks_severe", "nlisten", "nlisten_issue",
+    "nlisten_severe", "cpu_issue", "mem_issue", "severe_cpu_issue",
+    "severe_mem_issue", "curr_state",
+)
+
+# cpu/mem column indices of CpuMemBatch.vals (and AggState.host_cm)
+CM_CPU_PCT = 0
+CM_USERCPU_PCT = 1
+CM_SYSCPU_PCT = 2
+CM_IOWAIT_PCT = 3
+CM_MAX_CORE_CPU_PCT = 4
+CM_CS_SEC = 5
+CM_FORKS_SEC = 6
+CM_PROCS_RUNNING = 7
+CM_RSS_PCT = 8
+CM_COMMIT_PCT = 9
+CM_SWAP_FREE_PCT = 10
+CM_PG_INOUT_SEC = 11
+CM_SWAP_INOUT_SEC = 12
+CM_ALLOCSTALL_SEC = 13
+CM_OOM_KILLS = 14
+CM_NCPUS = 15
 NCM = 16
+
+_CM_FIELDS = (
+    "cpu_pct", "usercpu_pct", "syscpu_pct", "iowait_pct",
+    "max_core_cpu_pct", "cs_sec", "forks_sec", "procs_running",
+    "rss_pct", "commit_pct", "swap_free_pct", "pg_inout_sec",
+    "swap_inout_sec", "allocstall_sec", "oom_kills", "ncpus",
+)
+
+_LISTENER_STAT_FIELDS = (
+    "nqrys_5s", "total_resp_5sec", "nconns", "nconns_active", "ntasks",
+    "curr_kbytes_inbound", "curr_kbytes_outbound", "ser_errors",
+    "cli_errors", "tasks_delay_usec", "tasks_cpudelay_usec",
+    "tasks_blkiodelay_usec", "tasks_user_cpu", "tasks_sys_cpu",
+    "tasks_rss_mb", "ntasks_issue",
+)
 
 
 def split_u64(a) -> tuple[np.ndarray, np.ndarray]:
@@ -68,6 +154,71 @@ class RespBatch(NamedTuple):
     svc_lo: np.ndarray
     resp_us: np.ndarray       # float32 response/service time in usec
     host_id: np.ndarray
+    valid: np.ndarray
+
+
+class ListenerBatch(NamedTuple):
+    """Columnar LISTENER_STATE microbatch: key + packed stat columns."""
+    svc_hi: np.ndarray
+    svc_lo: np.ndarray
+    stats: np.ndarray         # (B, NSTAT) float32, see STAT_* indices
+    host_id: np.ndarray
+    valid: np.ndarray
+
+
+class HostBatch(NamedTuple):
+    """Columnar HOST_STATE microbatch (dense panel write by host_id)."""
+    host_id: np.ndarray       # int32
+    panel: np.ndarray         # (B, NHOSTCOL) float32, HOST_* order
+    valid: np.ndarray
+
+
+class CpuMemBatch(NamedTuple):
+    """Columnar CPU_MEM_STATE (2s) microbatch: raw gauges by host."""
+    host_id: np.ndarray       # int32
+    vals: np.ndarray          # (B, NCM) float32, CM_* indices
+    valid: np.ndarray
+
+
+class TraceBatch(NamedTuple):
+    """Columnar REQ_TRACE microbatch: one parsed transaction per lane."""
+    key_hi: np.ndarray        # mix(svc, api) — per-API routing key
+    key_lo: np.ndarray
+    svc_hi: np.ndarray        # service glob id halves
+    svc_lo: np.ndarray
+    api_hi: np.ndarray        # interned api signature halves
+    api_lo: np.ndarray
+    resp_us: np.ndarray       # float32
+    byin: np.ndarray          # float32
+    byout: np.ndarray         # float32
+    proto: np.ndarray         # int32
+    is_err: np.ndarray        # bool
+    host_id: np.ndarray       # int32
+    valid: np.ndarray
+
+
+class PingBatch(NamedTuple):
+    """Columnar TASK_PING microbatch (process-group keepalives): keys
+    only — the fold refreshes ``task_last_tick`` of EXISTING rows and
+    never inserts."""
+    key_hi: np.ndarray        # aggr_task_id split
+    key_lo: np.ndarray
+    host_id: np.ndarray       # int32
+    valid: np.ndarray
+
+
+class TaskBatch(NamedTuple):
+    """Columnar AGGR_TASK_STATE microbatch (process-group 5s sweep)."""
+    key_hi: np.ndarray        # aggr_task_id split — process-group key
+    key_lo: np.ndarray
+    comm_hi: np.ndarray       # interned comm id
+    comm_lo: np.ndarray
+    rel_hi: np.ndarray        # related_listen_id (task→svc join)
+    rel_lo: np.ndarray
+    stats: np.ndarray         # (B, NTASKSTAT) float32, TASK_* indices
+    state: np.ndarray         # int32 agent-classified state
+    issue: np.ndarray         # int32 agent-classified issue source
+    host_id: np.ndarray       # int32
     valid: np.ndarray
 
 
@@ -145,6 +296,110 @@ def resp_batch(recs: np.ndarray, size: int = wire.MAX_RESP_PER_BATCH
     )
 
 
+def _valid(n: int, size: int) -> np.ndarray:
+    valid = np.zeros(size, bool)
+    valid[:n] = True
+    return valid
+
+
+def _packed(r, fields) -> np.ndarray:
+    """Record fields → one (n, len(fields)) float32 block."""
+    out = np.zeros((len(r), len(fields)), np.float32)
+    for i, f in enumerate(fields):
+        out[:, i] = r[f].astype(np.float32)
+    return out
+
+
+def listener_batch(recs: np.ndarray,
+                   size: int = wire.MAX_LISTENERS_PER_BATCH
+                   ) -> ListenerBatch:
+    n = _check_fit(recs, size)
+    r = recs[:n]
+    svc_hi, svc_lo = split_u64(r["glob_id"])
+    return ListenerBatch(
+        svc_hi=_pad(svc_hi, size), svc_lo=_pad(svc_lo, size),
+        stats=_pad(_packed(r, _LISTENER_STAT_FIELDS), size),
+        host_id=_pad(r["host_id"].astype(np.int32), size),
+        valid=_valid(n, size),
+    )
+
+
+def task_batch(recs: np.ndarray, size: int = wire.MAX_TASKS_PER_BATCH
+               ) -> TaskBatch:
+    """AGGR_TASK_STATE records → columnar microbatch."""
+    n = _check_fit(recs, size)
+    r = recs[:n]
+    k_hi, k_lo = split_u64(r["aggr_task_id"])
+    c_hi, c_lo = split_u64(r["comm_id"])
+    rl_hi, rl_lo = split_u64(r["related_listen_id"])
+    return TaskBatch(
+        key_hi=_pad(k_hi, size), key_lo=_pad(k_lo, size),
+        comm_hi=_pad(c_hi, size), comm_lo=_pad(c_lo, size),
+        rel_hi=_pad(rl_hi, size), rel_lo=_pad(rl_lo, size),
+        stats=_pad(_packed(r, _TASK_STAT_FIELDS), size),
+        state=_pad(r["curr_state"].astype(np.int32), size),
+        issue=_pad(r["curr_issue"].astype(np.int32), size),
+        host_id=_pad(r["host_id"].astype(np.int32), size),
+        valid=_valid(n, size),
+    )
+
+
+def ping_batch(recs: np.ndarray, size: int = wire.MAX_PINGS_PER_BATCH
+               ) -> PingBatch:
+    """TASK_PING records → columnar keepalive microbatch."""
+    n = _check_fit(recs, size)
+    r = recs[:n]
+    k_hi, k_lo = split_u64(r["aggr_task_id"])
+    return PingBatch(key_hi=_pad(k_hi, size), key_lo=_pad(k_lo, size),
+                     host_id=_pad(r["host_id"].astype(np.int32), size),
+                     valid=_valid(n, size))
+
+
+def trace_batch(recs: np.ndarray, size: int = wire.MAX_TRACE_PER_BATCH
+                ) -> TraceBatch:
+    n = _check_fit(recs, size)
+    r = recs[:n]
+    svc_hi, svc_lo = split_u64(r["svc_glob_id"])
+    api_hi, api_lo = split_u64(r["api_id"])
+    # per-API slab key: one mixed 64-bit id over (svc, api)
+    k_hi = H.mix64(svc_hi ^ api_hi, svc_lo, 0xA91D)
+    k_lo = H.mix64(api_lo, svc_lo ^ api_lo, 0x77E1)
+    return TraceBatch(
+        key_hi=_pad(k_hi, size), key_lo=_pad(k_lo, size),
+        svc_hi=_pad(svc_hi, size), svc_lo=_pad(svc_lo, size),
+        api_hi=_pad(api_hi, size), api_lo=_pad(api_lo, size),
+        resp_us=_pad(r["resp_usec"].astype(np.float32), size),
+        byin=_pad(r["bytes_in"].astype(np.float32), size),
+        byout=_pad(r["bytes_out"].astype(np.float32), size),
+        proto=_pad(r["proto"].astype(np.int32), size),
+        is_err=_pad(r["is_error"].astype(bool), size),
+        host_id=_pad(r["host_id"].astype(np.int32), size),
+        valid=_valid(n, size),
+    )
+
+
+def cpumem_batch(recs: np.ndarray, size: int = wire.MAX_CPUMEM_PER_BATCH
+                 ) -> CpuMemBatch:
+    n = _check_fit(recs, size)
+    r = recs[:n]
+    return CpuMemBatch(
+        host_id=_pad(r["host_id"].astype(np.int32), size),
+        vals=_pad(_packed(r, _CM_FIELDS), size),
+        valid=_valid(n, size),
+    )
+
+
+def host_batch(recs: np.ndarray, size: int = wire.MAX_HOSTS_PER_BATCH
+               ) -> HostBatch:
+    n = _check_fit(recs, size)
+    r = recs[:n]
+    return HostBatch(
+        host_id=_pad(r["host_id"].astype(np.int32), size),
+        panel=_pad(_packed(r, _HOST_PANEL_FIELDS), size),
+        valid=_valid(n, size),
+    )
+
+
 def _col_to_tensor(a: np.ndarray, device) -> torch.Tensor:
     if a.dtype == np.uint32:
         a = a.astype(np.int64)          # the u32 carrier
@@ -152,8 +407,9 @@ def _col_to_tensor(a: np.ndarray, device) -> torch.Tensor:
 
 
 def to_device(batches, device=None):
-    """One batch (a ConnBatch/RespBatch of ``(B,)`` columns) or a list
-    of K batches → the same NamedTuple of tensors on ``device``,
+    """One batch (any batch NamedTuple of this module, ``(B, ...)``
+    columns) or a list of K batches → the same NamedTuple of tensors on
+    ``device``,
     ``(B,)`` or stacked ``(K, B)``. Defaults to CUDA; raises without a
     GPU unless ``device="cpu"``."""
     dev = resolve(device)

@@ -3,11 +3,14 @@
 Counterpart of ``gyeeta_tpu/ingest/wire.py`` (a copy, since the port
 imports nothing of the reference): COMM_HEADER-compatible framing
 (``HEADER_DT`` — magic/total_sz/data_type/padding, 8-byte aligned, 16MB
-cap), ``EVENT_NOTIFY`` (subtype + nevents) and the two hot record types
-of this path, ``TCP_CONN`` and ``RESP_SAMPLE``. Records are fixed width,
-so a whole batch decodes with one ``np.frombuffer``.
+cap), ``EVENT_NOTIFY`` (subtype + nevents), the two hot record types of
+the flow path, ``TCP_CONN`` and ``RESP_SAMPLE``, and the record types of
+``fold_all``'s sweep sections: ``LISTENER_STATE``, ``HOST_STATE``,
+``AGGR_TASK_STATE``, ``TASK_PING``, ``CPU_MEM_STATE`` and ``REQ_TRACE``.
+Records are fixed width, so a whole batch decodes with one
+``np.frombuffer``.
 
-Only these two subtypes are known here; frames of any other subtype are
+Only these subtypes are known here; frames of any other subtype are
 skipped and their records counted (``counts["unknown_records"]``), the
 reference's treatment of a subtype it does not know.
 """
@@ -27,10 +30,22 @@ MAX_COMM_DATA_SZ = 16 * 1024 * 1024   # 16MB frame cap
 COMM_EVENT_NOTIFY = 1
 
 NOTIFY_TCP_CONN = 10          # flow close/open records
+NOTIFY_LISTENER_STATE = 11    # 5s per-service state
+NOTIFY_HOST_STATE = 12        # 5s per-host rollup
 NOTIFY_RESP_SAMPLE = 13       # raw response-time samples
+NOTIFY_AGGR_TASK_STATE = 14   # 5s per-process-group state
+NOTIFY_CPU_MEM_STATE = 15     # 2s host cpu/mem state
+NOTIFY_REQ_TRACE = 17         # request-trace transactions (per-API)
+NOTIFY_TASK_PING = 23         # process-group keepalive
 
 MAX_CONNS_PER_BATCH = 2048
+MAX_LISTENERS_PER_BATCH = 512
 MAX_RESP_PER_BATCH = 4096
+MAX_HOSTS_PER_BATCH = 4096
+MAX_TASKS_PER_BATCH = 1200
+MAX_PINGS_PER_BATCH = 2048
+MAX_CPUMEM_PER_BATCH = 4096
+MAX_TRACE_PER_BATCH = 4096
 
 HEADER_DT = np.dtype([
     ("magic", "<u4"),
@@ -85,21 +100,162 @@ RESP_SAMPLE_DT = np.dtype([
     ("host_id", "<u4"),
 ])
 
+# LISTENER_STATE record (5s per-service gauges)
+LISTENER_STATE_DT = np.dtype([
+    ("glob_id", "<u8"),
+    ("nqrys_5s", "<u4"),
+    ("total_resp_5sec", "<u4"),
+    ("nconns", "<u4"),
+    ("nconns_active", "<u4"),
+    ("ntasks", "<u4"),
+    ("p95_5s_resp_ms", "<u4"),
+    ("p95_5min_resp_ms", "<u4"),
+    ("curr_kbytes_inbound", "<u4"),
+    ("curr_kbytes_outbound", "<u4"),
+    ("ser_errors", "<u4"),
+    ("cli_errors", "<u4"),
+    ("tasks_delay_usec", "<u4"),
+    ("tasks_cpudelay_usec", "<u4"),
+    ("tasks_blkiodelay_usec", "<u4"),
+    ("tasks_user_cpu", "<u4"),
+    ("tasks_sys_cpu", "<u4"),
+    ("tasks_rss_mb", "<u4"),
+    ("ntasks_issue", "<u2"),
+    ("is_http_svc", "u1"),
+    ("curr_state", "u1"),
+    ("curr_issue", "u1"),
+    ("issue_bit_hist", "u1"),
+    ("high_resp_bit_hist", "u1"),
+    ("last_issue_subsrc", "u1"),
+    ("query_flags", "<u4"),
+    ("host_id", "<u4"),
+    ("pad", "u1", (4,)),
+    ("issue_string_id", "<u8"),  # interned issue string
+])
+
+# HOST_STATE record (5s per-host rollup with the agent's own verdicts)
+HOST_STATE_DT = np.dtype([
+    ("curr_time_usec", "<u8"),
+    ("ntasks_issue", "<u4"),
+    ("ntasks_severe", "<u4"),
+    ("ntasks", "<u4"),
+    ("nlisten_issue", "<u4"),
+    ("nlisten_severe", "<u4"),
+    ("nlisten", "<u4"),
+    ("curr_state", "u1"),
+    ("issue_bit_hist", "u1"),
+    ("cpu_issue", "u1"),
+    ("mem_issue", "u1"),
+    ("severe_cpu_issue", "u1"),
+    ("severe_mem_issue", "u1"),
+    ("pad", "u1", (2,)),
+    ("host_id", "<u4"),
+    ("pad2", "u1", (4,)),
+])
+
+# AGGR_TASK_STATE record (5s process-group state; comm string interned)
+AGGR_TASK_DT = np.dtype([
+    ("aggr_task_id", "<u8"),
+    ("comm_id", "<u8"),
+    ("related_listen_id", "<u8"),
+    ("tcp_kbytes", "<u4"),
+    ("tcp_conns", "<u4"),
+    ("total_cpu_pct", "<f4"),
+    ("rss_mb", "<u4"),
+    ("cpu_delay_msec", "<u4"),
+    ("vm_delay_msec", "<u4"),
+    ("blkio_delay_msec", "<u4"),
+    ("forks_sec", "<f4"),
+    ("ntasks_total", "<u2"),
+    ("ntasks_issue", "<u2"),
+    ("curr_state", "u1"),
+    ("curr_issue", "u1"),
+    ("pad", "u1", (2,)),
+    ("host_id", "<u4"),
+    ("pad2", "u1", (4,)),
+])
+
+# TASK_PING record: a process-group keepalive (the fold refreshes the
+# group's last-seen tick and never inserts)
+TASK_PING_DT = np.dtype([
+    ("aggr_task_id", "<u8"),
+    ("host_id", "<u4"),
+    ("pad", "u1", (4,)),
+])
+
+# CPU_MEM_STATE record: raw 2s host gauges, classified server-side
+CPU_MEM_DT = np.dtype([
+    ("cpu_pct", "<f4"),
+    ("usercpu_pct", "<f4"),
+    ("syscpu_pct", "<f4"),
+    ("iowait_pct", "<f4"),
+    ("max_core_cpu_pct", "<f4"),
+    ("cs_sec", "<f4"),
+    ("forks_sec", "<f4"),
+    ("procs_running", "<f4"),
+    ("rss_pct", "<f4"),
+    ("commit_pct", "<f4"),
+    ("swap_free_pct", "<f4"),
+    ("pg_inout_sec", "<f4"),
+    ("swap_inout_sec", "<f4"),
+    ("allocstall_sec", "<f4"),
+    ("oom_kills", "<f4"),
+    ("ncpus", "<f4"),
+    ("host_id", "<u4"),
+    ("pad", "u1", (4,)),
+])
+
+# REQ_TRACE record: one parsed request/response transaction
+REQ_TRACE_DT = np.dtype([
+    ("svc_glob_id", "<u8"),
+    ("api_id", "<u8"),            # interned normalized signature
+    ("conn_id", "<u8"),           # traced connection identity
+    ("cli_task_aggr_id", "<u8"),  # requesting process group
+    ("cli_comm_id", "<u8"),       # interned client comm
+    ("tusec", "<u8"),             # request first-byte time
+    ("resp_usec", "<u4"),
+    ("bytes_in", "<u4"),
+    ("bytes_out", "<u4"),
+    ("status", "<u2"),            # HTTP status / PG 0-ok 1-err
+    ("proto", "u1"),
+    ("is_error", "u1"),
+    ("host_id", "<u4"),
+    ("pad", "u1", (4,)),
+])
+
 DTYPE_OF_SUBTYPE = {
     NOTIFY_TCP_CONN: TCP_CONN_DT,
+    NOTIFY_LISTENER_STATE: LISTENER_STATE_DT,
+    NOTIFY_HOST_STATE: HOST_STATE_DT,
     NOTIFY_RESP_SAMPLE: RESP_SAMPLE_DT,
+    NOTIFY_AGGR_TASK_STATE: AGGR_TASK_DT,
+    NOTIFY_CPU_MEM_STATE: CPU_MEM_DT,
+    NOTIFY_REQ_TRACE: REQ_TRACE_DT,
+    NOTIFY_TASK_PING: TASK_PING_DT,
 }
 
 # per-type batch caps enforced at decode
 MAX_OF_SUBTYPE = {
     NOTIFY_TCP_CONN: MAX_CONNS_PER_BATCH,
+    NOTIFY_LISTENER_STATE: MAX_LISTENERS_PER_BATCH,
+    NOTIFY_HOST_STATE: MAX_HOSTS_PER_BATCH,
     NOTIFY_RESP_SAMPLE: MAX_RESP_PER_BATCH,
+    NOTIFY_AGGR_TASK_STATE: MAX_TASKS_PER_BATCH,
+    NOTIFY_CPU_MEM_STATE: MAX_CPUMEM_PER_BATCH,
+    NOTIFY_REQ_TRACE: MAX_TRACE_PER_BATCH,
+    NOTIFY_TASK_PING: MAX_PINGS_PER_BATCH,
 }
 
 for _name, _dt in [("HEADER_DT", HEADER_DT),
                    ("EVENT_NOTIFY_DT", EVENT_NOTIFY_DT),
                    ("TCP_CONN_DT", TCP_CONN_DT),
-                   ("RESP_SAMPLE_DT", RESP_SAMPLE_DT)]:
+                   ("LISTENER_STATE_DT", LISTENER_STATE_DT),
+                   ("HOST_STATE_DT", HOST_STATE_DT),
+                   ("RESP_SAMPLE_DT", RESP_SAMPLE_DT),
+                   ("AGGR_TASK_DT", AGGR_TASK_DT),
+                   ("TASK_PING_DT", TASK_PING_DT),
+                   ("CPU_MEM_DT", CPU_MEM_DT),
+                   ("REQ_TRACE_DT", REQ_TRACE_DT)]:
     if _dt.itemsize % 8:
         raise AssertionError((_name, _dt.itemsize))
 

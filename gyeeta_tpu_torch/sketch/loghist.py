@@ -66,7 +66,10 @@ def update_entities(hist, spec: LogHistSpec, entity_row, values,
 def quantiles(hist, spec: LogHistSpec, qs):
     """Quantile estimates per entity: hist (..., B), qs (Q,) → (..., Q).
     Empty histograms return 0."""
-    qs = torch.as_tensor(qs, dtype=torch.float32, device=hist.device)
+    if not isinstance(qs, torch.Tensor):
+        # filled on the device: a host copy would block (a sync)
+        qs = torch.stack([torch.full((), q, dtype=torch.float32,
+                                     device=hist.device) for q in qs])
     cdf = torch.cumsum(hist.to(torch.float32), dim=-1)       # (..., B)
     tot = cdf[..., -1:]                                      # (..., 1)
     target = qs * tot                                        # (..., Q)
@@ -79,3 +82,13 @@ def quantiles(hist, spec: LogHistSpec, qs):
 
 def counts_total(hist):
     return hist.sum(dim=-1)
+
+
+def mean(hist, spec: LogHistSpec):
+    """Mean of each entity's histogram over bucket midpoints (0 if
+    empty)."""
+    mids = bucket_mid(spec, torch.arange(spec.nbuckets, dtype=torch.int32,
+                                         device=hist.device))
+    tot = hist.sum(dim=-1)
+    s = (hist.to(torch.float32) * mids).sum(dim=-1)
+    return torch.where(tot > 0, s / torch.clamp(tot, min=1.0), 0.0)

@@ -143,3 +143,22 @@ def flow_key(saddr_hi, saddr_lo, daddr_hi, daddr_lo, sport, dport, proto):
     lo = fmix32(a ^ ((ports * _C1) & M32))
     hi = fmix32(b ^ ((u32(proto) * _C2) & M32) ^ lo)
     return hi, lo
+
+
+def hash_bytes_np(data: bytes, salt: int = 0) -> int:
+    """Host-only: hash arbitrary bytes to a 64-bit int (interned string
+    ids: comm names, API signatures)."""
+    h = np.uint32(0x811C9DC5 ^ (salt & 0xFFFFFFFF))
+    g = np.uint32(0x01000193)
+    with np.errstate(over="ignore"):
+        # FNV over 4-byte words, tail handled by padding.
+        pad = (-len(data)) % 4
+        w = np.frombuffer(data + b"\x00" * pad, dtype=np.uint32)
+        h1 = h
+        h2 = h ^ np.uint32(_GOLDEN)
+        for word in w:
+            h1 = (h1 ^ word) * g
+            h2 = fmix32(h2 + word)
+        h1 = fmix32(h1 ^ np.uint32(len(data)))
+        h2 = fmix32(h2 ^ h1)
+    return (int(h2) << 32) | int(h1)

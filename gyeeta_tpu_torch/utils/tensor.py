@@ -4,10 +4,13 @@
   on ties. ``torch.topk`` promises no tie order, and ties are the normal
   case here (padding and cold lanes all score −1, stage fills repeat),
   so every top-k of the port goes through one stable descending sort.
-- :func:`set_drop` / :func:`add_drop` — JAX's ``mode="drop"`` scatters:
-  lanes whose ``keep`` is False write nothing. PyTorch raises on an
-  out-of-range index, so dropped lanes are pointed at element 0 and
-  made harmless there, without a device→host sync.
+- :func:`set_drop` / :func:`add_drop` / :func:`set_rows_drop` /
+  :func:`reduce_drop` — JAX's ``mode="drop"`` scatters: lanes whose
+  ``keep`` is False write nothing. PyTorch raises on an out-of-range
+  index, so dropped lanes are pointed at element 0 and made harmless
+  there, without a device→host sync.
+- :func:`compact_true` — ``jnp.nonzero(mask, size=D, fill_value=F)``
+  without the sync of ``torch.nonzero``.
 - :func:`tree_leaves` / :func:`tree_unflatten` — flatten a NamedTuple /
   tuple tree of tensors in ``jax.tree_util.tree_flatten`` order.
 """
@@ -55,6 +58,67 @@ def add_drop(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     v = torch.where(keep.view(shape), vals.to(dst.dtype),
                     torch.zeros((), dtype=dst.dtype, device=dst.device))
     dst.index_put_((tgt,), v, accumulate=True)
+
+
+def set_rows_drop(dst: torch.Tensor, idx: torch.Tensor, vals,
+                  keep: torch.Tensor) -> None:
+    """In place: ``dst[idx[i]] = vals[i]`` (whole rows along dim 0) where
+    ``keep[i]``, for any dtype (bool included). ``vals`` broadcasts to
+    ``(B,) + dst.shape[1:]``, so a scalar sets every kept row to it.
+
+    Kept lanes sharing a row should carry equal values (the callers'
+    invariant); where they do not, the CPU keeps the last lane's, as
+    JAX's CPU scatter does. Row 0, where dropped lanes are aimed, is
+    rebuilt from the last kept lane that targets it, else its old
+    value."""
+    n = idx.shape[0]
+    if n == 0:
+        return
+    shape = (n,) + tuple(dst.shape[1:])
+    # a Python scalar is filled on the device: a copy from the host
+    # would be a blocking transfer, i.e. a sync
+    vals = vals.to(dst.dtype).expand(shape) \
+        if isinstance(vals, torch.Tensor) \
+        else torch.full(shape, vals, dtype=dst.dtype, device=dst.device)
+    tgt = torch.where(keep, idx.to(torch.int64), 0)
+    kept0 = keep & (tgt == 0)
+    last = n - 1 - torch.argmax(kept0.flip(0).to(torch.uint8), 0, True)
+    # a (1,) index tensor: indexing with a 0-d one would read it back
+    row0 = torch.where(kept0.any(), vals[last][0], dst[0])
+    dst.index_put_((tgt,), vals)
+    dst[0] = row0
+
+
+def reduce_drop(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+                keep: torch.Tensor, reduce: str) -> None:
+    """In place: ``dst[idx[i]] = max / min(dst[idx[i]], vals[i])`` along
+    dim 0 where ``keep[i]`` (``reduce`` is ``"amax"`` or ``"amin"``, the
+    ``.at[].max`` / ``.at[].min`` of JAX). Dropped lanes reduce the
+    identity (the dtype's lowest / highest value) into row 0."""
+    vals = vals.to(dst.dtype)
+    if dst.dtype.is_floating_point:
+        fill = -torch.inf if reduce == "amax" else torch.inf
+    else:
+        info = torch.iinfo(dst.dtype)
+        fill = info.min if reduce == "amax" else info.max
+    tgt = torch.where(keep, idx.to(torch.int64), 0)
+    shape = (-1,) + (1,) * (vals.dim() - 1)
+    v = torch.where(keep.view(shape), vals,
+                    torch.full((), fill, dtype=dst.dtype, device=dst.device))
+    dst.index_reduce_(0, tgt, v, reduce)
+
+
+def compact_true(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    """Ascending indices of ``mask``'s True entries in a fixed ``(size,)``
+    int64 tensor, ``fill`` past the last (entries past ``size`` are
+    dropped): ``jnp.nonzero(mask, size=size, fill_value=fill)[0]``,
+    by a cumulative sum and a scatter, with no device→host sync."""
+    pos = torch.cumsum(mask.to(torch.int64), 0) - 1
+    slot = torch.where(mask & (pos < size), pos, size)
+    out = torch.full((size + 1,), fill, dtype=torch.int64, device=mask.device)
+    out.scatter_(0, slot, torch.arange(mask.shape[0], dtype=torch.int64,
+                                       device=mask.device))
+    return out[:size]
 
 
 def _is_node(x) -> bool:

@@ -41,8 +41,9 @@ def test_checker_catches_the_prefix():
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):
-    from gyeeta_tpu_torch.engine import aggstate
+    from gyeeta_tpu_torch.engine import aggstate, step
     from gyeeta_tpu_torch.ingest import decode
+    from gyeeta_tpu_torch.parallel import depgraph
     from gyeeta_tpu_torch.sim import ParthaSim
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = aggstate.EngineCfg(svc_capacity=8, n_hosts=2, task_capacity=8,
@@ -56,6 +57,15 @@ def test_entry_points_raise_without_gpu(monkeypatch):
         aggstate.state_from_numpy(
             aggstate.state_to_numpy(aggstate.init(cfg, "cpu")))
     assert aggstate.init(cfg, "cpu").n_conn.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        depgraph.init(8, 8)
+    with pytest.raises(RuntimeError):
+        depgraph.dep_from_numpy(depgraph.dep_to_numpy(
+            depgraph.init(8, 8, "cpu")))
+    # fold_all runs where its state lies: on the CPU only when asked for
+    st, dep, pressure = step.fold_all(cfg, aggstate.init(cfg, "cpu"),
+                                      depgraph.init(8, 8, "cpu"), 0)
+    assert pressure.device.type == dep.n_paired.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):
