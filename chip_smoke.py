@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's flow-event fold path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: folds, kernels, Runtime.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA card and the CUDA toolkit (``nvcc``), builds the port's kernels
@@ -54,9 +54,28 @@ checkout of the repository. Phases:
    (connresp only, with sections), the synchronised dependency-fold
    share, host syncs a dispatch (CUDA sync debug mode, with their
    lines) and device ops and busy share under torch.profiler.
+8. The port's ``Runtime`` at ns geometry through its entry points:
+   ``feed`` of pre-generated frames (names; each tick's listener, task,
+   host, cpu/mem and trace sweep; feed buffers of K·conn_batch conn —
+   one lane in eight a split half — and K·resp_batch resp records), a
+   warm-up tick, then two ticks of 16 buffers with ``run_tick`` between:
+   ms per buffer and events/s with the ``Stats.timeit`` split (deframe,
+   decode, fold dispatch), fold dispatches a buffer, ms per ``run_tick``
+   with its synchronised parts, ``heavy_recover`` ms, host syncs of one
+   buffer, one query per served subsystem plus three svcstate
+   variants, each timed first and cached, and 20 rounds of a feed
+   buffer followed by a svcstate query (its p50/p99). The launch counters are zeroed
+   before the measured ticks: each dispatch that carries a conn/resp
+   slab launches the fused kernels 2/1/1 times, the generic ones never.
+   Checks: the event counters, 65,536 live services, 512 hosts,
+   svcdependency rows = live edges, topk rows and recovered keys. Then
+   the tiny stream of ``tests/test_torch_runtime.py`` through
+   ``Runtime`` on the card and on the CPU: 85 + 29 leaves, and the JSON
+   of every request (quantiles moved by CUDA's ``logf`` may sit one
+   loghist bucket apart, counted).
 6. Fold rate and device ops a dispatch, memory, the card's name and
-   power limit, the JSON lines (fold, fold_all, kernels), and last the
-   result line.
+   power limit, the JSON lines (fold, fold_all, runtime, kernels), and
+   last the result line.
 """
 
 from __future__ import annotations
@@ -1364,6 +1383,451 @@ def fold_all_phase(torch, scatter):
     return perf
 
 
+# ----------------------------------------------------------- phase 8
+RT_OPTS = dict(dep_pair_capacity=65536, dep_edge_capacity=524288)
+RT_TICKS = 2                # measured ticks
+RT_BUFFERS = 16             # feed buffers a measured tick
+RT_DISTINCT = 4             # distinct feed buffers, cycled
+RT_WARM_BUFFERS = 2         # feed buffers of the warm-up tick
+RT_FRESH_ROUNDS = 20        # feed buffer → svcstate query rounds
+# one request per served subsystem, and three svcstate variants
+RT_QUERIES = {s: {"subsys": s} for s in (
+    "svcstate", "hoststate", "clusterstate", "flowstate", "taskstate",
+    "topcpu", "toppgcpu", "toprss", "topdelay", "topfork", "cpumem",
+    "tracereq", "traceuniq", "svcsumm", "hostlist", "topk",
+    "svcdependency", "svcmesh", "activeconn", "clientconn")}
+RT_QUERIES |= {
+    "svcstate filter+sort": {
+        "subsys": "svcstate", "maxrecs": 100, "sortcol": "p95resp5s",
+        "filter": "{ svcstate.state in 'OK','Bad','Severe' } and "
+                  "{ svcstate.nconns > 0 }"},
+    "svcstate aggr+groupby": {
+        "subsys": "svcstate", "groupby": ["state"],
+        "aggr": ["count(*)", "avg(qps5s)", "max(p95resp5s)"]},
+    "svcstate lazy columns": {
+        "subsys": "svcstate", "maxrecs": 100, "sortcol": "nconns",
+        "columns": ["svcid", "svcname", "p95resp5s", "p95resp5m",
+                    "p50resp5d", "p95resp5d", "nclients", "qps5s"]},
+}
+# the tiny stream of tests/test_torch_runtime.py (card vs CPU)
+TINY_RT_OPTS = dict(dep_pair_capacity=64, dep_edge_capacity=256,
+                    dep_pair_ttl_ticks=1, dep_edge_ttl_ticks=2,
+                    task_age_every_ticks=2, task_max_age_ticks=1,
+                    api_max_age_ticks=2)
+TINY_CUTS = (9001, 5000, 333)
+# loghist-derived JSON fields: (spec, unit scale of the JSON value)
+QUANTILE_FIELDS = {
+    **dict.fromkeys(("resp5s", "p95resp5s", "p99resp5s", "p95resp5m",
+                     "p50resp5d", "p95resp5d"), ("resp_spec", 1e3)),
+    **dict.fromkeys(("p50resp", "p95resp", "p99resp"),
+                    ("apiresp_spec", 1e3)),
+    "cpup95": ("taskcpu_spec", 1.0),
+}
+
+
+def feed_buffer(sim, cfg, wire):
+    """One feed buffer: K·conn_batch TCP_CONN records (one lane in eight
+    a split half) and K·resp_batch RESP_SAMPLE records, framed →
+    (bytes, conn records, resp records)."""
+    n = cfg.fold_k * cfg.conn_batch
+    cli, ser = sim.svc_conn_records(n // 16, split_halves=True)
+    conns = np.concatenate([sim.conn_records(n - 2 * len(cli)), cli, ser])
+    nr = cfg.fold_k * cfg.resp_batch
+    return (wire.encode_frames_chunked(wire.NOTIFY_TCP_CONN, conns)
+            + sim.resp_frames(nr), len(conns), nr)
+
+
+def sweep_frames(sim, wire, trace_svcs) -> bytes:
+    """One tick's sweep as the agents send it: listeners, process
+    groups, hosts' state and cpu/mem, the traced services' requests."""
+    return (sim.listener_frames() + sim.task_frames()
+            + wire.encode_frames_chunked(wire.NOTIFY_HOST_STATE,
+                                         sim.host_state_records())
+            + wire.encode_frames_chunked(wire.NOTIFY_CPU_MEM_STATE,
+                                         sim.cpu_mem_records())
+            + sim.trace_frames(TRACE_DRAWS, only_svcs=trace_svcs))
+
+
+class SyncTimer:
+    """Wraps (module, attribute) callables with synchronised wall
+    timers for a with-block: where a run_tick's time goes."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets, self.ms = torch, targets, {}
+
+    def __enter__(self):
+        self.saved = []
+        for mod, attr, name in self.targets:
+            fn = getattr(mod, attr)
+            self.saved.append((mod, attr, fn))
+            setattr(mod, attr, self._wrap(fn, name))
+        return self
+
+    def _wrap(self, fn, name):
+        def timed_fn(*a, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.torch.cuda.synchronize()
+            self.ms[name] = self.ms.get(name, 0.0) \
+                + (time.perf_counter() - t0) * 1e3
+            return out
+        return timed_fn
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def tiny_runtime_buffers(sim, wire):
+    """The four ticks of the tiny runtime stream (names, sweep marks,
+    every sweep section, conn with split halves, resp)."""
+    out, late = [], None
+    for tick in range(4):
+        seq = np.zeros(sim.n_hosts, wire.SWEEP_SEQ_DT)
+        seq["host_id"] = np.arange(sim.n_hosts)
+        seq["seq"] = 10 * tick + seq["host_id"]
+        tasks = sim.aggr_task_records()
+        if tick == 3:
+            tasks = tasks[:8]
+        cli, ser = sim.svc_conn_records(8, split_halves=True)
+        conns = np.concatenate(
+            [sim.conn_records(40), sim.svc_conn_records(8), cli]
+            + ([late] if late is not None and tick != 1 else []))
+        late = ser
+        out.append(
+            (sim.name_frames() if tick == 0 else b"")
+            + wire.encode_frames_chunked(wire.NOTIFY_SWEEP_SEQ, seq)
+            + sim.listener_frames()
+            + wire.encode_frames_chunked(wire.NOTIFY_AGGR_TASK_STATE, tasks)
+            + wire.encode_frames_chunked(wire.NOTIFY_HOST_STATE,
+                                         sim.host_state_records())
+            + wire.encode_frames_chunked(
+                wire.NOTIFY_CPU_MEM_STATE, sim.cpu_mem_records(
+                    hot_cpu=[tick % 8], hot_mem=[(tick + 3) % 8]))
+            + sim.trace_frames(80)
+            + wire.encode_frames_chunked(wire.NOTIFY_TCP_CONN, conns)
+            + sim.resp_frames(100))
+    return out
+
+
+def tiny_runtime_run(device):
+    """The tiny stream through ``Runtime(device=...)`` in uneven byte
+    cuts, a run_tick after each tick → (runtime, loghist inputs fed)."""
+    from gyeeta_tpu_torch.engine import aggstate
+    from gyeeta_tpu_torch.ingest import decode, wire
+    from gyeeta_tpu_torch.runtime import Runtime
+    from gyeeta_tpu_torch.sim import ParthaSim
+    from gyeeta_tpu_torch.sketch import loghist
+    from gyeeta_tpu_torch.utils.config import RuntimeOpts
+
+    cfg = tiny_cfg(aggstate, loghist)._replace(
+        n_hosts=8, task_capacity=128, api_capacity=256)
+    rt = Runtime(cfg, RuntimeOpts(**TINY_RT_OPTS), device=device)
+    fed = {"resp_spec": [], "apiresp_spec": [], "taskcpu_spec": [],
+           "qps_spec": [], "active_spec": []}
+    for buf in tiny_runtime_buffers(ParthaSim(n_hosts=8, n_svcs=4,
+                                              n_clients=256), wire):
+        recs, _, _ = wire.drain2(buf)
+        tr = recs[wire.NOTIFY_REQ_TRACE]
+        fed["resp_spec"] += [recs[wire.NOTIFY_RESP_SAMPLE]["resp_usec"],
+                             tr["resp_usec"]]
+        fed["apiresp_spec"].append(tr["resp_usec"])
+        tb = decode.task_batch(recs[wire.NOTIFY_AGGR_TASK_STATE], 4096)
+        fed["taskcpu_spec"].append(tb.stats[tb.valid, decode.TASK_CPU_PCT])
+        lb = decode.listener_batch(recs[wire.NOTIFY_LISTENER_STATE], 4096)
+        fed["qps_spec"].append(lb.stats[lb.valid, decode.STAT_NQRYS] / 5.0)
+        fed["active_spec"].append(
+            lb.stats[lb.valid, decode.STAT_NCONNS_ACTIVE])
+        cuts = [0] + [len(buf) - c for c in TINY_CUTS] + [len(buf)]
+        for a, b in zip(cuts, cuts[1:]):
+            rt.feed(buf[a:b])
+        rt.run_tick()
+    return rt, {k: np.concatenate(v).astype(np.float32)
+                for k, v in fed.items()}
+
+
+def _json_diff(torch, loghist, cfg, ref, got, moved, path, n_moved):
+    """Card JSON against CPU JSON: strings, ints and bools exact; floats
+    rtol 1e-6, or else counted in ``n_moved``: 0.001 apart where both
+    are rounded to the JSON's three decimals (``fieldmaps.row_to_json``:
+    device values one float32 ulp apart, as CUDA's ``expf`` in a loghist
+    bucket midpoint gives, straddling a rounding boundary), or within
+    one loghist bucket for a quantile field when CUDA's ``logf`` moved
+    a sample of its spec."""
+    if isinstance(ref, dict):
+        if set(ref) != set(got):
+            raise AssertionError(f"{path}: keys {set(ref) ^ set(got)}")
+        for k in ref:
+            _json_diff(torch, loghist, cfg, ref[k], got[k], moved,
+                       f"{path}.{k}", n_moved)
+    elif isinstance(ref, list):
+        if len(ref) != len(got):
+            raise AssertionError(f"{path}: {len(ref)} vs {len(got)} rows")
+        for i, (a, b) in enumerate(zip(ref, got)):
+            _json_diff(torch, loghist, cfg, a, b, moved, f"{path}[{i}]",
+                       n_moved)
+    elif isinstance(ref, float) or isinstance(got, float):
+        if math.isclose(ref, got, rel_tol=1e-6, abs_tol=0.0):
+            return
+        if (round(ref, 3) == ref and round(got, 3) == got
+                and abs(ref - got) <= 0.0010001):
+            n_moved[1] += 1
+            return
+        field = path.rsplit(".", 1)[-1]
+        spec_name, scale = QUANTILE_FIELDS.get(field, (None, 1.0))
+        if spec_name is None or not moved.get(spec_name):
+            raise AssertionError(f"{path}: {ref} vs {got}")
+        spec = getattr(cfg, spec_name)
+        b = loghist.bucket_of(spec, torch.tensor([ref * scale, got * scale],
+                                                 dtype=torch.float32))
+        if abs(int(b[0]) - int(b[1])) > 1:
+            raise AssertionError(f"{path}: {ref} vs {got}, more than one "
+                                 "loghist bucket apart")
+        n_moved[0] += 1
+    elif type(ref) is not type(got) or ref != got:
+        raise AssertionError(f"{path}: {ref!r} vs {got!r}")
+
+
+def runtime_phase(torch, scatter):
+    """The port's Runtime at ns geometry, through its own entry points:
+    feed (bytes) → fold_all → run_tick → query; then the tiny stream
+    card vs CPU (leaves and query JSON)."""
+    from gyeeta_tpu_torch.engine import aggstate, compact, step
+    from gyeeta_tpu_torch.ingest import wire
+    from gyeeta_tpu_torch.parallel import depgraph
+    from gyeeta_tpu_torch.runtime import Runtime
+    from gyeeta_tpu_torch.semantic import derive
+    from gyeeta_tpu_torch.sim import ParthaSim
+    from gyeeta_tpu_torch.sketch import loghist
+    from gyeeta_tpu_torch.utils.config import RuntimeOpts
+    from gyeeta_tpu_torch.utils.tensor import tree_paths
+
+    cfg = aggstate.EngineCfg(**NS_CFG)
+    sim = ParthaSim(**NS_SIM, seed=11)
+    n_svcs = sim.n_hosts * sim.n_svcs
+    log(f"phase 8: Runtime at north-star geometry (dep {RT_OPTS}), "
+        f"feed buffers of {cfg.fold_k * cfg.conn_batch} conn + "
+        f"{cfg.fold_k * cfg.resp_batch} resp records")
+    t0 = time.perf_counter()
+    trace_svcs = list(sim.glob_ids.reshape(-1)[::n_svcs // TRACE_SVCS])
+    names = sim.name_frames()
+    sweeps = [sweep_frames(sim, wire, trace_svcs)
+              for _ in range(RT_TICKS + 1)]
+    bufs = [feed_buffer(sim, cfg, wire) for _ in range(RT_DISTINCT)]
+    log(f"  generated names ({len(names)} B), {len(sweeps)} sweeps "
+        f"({len(sweeps[0])} B each) and {RT_DISTINCT} feed buffers "
+        f"({len(bufs[0][0])} B each) in {time.perf_counter() - t0:.2f}s")
+
+    torch.cuda.reset_peak_memory_stats()
+    rt = Runtime(cfg, RuntimeOpts(**RT_OPTS), device=DEV)
+    fed = {"conn": 0, "resp": 0}
+
+    def feed(buf, nc=0, nr=0):
+        rt.feed(buf)
+        fed["conn"] += nc
+        fed["resp"] += nr
+
+    # warm-up tick: names, a sweep, a few buffers, the tick
+    t0 = time.perf_counter()
+    feed(names)
+    feed(sweeps[0])
+    for i in range(RT_WARM_BUFFERS):
+        feed(*bufs[i % RT_DISTINCT])
+    rt.run_tick()
+    torch.cuda.synchronize()
+    log(f"  warm-up tick (names, sweep, {RT_WARM_BUFFERS} buffers, "
+        f"run_tick): {time.perf_counter() - t0:.2f}s, "
+        f"{int(rt.state.tbl.n_live)} services live")
+
+    # ---- the main path, counted
+    mods = sketch_modules()
+    connresp = [0]
+    fold_all = step.fold_all
+
+    def counting_fold_all(*a, **kw):
+        connresp[0] += kw.get("connresp") is not None
+        return fold_all(*a, **kw)
+
+    tick_parts = SyncTimer(torch, (
+        (rt, "flush", "flush"), (rt, "td_drain", "td_drain"),
+        (derive, "classify_pass", "classify_pass"),
+        (rt, "heavy_recover", "heavy_recover"),
+        (depgraph, "age", "dep_age"), (rt, "engine_health", "health"),
+        (step, "tick_5s", "tick_5s"), (step, "age_tasks", "age_tasks"),
+        (step, "age_apis", "age_apis"),
+        (compact, "compact_state", "compact_state"),
+        (step, "compact_tasks", "compact_tasks")))
+    perf = {"sweep_s": [], "buffer_ms": [], "tick_ms": [],
+            "tick_parts_ms": []}
+    timings0 = rt.stats.timing_totals()
+    disp0 = rt.stats.counters["fold_dispatches"]
+    buf_disp = 0
+    reset_launches(scatter, mods)
+    step.fold_all = counting_fold_all
+    try:
+        j = RT_WARM_BUFFERS
+        for tick in range(RT_TICKS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feed(sweeps[tick + 1])
+            torch.cuda.synchronize()
+            perf["sweep_s"].append(time.perf_counter() - t0)
+            d0 = rt.stats.counters["fold_dispatches"]
+            t0 = time.perf_counter()
+            for _ in range(RT_BUFFERS):
+                feed(*bufs[j % RT_DISTINCT])
+                j += 1
+            torch.cuda.synchronize()
+            perf["buffer_ms"].append((time.perf_counter() - t0)
+                                     / RT_BUFFERS * 1e3)
+            buf_disp += rt.stats.counters["fold_dispatches"] - d0
+            t0 = time.perf_counter()
+            with tick_parts:
+                rt.run_tick()
+            torch.cuda.synchronize()
+            perf["tick_ms"].append((time.perf_counter() - t0) * 1e3)
+            perf["tick_parts_ms"].append(dict(tick_parts.ms))
+            tick_parts.ms = {}
+    finally:
+        step.fold_all = fold_all
+    launches = read_launches(scatter, mods)
+    timings = {k: (n - timings0.get(k, (0, 0.0))[0],
+                   ms - timings0.get(k, (0, 0.0))[1])
+               for k, (n, ms) in rt.stats.timing_totals().items()}
+    ev = cfg.fold_k * (cfg.conn_batch + cfg.resp_batch)
+    n_buf = RT_TICKS * RT_BUFFERS
+    perf["events_per_buffer"] = ev
+    perf["events_per_s"] = [ev / (m / 1e3) for m in perf["buffer_ms"]]
+    perf["dispatches_per_buffer"] = buf_disp / n_buf
+    perf["dispatches"] = rt.stats.counters["fold_dispatches"] - disp0
+    perf["connresp_dispatches"] = connresp[0]
+    perf["timeit_ms"] = {k: {"n": n, "total_ms": ms}
+                         for k, (n, ms) in timings.items()}
+    log(f"  sweep feed (s, by tick): "
+        f"{', '.join(f'{s:.3f}' for s in perf['sweep_s'])}")
+    log(f"  ms per feed buffer, by tick: "
+        f"{', '.join(f'{m:.3f}' for m in perf['buffer_ms'])} "
+        f"({', '.join(f'{e:.0f}' for e in perf['events_per_s'])} "
+        f"events/s); {perf['dispatches_per_buffer']:.3f} fold dispatches "
+        "a buffer")
+    log("  Stats.timeit over the measured ticks (sweeps included): " + "; "
+        .join(f"{k} {v['total_ms']:.1f} ms / {v['n']}"
+              for k, v in sorted(perf["timeit_ms"].items())))
+    log(f"  ms per run_tick: {', '.join(f'{m:.2f}' for m in perf['tick_ms'])}"
+        "; parts (synchronised): " + " | ".join(
+            ", ".join(f"{k} {v:.2f}" for k, v in p.items())
+            for p in perf["tick_parts_ms"]))
+    log(f"  kernel launches on the Runtime path: {launches}")
+    check(launches == {"hll_update": 2 * connresp[0],
+                       "cms_update": connresp[0], "inv_update": connresp[0],
+                       "scatter_max": 0, "scatter_add": 0}
+          and connresp[0] > 0,
+          f"each of the {connresp[0]} fold_all dispatches with a conn/resp "
+          "slab launched hll_update 2x, cms_update 1x and inv_update 1x, "
+          "and no generic scatter kernel")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec = rt.heavy_recover()
+    perf["heavy_recover_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"  heavy_recover: {perf['heavy_recover_ms']:.2f} ms, "
+        f"{rec['recovered_keys']} recovered keys, {len(rec['flows'])} rows")
+    syncs = count_syncs(torch, lambda: rt.feed(bufs[0][0]))
+    fed["conn"] += bufs[0][1]
+    fed["resp"] += bufs[0][2]
+    perf["syncs_per_buffer"] = syncs
+    log(f"  host syncs in one feed buffer: {len(syncs)} at {syncs}")
+
+    # ---- queries
+    perf["query_ms"] = {}
+    outs = {}
+    for name, req in RT_QUERIES.items():
+        t0 = time.perf_counter()
+        outs[name] = rt.query(dict(req))
+        first = (time.perf_counter() - t0) * 1e3
+        rt.flush()
+        t0 = time.perf_counter()
+        again = rt.query(dict(req))
+        cached = (time.perf_counter() - t0) * 1e3
+        if again != outs[name]:
+            raise AssertionError(f"{name}: the cached answer differs")
+        perf["query_ms"][name] = {"first": first, "cached": cached,
+                                  "nrecs": outs[name]["nrecs"]}
+        log(f"  query {name}: {first:.1f} ms, cached {cached:.1f} ms, "
+            f"nrecs {outs[name]['nrecs']}")
+    # query freshness: the first svcstate query after each fold
+    fresh = []
+    for i in range(RT_FRESH_ROUNDS):
+        feed(*bufs[i % RT_DISTINCT])
+        t0 = time.perf_counter()
+        out = rt.query({"subsys": "svcstate"})
+        fresh.append((time.perf_counter() - t0) * 1e3)
+        if out["ntotal"] != n_svcs:
+            raise AssertionError(f"svcstate ntotal {out['ntotal']}")
+    q = np.percentile(fresh, [50, 99])
+    perf["svcstate_after_fold_ms"] = {"samples": fresh, "p50": q[0],
+                                      "p99": q[1], "max": max(fresh)}
+    log(f"  svcstate query right after a feed buffer ({RT_FRESH_ROUNDS} "
+        f"rounds): p50 {q[0]:.1f} ms, p99 {q[1]:.1f} ms, max "
+        f"{max(fresh):.1f} ms")
+    perf["max_memory_allocated_gib"] = \
+        torch.cuda.max_memory_allocated() / 2**30
+    log(f"  peak device memory: {perf['max_memory_allocated_gib']:.3f} GiB")
+
+    # ---- checks at ns
+    c = rt.stats.counters
+    check(c["conn_events"] == fed["conn"] and c["resp_events"] == fed["resp"],
+          f"conn_events {c['conn_events']} / resp_events "
+          f"{c['resp_events']} = the records fed")
+    check(outs["svcstate"]["ntotal"] == n_svcs,
+          f"svcstate ntotal = {n_svcs} live services")
+    check(outs["hoststate"]["ntotal"] == sim.n_hosts,
+          f"hoststate: {sim.n_hosts} hosts")
+    live_edges = int(rt.dep.edge_tbl.n_live)
+    check(outs["svcdependency"]["ntotal"] == live_edges > 0,
+          f"svcdependency's live rows = the {live_edges} edges the "
+          "dependency graph holds live")
+    check(outs["topk"]["nrecs"] > 0 and rec["recovered_keys"] > 0,
+          f"topk returns rows ({outs['topk']['nrecs']}) and heavy_recover "
+          f"recovered keys ({rec['recovered_keys']})")
+    perf["recovered_keys"] = rec["recovered_keys"]
+    del rt
+    torch.cuda.empty_cache()
+
+    # ---- card vs CPU, tiny stream
+    log("  tiny runtime stream, card vs CPU")
+    g_rt, fed_vals = tiny_runtime_run(DEV)
+    c_rt, _ = tiny_runtime_run("cpu")
+    tcfg = c_rt.cfg
+    moved = {k: _moved(torch, loghist, getattr(tcfg, k), v)
+             for k, v in fed_vals.items()}
+    log(f"  loghist inputs whose bucket CUDA's logf moves: {moved}")
+    names_ = tree_paths(aggstate.init(tcfg, "meta"))
+    n_exact, n_close = _compare_leaves(
+        names_, aggstate.state_to_numpy(c_rt.state),
+        aggstate.state_to_numpy(g_rt.state), moved)
+    check(n_exact + n_close == 85, f"AggState: 85 leaves agree ({n_exact} "
+          f"exactly, {n_close} within tolerance)")
+    dnames = tree_paths(depgraph.init(1, 1, "meta"))
+    n_exact, n_close = _compare_leaves(
+        dnames, depgraph.dep_to_numpy(c_rt.dep),
+        depgraph.dep_to_numpy(g_rt.dep), {})
+    check(n_exact + n_close == 29, f"DepGraph: 29 leaves agree ({n_exact} "
+          f"exactly, {n_close} within tolerance)")
+    n_q = [0, 0]
+    for name in RT_QUERIES:
+        req = dict(RT_QUERIES[name], maxrecs=10000) \
+            if "aggr" not in RT_QUERIES[name] else RT_QUERIES[name]
+        _json_diff(torch, loghist, tcfg, c_rt.query(dict(req)),
+                   g_rt.query(dict(req)), moved, name, n_q)
+    check(True, f"query JSON of {len(RT_QUERIES)} requests agrees card vs "
+          f"CPU ({n_q[0]} quantiles one loghist bucket apart, {n_q[1]} "
+          "values one unit apart in the JSON's third decimal)")
+    perf["tiny_json_bucket_apart"], perf["tiny_json_rounding_apart"] = n_q
+    return perf, launches
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1395,8 +1859,11 @@ def main(argv) -> int:
         generic_phase(torch, scatter, captured, launches)
     torch.cuda.empty_cache()
     fa = fold_all_phase(torch, scatter)
+    torch.cuda.empty_cache()
+    rtp, rt_launches = runtime_phase(torch, scatter)
     for k in kernels:
         k["launches_fold_all"] = fa["launches"][k["name"]]
+        k["launches_runtime"] = rt_launches[k["name"]]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1412,6 +1879,7 @@ def main(argv) -> int:
     log(f"max_memory_allocated: {perf['max_memory_allocated_gib']:.3f} GiB")
     log(json.dumps({"fold": perf}))
     log(json.dumps({"fold_all": fa}))
+    log(json.dumps({"runtime": rtp}))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

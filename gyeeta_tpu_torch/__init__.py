@@ -1,16 +1,21 @@
-"""PyTorch/CUDA port of ``gyeeta_tpu``'s flow-event fold path.
+"""PyTorch/CUDA port of ``gyeeta_tpu``: the aggregation tier's main path.
 
 A second package beside the JAX one, with the same module layout and
-names, so each counterpart is easy to find: ``utils/hashing.py``,
-``ingest/{wire,decode}.py``, ``sim/partha.py``, ``sketch/*``,
-``engine/{table,aggstate,step}.py`` and ``query/readback.py``.
+names, so each counterpart is easy to find: ``runtime.py`` (``Runtime``:
+``feed`` → ``run_tick`` → ``query``), ``ingest/{wire,decode}.py``,
+``sim/partha.py``, ``sketch/*``, ``engine/*``, ``parallel/depgraph.py``,
+``semantic/*``, ``query/*`` (readbacks, criteria, aggregation, the
+JSON query API), ``obs/health.py`` and ``utils/*`` (hashing, interning,
+config, checkpoints, self-stats). What is not ported yet raises,
+naming its ROADMAP.md item (``unported.py``).
 
 The two Pallas kernels of the reference
 (``gyeeta_tpu/sketch/pallas_scatter.py``) are hand-written CUDA kernels
-here (``csrc/scatter.cu``, bound in ``sketch/scatter.py``). Entry points
-take an explicit ``device``: CUDA by default, and they raise when no GPU
-is present unless the caller asks for ``device="cpu"``, where each kernel
-wrapper runs its plain PyTorch version.
+here (``csrc/sketch_update.cu`` fused on the fold path, the generic
+``csrc/scatter.cu`` beside them). Entry points take an explicit
+``device``: CUDA by default, and they raise when no GPU is present
+unless the caller asks for ``device="cpu"``, where each kernel wrapper
+runs its plain PyTorch version.
 
 The package imports ``torch`` and numpy, never ``jax`` and nothing of
 ``gyeeta_tpu``: what it needs of the reference it keeps as its own copy.

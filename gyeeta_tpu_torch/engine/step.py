@@ -8,7 +8,8 @@ CMS, budgeted top-K, invertible heavy-hitter buckets),
 ``ingest_task``, ``ingest_cpumem``, ``ingest_trace``, ``ping_tasks``),
 ``fold_all`` (every section + the conn/resp slab + the dependency graph
 in one dispatch), the digest flushes, ``tick_5s``, the tick's upkeep
-(``age_tasks``, ``age_apis``, ``compact_tasks``) and the health vector.
+(``age_tasks``, ``age_apis``, ``compact_tasks``), the health vector and
+the read-only ``heavy_recover`` pass.
 
 The reference jits these with state donation (``jit_fold_step``); here
 every function updates the large state buffers IN PLACE and returns the
@@ -379,6 +380,25 @@ def engine_health_vec(cfg: EngineCfg, st: AggState, dep) -> torch.Tensor:
         s(dep.n_paired), s(dep.n_expired), s(dep.n_dropped),
         s(st.flow_topk.evicted), s(st.inv.prio > 0), s(st.inv.n_hot),
     ))
+
+
+def heavy_recover(cfg: EngineCfg, st: AggState) -> dict:
+    """Heavy-hitter recovery: one read-only pass over ``st.inv``,
+    ``st.cms`` and ``st.flow_topk`` — the decoded, verified candidates
+    with their CMS estimates, and the exact top-K lanes with theirs —
+    as a dict of device tensors (the caller reads them back once)."""
+    out = invertible.decode(st.inv, st.cms)
+    t_hi, t_lo, t_counts = topk.query(st.flow_topk, cfg.topk_capacity)
+    # CMS estimate for the exact lanes too: truth ∈ [count, est]
+    t_est = countmin.query(st.cms, t_hi, t_lo).to(torch.float32)
+    out.update({
+        "topk_hi": t_hi, "topk_lo": t_lo, "topk_counts": t_counts,
+        "topk_est": torch.where(t_counts > 0, t_est, 0.0),
+        "evicted": st.flow_topk.evicted,
+        "total_mass": countmin.total(st.cms),
+        "n_hot": st.inv.n_hot,
+    })
+    return out
 
 
 # --------------------------------------------------------- fused dispatch

@@ -9,6 +9,11 @@ uint32 words, the flow 5-tuple hashed to a 64-bit key on the host
 padding. :func:`to_device` is the one step the port adds: it stacks K
 batches to ``(K, B)`` columns and moves them to the device, with every
 uint32 column in the int64 carrier of ``utils/hashing.py``.
+
+The runtime's staging helpers are here too: :func:`drain_chunks` (the
+fold plan of a drained feed), :func:`take_raw_chunks`,
+:func:`conn_slab` / :func:`resp_slab` (raw records → one ``(K, B)``
+slab) and :func:`resp_from_trace` (the trace→resp bridge).
 """
 
 from __future__ import annotations
@@ -398,6 +403,130 @@ def host_batch(recs: np.ndarray, size: int = wire.MAX_HOSTS_PER_BATCH
         panel=_pad(_packed(r, _HOST_PANEL_FIELDS), size),
         valid=_valid(n, size),
     )
+
+
+# ------------------------------------------------------- runtime staging
+# The reference's sections decode through a native C++ path when it is
+# built (``*_batch_fast``) and fall back to the numpy builders above, bit
+# for bit the same columns. The port has the numpy path only, under the
+# reference's names (tests/test_torch_runtime.py holds its columns
+# against the reference's builders).
+
+listener_batch_fast = listener_batch
+task_batch_fast = task_batch
+cpumem_batch_fast = cpumem_batch
+host_batch_fast = host_batch
+
+
+def take_raw_chunks(lst: list, want: int) -> tuple[list, int]:
+    """Pop up to ``want`` records off a raw-record-array backlog as a
+    list of array views (no copy, no concatenation)."""
+    out, got = [], 0
+    while lst and got < want:
+        a = lst[0]
+        take = min(len(a), want - got)
+        if take == len(a):
+            lst.pop(0)
+        else:
+            lst[0] = a[take:]
+            a = a[:take]
+        out.append(a)
+        got += take
+    return out, got
+
+
+def _concat_chunks(chunks: list, dtype) -> np.ndarray:
+    if not chunks:
+        return np.empty(0, dtype)
+    return chunks[0] if len(chunks) == 1 else np.concatenate(chunks)
+
+
+def conn_slab(recs, k: int, b: int) -> ConnBatch:
+    """TCP_CONN records (n ≤ k·b; an array or a list of chunk arrays)
+    → ConnBatch with ``(k, b)`` stacked columns: one flat decode and a
+    reshape. Record i lands in flattened lane i, the padding at the
+    tail (the fold reads lanes only through ``valid``)."""
+    chunks = recs if isinstance(recs, list) else [recs]
+    cb = conn_batch(_concat_chunks(chunks, wire.TCP_CONN_DT), k * b)
+    return ConnBatch(*(x.reshape(k, b) for x in cb))
+
+
+def resp_slab(recs, k: int, b: int) -> RespBatch:
+    """RESP_SAMPLE records (n ≤ k·b; array or chunk list) → RespBatch
+    with ``(k, b)`` stacked columns (see :func:`conn_slab`)."""
+    chunks = recs if isinstance(recs, list) else [recs]
+    rb = resp_batch(_concat_chunks(chunks, wire.RESP_SAMPLE_DT), k * b)
+    return RespBatch(*(x.reshape(k, b) for x in rb))
+
+
+def drain_chunks(recs: dict, conn_batch: int, resp_batch: int,
+                 listener_batch: int):
+    """Drained records-by-subtype → a fold plan of lane-sized chunks,
+    yielding ``(kind, *chunks)`` in the reference's order: conn/resp
+    pairs, listener, host, task, cpumem, trace, listener_info,
+    host_info, cgroup, mount, netif, ping, delta, agent_stats, names."""
+    conn = recs.get(wire.NOTIFY_TCP_CONN)
+    resp = recs.get(wire.NOTIFY_RESP_SAMPLE)
+    nc = 0 if conn is None else len(conn)
+    nr = 0 if resp is None else len(resp)
+    npair = max(-(-nc // conn_batch), -(-nr // resp_batch)) \
+        if (nc or nr) else 0
+    for i in range(npair):
+        cchunk = conn[i * conn_batch:(i + 1) * conn_batch] if nc \
+            else np.empty(0, wire.TCP_CONN_DT)
+        rchunk = resp[i * resp_batch:(i + 1) * resp_batch] if nr \
+            else np.empty(0, wire.RESP_SAMPLE_DT)
+        yield ("connresp", cchunk, rchunk)
+    chunked = ((wire.NOTIFY_LISTENER_STATE, "listener", listener_batch),
+               (wire.NOTIFY_HOST_STATE, "host", wire.MAX_HOSTS_PER_BATCH),
+               (wire.NOTIFY_AGGR_TASK_STATE, "task",
+                wire.MAX_TASKS_PER_BATCH),
+               (wire.NOTIFY_CPU_MEM_STATE, "cpumem",
+                wire.MAX_CPUMEM_PER_BATCH),
+               (wire.NOTIFY_REQ_TRACE, "trace", wire.MAX_TRACE_PER_BATCH))
+    for sub, kind, lanes in chunked:
+        r = recs.get(sub)
+        if r is not None:
+            for i in range(0, len(r), lanes):
+                yield (kind, r[i:i + lanes])
+    for sub, kind in ((wire.NOTIFY_LISTENER_INFO, "listener_info"),
+                      (wire.NOTIFY_HOST_INFO, "host_info"),
+                      (wire.NOTIFY_CGROUP_STATE, "cgroup"),
+                      (wire.NOTIFY_MOUNT_STATE, "mount"),
+                      (wire.NOTIFY_NETIF_STATE, "netif")):
+        r = recs.get(sub)
+        if r is not None:
+            yield (kind, r)
+    png = recs.get(wire.NOTIFY_TASK_PING)
+    if png is not None:
+        for i in range(0, len(png), wire.MAX_PINGS_PER_BATCH):
+            yield ("ping", png[i:i + wire.MAX_PINGS_PER_BATCH])
+    dl = recs.get(wire.NOTIFY_SKETCH_DELTA)
+    if dl is not None:
+        for i in range(0, len(dl), DELTA_LANES_DEFAULT):
+            yield ("delta", dl[i:i + DELTA_LANES_DEFAULT])
+    ast = recs.get(wire.NOTIFY_AGENT_STATS)
+    if ast is not None:
+        yield ("agent_stats", ast)
+    nm = recs.get(wire.NOTIFY_NAME_INTERN)
+    if nm is not None:
+        yield ("names", nm)
+
+
+# SKETCH_DELTA records a fold plan chunk holds (the reference's default
+# delta lanes; the delta fold itself is not ported)
+DELTA_LANES_DEFAULT = 256
+
+
+def resp_from_trace(recs: np.ndarray) -> np.ndarray:
+    """REQ_TRACE records → RESP_SAMPLE records (the trace→resp bridge):
+    each parsed transaction's measured latency joins its service's
+    response stream."""
+    out = np.zeros(len(recs), wire.RESP_SAMPLE_DT)
+    out["glob_id"] = recs["svc_glob_id"]
+    out["resp_usec"] = recs["resp_usec"]
+    out["host_id"] = recs["host_id"]
+    return out
 
 
 def _col_to_tensor(a: np.ndarray, device) -> torch.Tensor:

@@ -6,13 +6,18 @@ imports nothing of the reference): COMM_HEADER-compatible framing
 cap), ``EVENT_NOTIFY`` (subtype + nevents), the two hot record types of
 the flow path, ``TCP_CONN`` and ``RESP_SAMPLE``, and the record types of
 ``fold_all``'s sweep sections: ``LISTENER_STATE``, ``HOST_STATE``,
-``AGGR_TASK_STATE``, ``TASK_PING``, ``CPU_MEM_STATE`` and ``REQ_TRACE``.
+``AGGR_TASK_STATE``, ``TASK_PING``, ``CPU_MEM_STATE`` and ``REQ_TRACE``;
+the runtime's ``NAME_INTERN`` (with the ``NAME_KIND_*`` namespaces) and
+``SWEEP_SEQ``; and the record types of the tiers not ported yet
+(``LISTENER_INFO``, ``HOST_INFO``, ``CGROUP_STATE``, ``MOUNT_STATE``,
+``NETIF_STATE``, ``AGENT_STATS``, ``SKETCH_DELTA``), decoded so that the
+runtime can refuse them by name instead of counting them as unknown.
 Records are fixed width, so a whole batch decodes with one
 ``np.frombuffer``.
 
-Only these subtypes are known here; frames of any other subtype are
-skipped and their records counted (``counts["unknown_records"]``), the
-reference's treatment of a subtype it does not know.
+Frames of any other subtype are skipped and their records counted
+(``counts["unknown_records"]``), the reference's treatment of a subtype
+it does not know.
 """
 
 from __future__ import annotations
@@ -35,8 +40,18 @@ NOTIFY_HOST_STATE = 12        # 5s per-host rollup
 NOTIFY_RESP_SAMPLE = 13       # raw response-time samples
 NOTIFY_AGGR_TASK_STATE = 14   # 5s per-process-group state
 NOTIFY_CPU_MEM_STATE = 15     # 2s host cpu/mem state
+NOTIFY_NAME_INTERN = 16       # string-intern announcements
 NOTIFY_REQ_TRACE = 17         # request-trace transactions (per-API)
+NOTIFY_LISTENER_INFO = 18     # listener static metadata (ip/port/cmdline)
+NOTIFY_HOST_INFO = 19         # static host inventory (hw/os/cloud)
+NOTIFY_CGROUP_STATE = 20      # 5s per-cgroup stats
+NOTIFY_MOUNT_STATE = 21       # mount/filesystem inventory + freespace
+NOTIFY_NETIF_STATE = 22       # net interface inventory + traffic rates
 NOTIFY_TASK_PING = 23         # process-group keepalive
+NOTIFY_AGENT_STATS = 24       # agent self-report: spool drops/resends
+NOTIFY_SWEEP_SEQ = 25         # agent sweep sequence mark (per-host
+#                               high-water mark, checkpointed)
+NOTIFY_SKETCH_DELTA = 26      # edge pre-aggregation deltas
 
 MAX_CONNS_PER_BATCH = 2048
 MAX_LISTENERS_PER_BATCH = 512
@@ -223,15 +238,177 @@ REQ_TRACE_DT = np.dtype([
     ("pad", "u1", (4,)),
 ])
 
+# AGENT_STATS record: agent-side delivery-continuity counters (deltas)
+AGENT_STATS_DT = np.dtype([
+    ("host_id", "<u4"),
+    ("spool_dropped", "<u4"),
+    ("spool_dropped_records", "<u4"),
+    ("spool_resent", "<u4"),
+    ("connect_timeouts", "<u4"),
+    ("pad", "<u4"),
+])
+
+MAX_AGENT_STATS_PER_BATCH = 64
+
+# SWEEP_SEQ record: the per-sweep sequence mark of one agent
+SWEEP_SEQ_DT = np.dtype([
+    ("host_id", "<u4"),
+    ("pad", "<u4"),
+    ("seq", "<u8"),                    # monotone per agent process
+])
+
+MAX_SWEEP_SEQ_PER_BATCH = 64
+
+# LISTENER_INFO record: static listener metadata
+LISTENER_INFO_DT = np.dtype([
+    ("glob_id", "<u8"),
+    ("addr", IP_PORT_DT),
+    ("tusec_start", "<u8"),
+    ("cmdline_id", "<u8"),        # interned command line
+    ("comm_id", "<u8"),           # interned process comm
+    ("related_listen_id", "<u8"),
+    ("pid", "<i4"),
+    ("is_any_ip", "u1"),
+    ("is_http", "u1"),
+    ("pad", "u1", (2,)),
+    ("host_id", "<u4"),
+    ("pad2", "u1", (4,)),
+])
+
+MAX_LISTENER_INFO_PER_BATCH = 1024
+
+# HOST_INFO record: static host inventory (strings interned)
+HOST_INFO_DT = np.dtype([
+    ("host_id", "<u4"),
+    ("ncpus", "<u2"),
+    ("nnuma", "<u2"),
+    ("ram_mb", "<u4"),
+    ("swap_mb", "<u4"),
+    ("boot_tusec", "<u8"),
+    ("kern_ver_id", "<u8"),
+    ("distro_id", "<u8"),
+    ("cputype_id", "<u8"),
+    ("instance_id", "<u8"),
+    ("region_id", "<u8"),
+    ("zone_id", "<u8"),
+    ("virt_type", "u1"),
+    ("cloud_type", "u1"),
+    ("is_k8s", "u1"),
+    ("pad", "u1", (5,)),
+])
+
+MAX_HOST_INFO_PER_BATCH = 1024
+
+# CGROUP_STATE record: 5s per-cgroup sweep
+CGROUP_DT = np.dtype([
+    ("cg_id", "<u8"),
+    ("dir_id", "<u8"),
+    ("cpu_pct", "<f4"),
+    ("cpu_limit_pct", "<f4"),
+    ("cpu_throttled_pct", "<f4"),
+    ("rss_mb", "<f4"),
+    ("memory_limit_mb", "<f4"),
+    ("pgmajfault_sec", "<f4"),
+    ("nprocs", "<u4"),
+    ("is_v2", "u1"),
+    ("state", "u1"),
+    ("pad", "u1", (2,)),
+    ("host_id", "<u4"),
+    ("pad2", "u1", (4,)),
+])
+
+MAX_CGROUPS_PER_BATCH = 2048
+
+# MOUNT_STATE record: mount/filesystem inventory with freespace
+MOUNT_DT = np.dtype([
+    ("mnt_id", "<u8"),
+    ("dir_id", "<u8"),
+    ("fstype_id", "<u8"),
+    ("size_mb", "<f4"),
+    ("free_mb", "<f4"),
+    ("used_pct", "<f4"),
+    ("inodes_used_pct", "<f4"),
+    ("is_network_fs", "u1"),
+    ("pad", "u1", (3,)),
+    ("host_id", "<u4"),
+])
+
+MAX_MOUNTS_PER_BATCH = 1024
+
+# NETIF_STATE record: interface inventory + rate deltas
+NETIF_DT = np.dtype([
+    ("if_id", "<u8"),
+    ("name_id", "<u8"),
+    ("speed_mbps", "<f4"),
+    ("rx_mb_sec", "<f4"),
+    ("tx_mb_sec", "<f4"),
+    ("rx_errs_sec", "<f4"),
+    ("tx_errs_sec", "<f4"),
+    ("is_up", "u1"),
+    ("pad", "u1", (3,)),
+    ("host_id", "<u4"),
+    ("pad2", "u1", (4,)),
+])
+
+MAX_NETIF_PER_BATCH = 1024
+
+# NAME_INTERN record: strings travel once as (id, kind, utf-8 bytes) and
+# thereafter as 64-bit ids inside hot records; queries resolve them back
+# through utils/intern.InternTable
+NAME_KIND_COMM = 1      # process comm / command name
+NAME_KIND_SVC = 2       # service (listener) name, id == glob_id
+NAME_KIND_HOST = 3      # hostname, id == host_id
+NAME_KIND_API = 4       # normalized API signature, id == hash(signature)
+NAME_KIND_MISC = 5      # host-info / cgroup-path / other metadata strings
+MAX_NAME_BYTES = 48
+
+NAME_INTERN_DT = np.dtype([
+    ("name_id", "<u8"),
+    ("kind", "<u4"),
+    ("nlen", "<u4"),
+    ("name", "u1", (MAX_NAME_BYTES,)),
+])
+
+MAX_NAMES_PER_BATCH = 1024
+
+# SKETCH_DELTA record: one mergeable partial of an edge-folding agent
+# (``kind`` selects how the 96-byte payload decodes)
+DELTA_PAYLOAD_BYTES = 96
+
+DELTA_DT = np.dtype([
+    ("key_hi", "<u4"),
+    ("key_lo", "<u4"),
+    ("aux_hi", "<u4"),
+    ("aux_lo", "<u4"),
+    ("payload", "u1", (DELTA_PAYLOAD_BYTES,)),
+    ("errb", "<f4"),
+    ("kind", "u1"),
+    ("flags", "u1"),
+    ("nitem", "<u2"),
+    ("host_id", "<u4"),
+    ("pad", "u1", (4,)),
+])
+
+MAX_DELTA_PER_BATCH = 1024
+
 DTYPE_OF_SUBTYPE = {
+    NOTIFY_SKETCH_DELTA: DELTA_DT,
     NOTIFY_TCP_CONN: TCP_CONN_DT,
     NOTIFY_LISTENER_STATE: LISTENER_STATE_DT,
     NOTIFY_HOST_STATE: HOST_STATE_DT,
     NOTIFY_RESP_SAMPLE: RESP_SAMPLE_DT,
     NOTIFY_AGGR_TASK_STATE: AGGR_TASK_DT,
     NOTIFY_CPU_MEM_STATE: CPU_MEM_DT,
+    NOTIFY_NAME_INTERN: NAME_INTERN_DT,
     NOTIFY_REQ_TRACE: REQ_TRACE_DT,
+    NOTIFY_LISTENER_INFO: LISTENER_INFO_DT,
+    NOTIFY_HOST_INFO: HOST_INFO_DT,
+    NOTIFY_CGROUP_STATE: CGROUP_DT,
+    NOTIFY_MOUNT_STATE: MOUNT_DT,
+    NOTIFY_NETIF_STATE: NETIF_DT,
     NOTIFY_TASK_PING: TASK_PING_DT,
+    NOTIFY_AGENT_STATS: AGENT_STATS_DT,
+    NOTIFY_SWEEP_SEQ: SWEEP_SEQ_DT,
 }
 
 # per-type batch caps enforced at decode
@@ -242,20 +419,22 @@ MAX_OF_SUBTYPE = {
     NOTIFY_RESP_SAMPLE: MAX_RESP_PER_BATCH,
     NOTIFY_AGGR_TASK_STATE: MAX_TASKS_PER_BATCH,
     NOTIFY_CPU_MEM_STATE: MAX_CPUMEM_PER_BATCH,
+    NOTIFY_NAME_INTERN: MAX_NAMES_PER_BATCH,
     NOTIFY_REQ_TRACE: MAX_TRACE_PER_BATCH,
+    NOTIFY_LISTENER_INFO: MAX_LISTENER_INFO_PER_BATCH,
+    NOTIFY_HOST_INFO: MAX_HOST_INFO_PER_BATCH,
+    NOTIFY_CGROUP_STATE: MAX_CGROUPS_PER_BATCH,
+    NOTIFY_MOUNT_STATE: MAX_MOUNTS_PER_BATCH,
+    NOTIFY_NETIF_STATE: MAX_NETIF_PER_BATCH,
     NOTIFY_TASK_PING: MAX_PINGS_PER_BATCH,
+    NOTIFY_AGENT_STATS: MAX_AGENT_STATS_PER_BATCH,
+    NOTIFY_SWEEP_SEQ: MAX_SWEEP_SEQ_PER_BATCH,
+    NOTIFY_SKETCH_DELTA: MAX_DELTA_PER_BATCH,
 }
 
 for _name, _dt in [("HEADER_DT", HEADER_DT),
-                   ("EVENT_NOTIFY_DT", EVENT_NOTIFY_DT),
-                   ("TCP_CONN_DT", TCP_CONN_DT),
-                   ("LISTENER_STATE_DT", LISTENER_STATE_DT),
-                   ("HOST_STATE_DT", HOST_STATE_DT),
-                   ("RESP_SAMPLE_DT", RESP_SAMPLE_DT),
-                   ("AGGR_TASK_DT", AGGR_TASK_DT),
-                   ("TASK_PING_DT", TASK_PING_DT),
-                   ("CPU_MEM_DT", CPU_MEM_DT),
-                   ("REQ_TRACE_DT", REQ_TRACE_DT)]:
+                   ("EVENT_NOTIFY_DT", EVENT_NOTIFY_DT)] + [
+        (f"subtype {k}", v) for k, v in DTYPE_OF_SUBTYPE.items()]:
     if _dt.itemsize % 8:
         raise AssertionError((_name, _dt.itemsize))
 
@@ -378,3 +557,23 @@ def decode_frames(buf: bytes, counts: Optional[dict] = None,
                 f"event stream at {off}", reason="bad_dtype")
         off += total
     return frames, off
+
+
+def drain2(buf: bytes) -> tuple[dict, int, int]:
+    """Byte stream → ({subtype: record array}, consumed, unknown_recs):
+    the reference's drain (``ingest/native`` ``drain2``) on its Python
+    path, which it documents as identical in semantics to the native
+    one. Every known frame's records are concatenated per subtype, in
+    frame order, with no empty entries; ``unknown_recs`` counts the records of skipped
+    unknown-subtype frames; a trailing partial frame is not consumed."""
+    cnt: dict = {}
+    frames, consumed = decode_frames(buf, counts=cnt, event_only=True)
+    parts: dict = {}
+    for subtype, recs in frames:
+        if len(recs):
+            parts.setdefault(subtype, []).append(recs)
+    # one byte-level concatenation per subtype: the reference appends
+    # frame by frame, which copies the structured records O(frames²)
+    out = {sub: np.concatenate([r.view(np.uint8) for r in rs]).view(
+        rs[0].dtype) for sub, rs in parts.items()}
+    return out, consumed, cnt.get("unknown_records", 0)

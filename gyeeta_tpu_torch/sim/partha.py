@@ -3,7 +3,8 @@
 Counterpart of ``gyeeta_tpu/sim/partha.py`` for the TCP_CONN and
 RESP_SAMPLE streams (flows, service→service flows, split halves), the
 5s LISTENER_STATE / AGGR_TASK_STATE / HOST_STATE sweeps, the 2s
-CPU_MEM_STATE sweep and REQ_TRACE transactions. It draws from
+CPU_MEM_STATE sweep, REQ_TRACE transactions and the NAME_INTERN
+announcements of every name the fleet uses. It draws from
 ``np.random.default_rng(seed)`` in the reference's order, so the same
 seed and the same sequence of calls give byte-identical records in both
 packages.
@@ -363,6 +364,42 @@ class ParthaSim:
         out["host_id"] = np.arange(n, dtype=np.uint32) + self.host_base
         return out
 
+    # fixed inventory vocabulary (interned as NAME_KIND_MISC)
+    DISTROS = ("Debian 12", "Ubuntu 22.04", "AlmaLinux 9")
+    KERNELS = ("6.1.0-18-amd64", "5.15.0-105-generic")
+    CPUTYPES = ("Xeon-8481C", "EPYC-9B14")
+    REGIONS = ("us-east1", "eu-west4")
+    CGPATHS = ("/sys/fs/cgroup/system.slice", "/sys/fs/cgroup/user.slice",
+               "/sys/fs/cgroup/kubepods/burstable",
+               "/sys/fs/cgroup/kubepods/besteffort")
+
+    def name_records(self) -> np.ndarray:
+        """Intern announcements for every name this agent fleet uses
+        (no draw from the rng)."""
+        from gyeeta_tpu_torch.utils.intern import InternTable
+        entries = []
+        for sig in self.API_SIGS:
+            entries.append((wire.NAME_KIND_API,
+                            H.hash_bytes_np(sig.encode()), sig))
+        for g in range(self.n_groups):
+            entries.append((wire.NAME_KIND_COMM, self.comm_ids[g],
+                            f"proc-{g}"))
+        for h in range(self.n_hosts):
+            for s in range(self.n_svcs):
+                entries.append((wire.NAME_KIND_SVC, self.glob_ids[h, s],
+                                f"svc-{s}.host-{h}"))
+            entries.append((wire.NAME_KIND_HOST, h, f"host-{h}.sim"))
+        misc = list(self.DISTROS + self.KERNELS + self.CPUTYPES
+                    + self.CGPATHS)
+        for r in self.REGIONS:
+            misc += [r, f"{r}-a", f"{r}-b"]
+        for h in range(self.n_hosts):
+            misc.append(f"i-{h + self.host_base:016x}")
+        for s in misc:
+            entries.append((wire.NAME_KIND_MISC,
+                            InternTable.intern(s, wire.NAME_KIND_MISC), s))
+        return InternTable.records(entries)
+
     def conn_frames(self, n_events: int) -> bytes:
         """n_events conn records framed into ≤2048-record messages."""
         return wire.encode_frames_chunked(
@@ -379,6 +416,10 @@ class ParthaSim:
     def task_frames(self) -> bytes:
         return wire.encode_frames_chunked(
             wire.NOTIFY_AGGR_TASK_STATE, self.aggr_task_records())
+
+    def name_frames(self) -> bytes:
+        return wire.encode_frames_chunked(
+            wire.NOTIFY_NAME_INTERN, self.name_records())
 
 
 def _splitmix64(x: np.ndarray) -> np.ndarray:

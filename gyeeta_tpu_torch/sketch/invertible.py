@@ -1,7 +1,6 @@
 """Invertible heavy-flow sketch: candidate buckets that remember keys.
 
-Counterpart of ``gyeeta_tpu/sketch/invertible.py`` (update side; decode
-comes with heavy-hitter recovery in a later slice): a ``(depth, width)``
+Counterpart of ``gyeeta_tpu/sketch/invertible.py``: a ``(depth, width)``
 bucket array where each bucket keeps the key with the highest CMS
 priority that ever hashed there, XOR-folded with a fingerprint-derived
 mask. Candidate replacement settles one winner per bucket by
@@ -15,6 +14,11 @@ a CUDA tensor that launches one fused kernel, ``gyt_inv_update``
 (``csrc/sketch_update.cu``: the priority scatter-max and the winner
 election of each row in shared memory), counted in :data:`launches`; on
 a CPU tensor it runs :func:`write_candidates_plain`.
+
+Recovery reads the buckets back: :func:`decode_keys` un-folds and
+verifies every candidate, :func:`decode` adds its CMS estimate, and the
+host half (:func:`cms_error_term`, :func:`merge_recovered_np`) merges
+them with the exact top-K lanes into the heavy-flow view.
 """
 
 from __future__ import annotations
@@ -75,6 +79,11 @@ def encode_key(key_hi, key_lo, fp):
                     key_lo ^ H.fmix32(fp ^ np.uint32(_MASK_LO)))
     return (H.u32(key_hi) ^ H.fmix32(fp ^ _MASK_HI),
             H.u32(key_lo) ^ H.fmix32(fp ^ _MASK_LO))
+
+
+def decode_key(enc_hi, enc_lo, fp):
+    """Inverse of :func:`encode_key` (XOR is its own inverse)."""
+    return encode_key(enc_hi, enc_lo, fp)
 
 
 def lanes(prio: torch.Tensor, key_hi, key_lo, pr):
@@ -170,3 +179,78 @@ def update(sk: InvSketch, key_hi, key_lo, prio, valid,
         valid = valid[sel] & (score[sel] >= 0)
     write_candidates(sk, key_hi, key_lo, prio, valid)
     return sk._replace(n_hot=n_hot)
+
+
+# ------------------------------------------------------------- recovery
+def decode_keys(sk: InvSketch):
+    """Un-fold every bucket's candidate → ``(khi, klo, ok)``, all
+    ``(d, w)``. ``ok``: the bucket is occupied, the decoded key's
+    fingerprint matches the stored one, and the key hashes into its own
+    bucket position on that row's stream."""
+    d, w = sk.prio.shape
+    khi, klo = decode_key(sk.enc_hi, sk.enc_lo, sk.fp)
+    ok = (sk.prio > 0) & (fingerprint(khi, klo) == sk.fp)
+    pos = torch.arange(w, dtype=torch.int64, device=khi.device)
+    rows = [ok[r] & (H.bucket_index(khi[r], klo[r], _SALT_BUCKET + r, w)
+                     == pos) for r in range(d)]
+    return khi, klo, torch.stack(rows)
+
+
+def decode(sk: InvSketch, cms):
+    """Full recovery pass: decoded candidates and their CMS point
+    estimates, flattened to ``(d·w,)`` columns."""
+    from gyeeta_tpu_torch.sketch import countmin
+
+    khi, klo, ok = decode_keys(sk)
+    hi_f, lo_f = khi.reshape(-1), klo.reshape(-1)
+    est = countmin.query(cms, hi_f, lo_f).to(torch.float32)
+    est = torch.where(ok.reshape(-1), est, 0.0)
+    return {"hh_hi": hi_f, "hh_lo": lo_f, "hh_ok": ok.reshape(-1),
+            "hh_est": est}
+
+
+def cms_error_term(total_mass, width: int):
+    """Per-key CMS overestimate bound, ``2·N/width``: the error term
+    every recovered row carries (recovered counts are upper bounds)."""
+    return 2.0 * total_mass / max(int(width), 1)
+
+
+def merge_recovered_np(rec: dict, err_term: float,
+                       hot_thresh: float = 0.0):
+    """Host half of recovery: the exact top-K lanes ∪ the decoded
+    candidates → ``(flow_rows, recovered_ids, hot_ids)``. Rows are
+    ``(id_hex, value, errbound, source)``, heaviest first (value desc,
+    id asc on ties). Exact lanes: value = max(count, est), errbound =
+    value − count. Recovered-only candidates: value = est, errbound =
+    ``err_term``. ``hot_ids``: recovered ids at/above ``hot_thresh``
+    (all of them when it is 0)."""
+    t_hi = np.asarray(rec["topk_hi"], np.uint64)
+    t_lo = np.asarray(rec["topk_lo"], np.uint64)
+    t_cnt = np.asarray(rec["topk_counts"], np.float64)
+    t_est = np.asarray(rec["topk_est"], np.float64)
+    m = t_cnt > 0
+    exact_ids = (t_hi[m] << np.uint64(32)) | t_lo[m]
+    rows = []
+    for k, cnt, est in zip(exact_ids.tolist(), t_cnt[m].tolist(),
+                           t_est[m].tolist()):
+        val = max(cnt, est)
+        rows.append((format(int(k), "016x"), float(val),
+                     float(val - cnt), "exact"))
+    exact_set = set(exact_ids.tolist())
+
+    c_ok = np.asarray(rec["hh_ok"], bool)
+    c_hi = np.asarray(rec["hh_hi"], np.uint64)[c_ok]
+    c_lo = np.asarray(rec["hh_lo"], np.uint64)[c_ok]
+    c_est = np.asarray(rec["hh_est"], np.float64)[c_ok]
+    cand = {}
+    for k, v in zip(((c_hi << np.uint64(32)) | c_lo).tolist(),
+                    c_est.tolist()):
+        if v > 0 and k not in exact_set:
+            cand[k] = max(cand.get(k, 0.0), v)
+    recovered_ids = set(cand)
+    hot_ids = {k for k, v in cand.items() if v >= hot_thresh} \
+        if hot_thresh > 0 else set(recovered_ids)
+    rows.extend((format(k, "016x"), float(v), float(err_term),
+                 "recovered") for k, v in cand.items())
+    rows.sort(key=lambda r: (-r[1], r[0]))
+    return rows, recovered_ids, hot_ids

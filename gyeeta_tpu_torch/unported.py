@@ -1,0 +1,27 @@
+"""What the port does not have yet, by its ROADMAP.md item.
+
+Every path into a tier that is not ported raises :class:`NotPortedError`
+naming the item of ROADMAP.md's queue 1 that ports it: no record is
+dropped, no section skipped, no empty answer served in its place.
+"""
+
+from __future__ import annotations
+
+# ROADMAP.md, queue 1: the items that port what is still missing
+EDGE_PREAGG = "item 1, edge pre-aggregation"
+SNAPSHOT = "item 2, the snapshot tier, selfstats/metrics and multiquery"
+REGISTRIES = "item 3, the host-side registries and their subsystems"
+ALERTS = "item 4, the alert manager and CRUD"
+HISTORY = "item 5, history and the journal"
+SHARDED = "item 8, the sharded tier"
+
+
+class NotPortedError(NotImplementedError, ValueError):
+    """A request, record kind, option or subsystem of an unported tier
+    (a ``ValueError`` too, as the reference's refusals of a request
+    are)."""
+
+
+def refuse(what: str, item: str) -> NotPortedError:
+    return NotPortedError(f"{what} is not ported yet; see ROADMAP.md, "
+                          f"queue 1, {item}")

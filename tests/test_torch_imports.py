@@ -66,6 +66,17 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     st, dep, pressure = step.fold_all(cfg, aggstate.init(cfg, "cpu"),
                                       depgraph.init(8, 8, "cpu"), 0)
     assert pressure.device.type == dep.n_paired.device.type == "cpu"
+    # the Runtime: CUDA by default, the CPU only when asked for
+    from gyeeta_tpu_torch.runtime import Runtime
+    from gyeeta_tpu_torch.utils.config import RuntimeOpts
+    opts = RuntimeOpts(dep_pair_capacity=8, dep_edge_capacity=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Runtime(cfg, opts)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Runtime(cfg, opts, device="cuda")
+    rt = Runtime(cfg, opts, device="cpu")
+    assert rt.state.n_conn.device.type == rt.dep.n_paired.device.type \
+        == "cpu"
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):

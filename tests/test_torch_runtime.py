@@ -1,0 +1,476 @@
+"""The port's ``Runtime`` against the reference's, fed the same bytes.
+
+One seeded stream of four ticks — NAME_INTERN (tick 0), SWEEP_SEQ,
+LISTENER_STATE, AGGR_TASK_STATE (a partial sweep at tick 3), HOST_STATE,
+CPU_MEM_STATE, REQ_TRACE, then TCP_CONN (plain flows, service→service
+flows and split halves, each server half held for the next tick, those
+of tick 0 never sent) and
+RESP_SAMPLE — goes through ``feed`` in uneven byte cuts (frames split
+across calls resume from the partial-frame buffer), with ``run_tick``
+after each tick, into the reference ``Runtime`` and the port's
+``Runtime(device="cpu")``. The ticks age tasks and APIs every second
+tick and checkpoint every second tick.
+
+Held against the reference: each tick's report on the shared keys, the
+fold path's selfstats counters, all 85 ``AggState`` and 29 ``DepGraph``
+leaves after the last tick (integer, bool, u32 and max-merged state
+exact; f32 sums rtol 1e-6; digests rtol 1e-5), the ``heavy_recover``
+dict (floats rtol 1e-6), checkpoints both ways (each restored runtime
+answering every served subsystem with equal JSON), the staging
+builders' columns, and the refusal of every unported record kind,
+request form and option with its ROADMAP item. The query JSON of the
+live runtimes is in ``tests/test_torch_query.py``, which shares this
+run (:func:`run_both`).
+"""
+
+import functools
+import pathlib
+import tempfile
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__ as graft
+from gyeeta_tpu.ingest import decode as j_dec, wire as j_wire
+from gyeeta_tpu.ingest import native as j_native
+from gyeeta_tpu.runtime import Runtime as JRuntime
+from gyeeta_tpu.sim.partha import ParthaSim as JSim
+from gyeeta_tpu.utils import checkpoint as j_ckpt
+from gyeeta_tpu.utils.config import RuntimeOpts as JOpts
+from gyeeta_tpu_torch import unported
+from gyeeta_tpu_torch.engine import aggstate as t_agg
+from gyeeta_tpu_torch.ingest import decode as t_dec, wire as t_wire
+from gyeeta_tpu_torch.parallel import depgraph as t_dg
+from gyeeta_tpu_torch.runtime import Runtime as TRuntime
+from gyeeta_tpu_torch.sim import ParthaSim as TSim
+from gyeeta_tpu_torch.sketch import loghist as t_lh
+from gyeeta_tpu_torch.utils.config import RuntimeOpts as TOpts
+from gyeeta_tpu_torch.utils.tensor import tree_paths
+
+torch.set_num_threads(1)
+
+N_TICKS = 4
+SIM_KW = dict(n_hosts=8, n_svcs=4, n_clients=256)
+OPTS = dict(dep_pair_capacity=64, dep_edge_capacity=256,
+            dep_pair_ttl_ticks=1, dep_edge_ttl_ticks=2,
+            task_age_every_ticks=2, task_max_age_ticks=1,
+            api_max_age_ticks=2, checkpoint_every_ticks=2)
+# each tick's buffer is fed in four calls, cut this many bytes before
+# its end (inside the conn/resp frames: the sweep sections of a tick
+# fold in one dispatch, conn/resp stage until the tick's flush)
+CUTS_FROM_END = (9001, 5000, 333)
+# the 20 subsystems the port serves
+SERVED = ("svcstate", "hoststate", "clusterstate", "flowstate", "taskstate",
+          "topcpu", "toppgcpu", "toprss", "topdelay", "topfork", "cpumem",
+          "tracereq", "traceuniq", "svcsumm", "hostlist", "topk",
+          "svcdependency", "svcmesh", "activeconn", "clientconn")
+# reference counters of tiers or paths the port does not have: the
+# alert manager, the snapshot tier, the native decoder and its
+# double-buffered staging slabs
+REF_ONLY_COUNTERS = {"alert_eval_skipped", "snapshots_published",
+                     "ref_native_decoded", "ref_fallback_decoded",
+                     "stage_slab_flips"}
+FOLD_COUNTERS = ("conn_events", "resp_events", "listener_records",
+                 "host_records", "task_records", "cpumem_records",
+                 "trace_records", "resp_from_trace", "sweep_marks",
+                 "names_interned", "fold_dispatches", "slab_dispatches",
+                 "td_partial_flushes", "topk_recover_readbacks",
+                 "topk_hot_promotions", "checkpoints")
+_EXACT_F32 = (".inv.prio", ".svc_td.vmin", ".svc_td.vmax", ".h_bytes")
+
+
+def j_cfg():
+    return graft._tiny_cfg()._replace(n_hosts=8, task_capacity=128,
+                                      api_capacity=256)
+
+
+def t_cfg():
+    return t_agg.EngineCfg(
+        svc_capacity=64, n_hosts=8,
+        resp_spec=t_lh.LogHistSpec(vmin=1.0, vmax=1e8, nbuckets=64),
+        hll_p_svc=6, hll_p_global=8, cms_depth=2, cms_width=1 << 10,
+        topk_capacity=32, td_capacity=16, task_capacity=128,
+        api_capacity=256, conn_batch=64, resp_batch=64, listener_batch=64)
+
+
+def tick_buffers(sim_cls, w):
+    """The four ticks' byte streams of one package's sim and wire."""
+    sim = sim_cls(**SIM_KW)
+    out, late = [], None
+    for tick in range(N_TICKS):
+        seq = np.zeros(SIM_KW["n_hosts"], w.SWEEP_SEQ_DT)
+        seq["host_id"] = np.arange(SIM_KW["n_hosts"])
+        seq["seq"] = 10 * tick + seq["host_id"]
+        tasks = sim.aggr_task_records()
+        if tick == 3:                 # a partial sweep: the rest age out
+            tasks = tasks[:8]
+        cli, ser = sim.svc_conn_records(8, split_halves=True)
+        # server halves ride the next tick, but tick 0's never come:
+        # its client halves expire
+        conns = np.concatenate(
+            [sim.conn_records(40), sim.svc_conn_records(8), cli]
+            + ([late] if late is not None and tick != 1 else []))
+        late = ser
+        out.append(
+            (sim.name_frames() if tick == 0 else b"")
+            + w.encode_frames_chunked(w.NOTIFY_SWEEP_SEQ, seq)
+            + sim.listener_frames()
+            + w.encode_frames_chunked(w.NOTIFY_AGGR_TASK_STATE, tasks)
+            + w.encode_frames_chunked(w.NOTIFY_HOST_STATE,
+                                      sim.host_state_records())
+            + w.encode_frames_chunked(w.NOTIFY_CPU_MEM_STATE,
+                                      sim.cpu_mem_records(
+                                          hot_cpu=[tick % 8],
+                                          hot_mem=[(tick + 3) % 8]))
+            + sim.trace_frames(80)
+            + w.encode_frames_chunked(w.NOTIFY_TCP_CONN, conns)
+            + sim.resp_frames(100))
+    return out
+
+
+def _feed_ticks(rt, bufs):
+    reports, partial = [], 0
+    for buf in bufs:
+        cuts = [0] + [len(buf) - c for c in CUTS_FROM_END] + [len(buf)]
+        for a, b in zip(cuts, cuts[1:]):
+            rt.feed(buf[a:b])
+            partial += bool(rt._pending)
+        reports.append(rt.run_tick())
+    return reports, partial
+
+
+@functools.lru_cache(maxsize=None)
+def run_both():
+    """Run the stream through both runtimes once per process →
+    dict of the runtimes, their reports and counters (copied right
+    after the run: later recoveries and queries bump them)."""
+    j_bufs = tick_buffers(JSim, j_wire)
+    t_bufs = tick_buffers(TSim, t_wire)
+    assert j_bufs == t_bufs
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="gyt_torch_rt_"))
+    jr = JRuntime(j_cfg(), JOpts(**OPTS, checkpoint_dir=str(tmp / "ref")))
+    tr = TRuntime(t_cfg(), TOpts(**OPTS, checkpoint_dir=str(tmp / "port")),
+                  device="cpu")
+    j_rep, j_partial = _feed_ticks(jr, j_bufs)
+    t_rep, t_partial = _feed_ticks(tr, t_bufs)
+    return {"jr": jr, "tr": tr, "j_rep": j_rep, "t_rep": t_rep,
+            "j_ctr": dict(jr.stats.counters),
+            "t_ctr": dict(tr.stats.counters),
+            "partial": (j_partial, t_partial), "tmp": tmp}
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return run_both()
+
+
+def assert_json_equal(ref, got, path="$"):
+    """Strings, ints and bools exact; floats rtol 1e-6."""
+    if isinstance(ref, dict):
+        assert isinstance(got, dict) and set(got) == set(ref), \
+            (path, sorted(set(got) ^ set(ref)))
+        for k in ref:
+            assert_json_equal(ref[k], got[k], f"{path}.{k}")
+    elif isinstance(ref, list):
+        assert isinstance(got, list) and len(got) == len(ref), \
+            (path, len(got), len(ref))
+        for i, (a, b) in enumerate(zip(ref, got)):
+            assert_json_equal(a, b, f"{path}[{i}]")
+    elif isinstance(ref, float) or isinstance(got, float):
+        assert got == pytest.approx(ref, rel=1e-6, abs=0), path
+    else:
+        assert type(got) is type(ref) and got == ref, (path, ref, got)
+
+
+def _leaf_check(path, a, b):
+    assert a.shape == b.shape and a.dtype == b.dtype, \
+        (path, a.shape, b.shape, a.dtype, b.dtype)
+    if a.dtype.kind != "f" or path.endswith(_EXACT_F32):
+        np.testing.assert_array_equal(b, a, err_msg=path)
+    else:
+        rtol = 1e-5 if path.startswith(".svc_td") else 1e-6
+        np.testing.assert_allclose(b, a, rtol=rtol, atol=0, err_msg=path)
+
+
+# ------------------------------------------------------------ the run
+@pytest.mark.parametrize("tick", range(N_TICKS))
+def test_tick_report_matches_reference(runs, tick):
+    ref, got = runs["j_rep"][tick], runs["t_rep"][tick]
+    assert set(ref) - set(got) <= {"alerts_fired", "history_rows"}
+    assert set(got) <= set(ref)
+    for k in got:
+        if k == "checkpoint":
+            assert pathlib.Path(got[k]).name == pathlib.Path(ref[k]).name
+        else:
+            assert got[k] == ref[k], k
+    assert got["tick"] == tick + 1
+    assert ("checkpoint" in got) == (tick % 2 == 1)
+
+
+@pytest.mark.parametrize("name", FOLD_COUNTERS)
+def test_fold_counter_matches_reference(runs, name):
+    assert runs["t_ctr"].get(name) == runs["j_ctr"].get(name)
+
+
+def test_counter_sets_match_reference(runs):
+    j, t = runs["j_ctr"], runs["t_ctr"]
+    assert set(t) <= set(j)
+    assert set(j) - set(t) <= REF_ONLY_COUNTERS
+    assert all(t[k] == j[k] for k in t)
+
+
+def test_stream_reaches_every_path(runs):
+    """Partial frames resumed, every section and the bridge folded, the
+    digest stage flushed, halves paired across ticks, tasks aged."""
+    ctr, tr = runs["t_ctr"], runs["tr"]
+    assert min(runs["partial"]) > 0
+    for k in FOLD_COUNTERS:
+        assert ctr.get(k, 0) > 0, k
+    assert tr._sweep_last_seq == {h: 30 + h for h in range(8)}
+    assert float(tr.dep.n_paired) > 0 and float(tr.dep.n_expired) > 0
+    assert int(tr.state.task_tbl.n_live) < 64
+    assert len(np.unique(tr.state.svc_state.numpy())) >= 3
+
+
+_STATE_PATHS = tree_paths(t_agg.init(t_cfg(), "meta"))
+_DEP_PATHS = tree_paths(t_dg.init(1, 1, "meta"))
+
+
+@pytest.mark.parametrize("i", range(len(_STATE_PATHS)), ids=_STATE_PATHS)
+def test_state_leaf_matches_reference(runs, i):
+    ref = [np.asarray(x) for x in jax.tree.leaves(runs["jr"].state)]
+    got = t_agg.state_to_numpy(runs["tr"].state)
+    assert len(ref) == len(got) == len(_STATE_PATHS) == 85
+    _leaf_check(_STATE_PATHS[i], ref[i], got[i])
+
+
+@pytest.mark.parametrize("i", range(len(_DEP_PATHS)), ids=_DEP_PATHS)
+def test_dep_leaf_matches_reference(runs, i):
+    ref = [np.asarray(x) for x in jax.tree.leaves(runs["jr"].dep)]
+    got = t_dg.dep_to_numpy(runs["tr"].dep)
+    assert len(ref) == len(got) == len(_DEP_PATHS) == 29
+    _leaf_check(_DEP_PATHS[i], ref[i], got[i])
+
+
+def test_heavy_recover_matches_reference(runs):
+    ref, got = runs["jr"].heavy_recover(), runs["tr"].heavy_recover()
+    assert set(got) == set(ref)
+    assert got["recovered_keys"] == ref["recovered_keys"] > 0
+    assert got["new_hot"] == ref["new_hot"]
+    for k in ("evicted", "err_term", "total_mass"):
+        assert got[k] == pytest.approx(ref[k], rel=1e-6, abs=0), k
+    # rows by id: a last-ulp difference may reorder near ties
+    rows = {r[0]: r[1:] for r in got["flows"]}
+    assert len(rows) == len(got["flows"]) == len(ref["flows"])
+    for rid, val, eb, src in ref["flows"]:
+        g = rows[rid]
+        assert g[2] == src
+        assert g[0] == pytest.approx(val, rel=1e-6, abs=0)
+        assert g[1] == pytest.approx(eb, rel=1e-6, abs=1e-6 * val)
+    assert {r[3] for r in got["flows"]} == {"exact", "recovered"}
+
+
+# -------------------------------------------------------- checkpoints
+def _ckpt(runs, side, tick=N_TICKS):
+    return runs["tmp"] / side / f"gyt_ckpt_{tick:08d}.npz"
+
+
+@pytest.mark.parametrize("writer", ["ref", "port"])
+def test_checkpoint_restores_across_packages(runs, writer):
+    """A checkpoint written by one package's tick cadence restores in
+    both; the restored port state equals the writer's state leaf for
+    leaf, and the two restored runtimes answer every served subsystem
+    with equal JSON."""
+    path = _ckpt(runs, writer)
+    jr2 = JRuntime(j_cfg(), JOpts(**OPTS))
+    tr2 = TRuntime(t_cfg(), TOpts(**OPTS), device="cpu")
+    j_extra, t_extra = jr2.restore(path), tr2.restore(path)
+    assert t_extra == j_extra
+    assert t_extra["tick"] == N_TICKS
+    assert t_extra["sweep_seq"] == {str(h): 30 + h for h in range(8)}
+    assert tr2._tick_no == jr2._tick_no == N_TICKS
+    assert tr2._sweep_last_seq == jr2._sweep_last_seq
+    src = [np.asarray(x) for x in jax.tree.leaves(runs["jr"].state)]
+    for p, a, b in zip(_STATE_PATHS, src,
+                       t_agg.state_to_numpy(tr2.state)):
+        _leaf_check(p, a, b)
+    for subsys in SERVED:
+        req = {"subsys": subsys, "maxrecs": 10000}
+        assert_json_equal(jr2.query(req), tr2.query(req), subsys)
+
+
+def test_checkpoint_fingerprint_and_save_match_reference(runs, tmp_path):
+    """``repr(cfg)`` (nested LogHistSpec/WindowSpec included) and the
+    npz layout equal the reference's: the port's ``save`` of the live
+    state reads back through the reference's ``restore``."""
+    from gyeeta_tpu_torch.utils import checkpoint as t_ckpt
+
+    assert repr(t_cfg()) == repr(j_cfg())
+    assert t_ckpt._cfg_fingerprint(t_cfg()) == \
+        j_ckpt._cfg_fingerprint(j_cfg())
+    p = t_ckpt.save(tmp_path / "c.npz", t_cfg(), runs["tr"].state,
+                    extra={"tick": 9})
+    (tmp_path / "stale.tmp.npz").write_bytes(b"x")
+    t_ckpt.save(tmp_path / "d.npz", t_cfg(), runs["tr"].state)
+    assert not list(tmp_path.glob("*.tmp.npz"))
+    st, extra = j_ckpt.restore(p, j_cfg(), runs["jr"].state)
+    assert extra == {"tick": 9}
+    for path, a, b in zip(_STATE_PATHS, jax.tree.leaves(st),
+                          t_agg.state_to_numpy(runs["tr"].state)):
+        np.testing.assert_array_equal(np.asarray(a), b, err_msg=path)
+    with pytest.raises(ValueError, match="fingerprint"):
+        t_ckpt.restore(p, t_cfg()._replace(svc_capacity=128),
+                       runs["tr"].state)
+
+
+# ------------------------------------------------------------ staging
+def _recs():
+    sim = JSim(**SIM_KW, seed=3)
+    cli, ser = sim.svc_conn_records(8, split_halves=True)
+    tasks = sim.aggr_task_records()
+    ping = np.zeros(9, j_wire.TASK_PING_DT)
+    ping["aggr_task_id"] = tasks["aggr_task_id"][:9]
+    ping["host_id"] = tasks["host_id"][:9]
+    return {
+        "conn": np.concatenate([sim.conn_records(50), cli, ser]),
+        "resp": sim.resp_records(70),
+        "listener": sim.listener_state_records(),
+        "task": tasks,
+        "cpumem": sim.cpu_mem_records(hot_cpu=[1]),
+        "host": sim.host_state_records(),
+        "trace": sim.trace_records(40),
+        "ping": ping,
+    }
+
+
+_BUILDERS = {
+    "ping_batch": lambda d, r: d.ping_batch(r["ping"], 80),
+    "listener_batch_fast": lambda d, r: d.listener_batch_fast(
+        r["listener"], 64),
+    "task_batch_fast": lambda d, r: d.task_batch_fast(r["task"], 80),
+    "cpumem_batch_fast": lambda d, r: d.cpumem_batch_fast(r["cpumem"], 16),
+    "host_batch_fast": lambda d, r: d.host_batch_fast(r["host"], 16),
+    "conn_slab": lambda d, r: d.conn_slab(
+        [r["conn"][:30], r["conn"][30:]], 3, 40),
+    "resp_slab": lambda d, r: d.resp_slab(r["resp"], 1, 80),
+    "conn_slab_1": lambda d, r: d.conn_slab(r["conn"][:50], 1, 64),
+    "trace_batch": lambda d, r: d.trace_batch(r["trace"], 48),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_BUILDERS))
+def test_staging_builder_columns_match_reference(name):
+    """The port's numpy builders give the columns of the reference's
+    (native where it is built) builders."""
+    recs = _recs()
+    ref, got = _BUILDERS[name](j_dec, recs), _BUILDERS[name](t_dec, recs)
+    assert got._fields == ref._fields
+    for f, a, b in zip(got._fields, ref, got):
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        np.testing.assert_array_equal(b, a, err_msg=f)
+
+
+def test_drain_plan_and_bridge_match_reference():
+    sim = JSim(**SIM_KW, seed=4)
+    buf = (sim.name_frames() + sim.listener_frames() * 3
+           + sim.task_frames() + sim.trace_frames(300)
+           + sim.conn_frames(150) + sim.resp_frames(200))
+    cut = len(buf) - 77
+    for j_drain in (j_native.drain2, j_native._drain_py2):
+        jo, jc, ju = j_drain(buf[:cut])
+        to, tc, tu = t_wire.drain2(buf[:cut])
+        assert (tc, tu) == (jc, ju) and sorted(to) == sorted(jo)
+        for k in jo:
+            assert to[k].tobytes() == jo[k].tobytes()
+    j_plan = list(j_dec.drain_chunks(jo, 64, 64, 40))
+    t_plan = list(t_dec.drain_chunks(to, 64, 64, 40))
+    assert [p[0] for p in t_plan] == [p[0] for p in j_plan]
+    for a, b in zip(j_plan, t_plan):
+        for x, y in zip(a[1:], b[1:]):
+            assert x.tobytes() == y.tobytes()
+    tr = to[t_wire.NOTIFY_REQ_TRACE]
+    assert t_dec.resp_from_trace(tr).tobytes() == \
+        j_dec.resp_from_trace(tr).tobytes()
+    raw = [to[t_wire.NOTIFY_TCP_CONN][i:i + 40] for i in range(0, 150, 40)]
+    j_raw = list(raw)
+    assert [len(c) for c in t_dec.take_raw_chunks(raw, 70)[0]] == \
+        [len(c) for c in j_dec.take_raw_chunks(j_raw, 70)[0]]
+    assert [len(c) for c in raw] == [len(c) for c in j_raw]
+
+
+def test_name_frames_byte_identical():
+    kw = dict(n_hosts=5, n_svcs=3, host_base=40, n_groups=4)
+    assert TSim(**kw).name_frames() == JSim(**kw).name_frames()
+
+
+# ----------------------------------------------------- unported tiers
+_KINDS = {
+    t_wire.NOTIFY_LISTENER_INFO: unported.REGISTRIES,
+    t_wire.NOTIFY_HOST_INFO: unported.REGISTRIES,
+    t_wire.NOTIFY_CGROUP_STATE: unported.REGISTRIES,
+    t_wire.NOTIFY_MOUNT_STATE: unported.REGISTRIES,
+    t_wire.NOTIFY_NETIF_STATE: unported.REGISTRIES,
+    t_wire.NOTIFY_AGENT_STATS: unported.SNAPSHOT,
+    t_wire.NOTIFY_SKETCH_DELTA: unported.EDGE_PREAGG,
+}
+
+
+def _fresh():
+    return TRuntime(t_cfg(), TOpts(**OPTS), device="cpu")
+
+
+@pytest.mark.parametrize("subtype", sorted(_KINDS))
+def test_unported_record_kind_raises(subtype):
+    """A frame of an unported tier is refused, naming its ROADMAP item,
+    before anything of the feed is staged."""
+    rt = _fresh()
+    frame = t_wire.encode_frame(
+        subtype, np.zeros(2, t_wire.DTYPE_OF_SUBTYPE[subtype]))
+    conn = TSim(**SIM_KW).conn_frames(5)
+    with pytest.raises(unported.NotPortedError, match=_KINDS[subtype]) \
+            as e:
+        rt.feed(conn + frame)
+    assert "ROADMAP.md" in str(e.value)
+    assert isinstance(e.value, NotImplementedError)
+    assert rt._n_conn_raw == 0 and "conn_events" not in rt.stats.counters
+
+
+_REQUESTS = {
+    "op": ({"op": "add", "subsys": "alertdef"}, unported.ALERTS),
+    "multiquery": ({"multiquery": [{"subsys": "svcstate"}]},
+                   unported.SNAPSHOT),
+    "snapshot": ({"subsys": "svcstate", "consistency": "snapshot"},
+                 unported.SNAPSHOT),
+    "selfstats": ({"subsys": "selfstats"}, unported.SNAPSHOT),
+    "metrics": ({"subsys": "metrics"}, unported.SNAPSHOT),
+    "tstart": ({"subsys": "svcstate", "tstart": 0}, unported.HISTORY),
+    "tend": ({"subsys": "svcstate", "tend": 5}, unported.HISTORY),
+    "at": ({"subsys": "svcstate", "at": 5}, unported.HISTORY),
+    "window": ({"subsys": "svcstate", "window": "5m"}, unported.HISTORY),
+}
+
+
+@pytest.mark.parametrize("form", sorted(_REQUESTS))
+def test_unported_request_form_raises(form):
+    req, item = _REQUESTS[form]
+    with pytest.raises(unported.NotPortedError, match=item):
+        _fresh().query(req)
+
+
+@pytest.mark.parametrize("field", ["history_db", "journal_dir",
+                                   "hist_shard_dir"])
+def test_unported_option_raises(field, tmp_path):
+    with pytest.raises(unported.NotPortedError, match=unported.HISTORY):
+        TRuntime(t_cfg(), TOpts(**{field: str(tmp_path)}), device="cpu")
+
+
+def test_bad_frame_drops_pending_and_counts():
+    rt = _fresh()
+    buf = TSim(**SIM_KW).conn_frames(5)
+    assert rt.feed(buf[:40]) == 0 and rt._pending == buf[:40]
+    with pytest.raises(t_wire.FrameError):
+        rt.feed(buf[40:] + b"\x00" * 32)
+    assert rt._pending == b"" and rt.stats.counters["frames_bad"] == 1
+    assert rt.feed(buf) == 5 and rt.stats.counters["conn_events"] == 5
