@@ -73,13 +73,34 @@ checkout of the repository. Phases:
    ``Runtime`` on the card and on the CPU: 85 + 29 leaves, and the JSON
    of every request (quantiles moved by CUDA's ``logf`` may sit one
    loghist bucket apart, counted).
+9. Edge pre-aggregation through the ``Runtime`` at ns geometry: one
+   agent-side ``EdgeFold`` turns each tick's records (16 feed buffers'
+   worth of plain conn and resp records, 2 for the warm-up tick) into
+   SKETCH_DELTA records on the host before any timer starts; a warm-up
+   tick and two ticks, each the raw 5 s state sweep and the delta
+   records in ~1 MB buffers, then ``run_tick`` (which publishes the
+   snapshot). The launch counters are zeroed before the two ticks: each
+   delta dispatch launches ``cms_update`` and ``inv_update`` once, the
+   generic ``scatter_max`` twice (the per-service and global HLL
+   registers) and ``scatter_add`` once (the loghist buckets), and no
+   ``hll_update``. A second Runtime folds the same records raw, and the
+   reference's delta-vs-raw bounds (tests/test_preagg.py) are held
+   between the two. Then host syncs a delta dispatch, four delta
+   dispatches under torch.profiler, each kernel of the delta section
+   against its plain version on one delta dispatch's inputs (timed
+   beside it and the library call), a snapshot query per served
+   subsystem (first and cached), ``selfstats``, ``metrics``, a 16-wide
+   ``multiquery``, the snapshot's isolation from a later feed, and the
+   tiny delta stream of ``tests/test_torch_delta_fold.py`` card vs CPU
+   (tick reports, 85 + 29 leaves, counters, snapshot JSON).
 6. Fold rate and device ops a dispatch, memory, the card's name and
-   power limit, the JSON lines (fold, fold_all, runtime, kernels), and
-   last the result line.
+   power limit, the JSON lines (fold, fold_all, runtime, delta,
+   kernels), and last the result line.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -117,7 +138,8 @@ FUSED = {
     "inv_update": "gyeeta_tpu/sketch/pallas_scatter.py:81",
 }
 # the generic scatter kernels, function for function the Pallas calls; the
-# main path no longer launches them
+# fold path no longer launches them, the delta section does (phase 9)
+GENERIC_SOURCE = "gyeeta_tpu_torch/csrc/scatter.cu"
 GENERIC = {
     "scatter_max": "gyeeta_tpu/sketch/pallas_scatter.py:81",
     "scatter_add": "gyeeta_tpu/sketch/pallas_scatter.py:99",
@@ -817,46 +839,52 @@ def _same_sketch(torch, kind, got, want) -> float:
     return err
 
 
+def fused_call(torch, scatter, kind, mod, fn, generic, sk, args, kw):
+    """One fused call held against its plain version on the same inputs
+    and timed beside it (and, for hll and cms, beside the route it
+    replaced: the plain hash chain, then the generic scatter kernel) →
+    its entry in the kernels line."""
+    mods = sketch_modules()
+    m = mods[mod]
+    kernel, plain = getattr(m, fn), getattr(m, fn + "_plain")
+    got, want = _clone(sk), _clone(sk)
+    kernel(got, *args, **kw)
+    plain(want, *args, **kw)
+    torch.cuda.synchronize()
+    err = _same_sketch(torch, kind, got, want)
+    work = _clone(sk)
+    ms, issue_ms = timed(torch, lambda: kernel(work, *args, **kw))
+    plain_ms, plain_issue_ms = timed(torch, lambda: plain(work, *args, **kw))
+    chain_ms = None
+    if mod != "invertible":
+        gen = getattr(scatter, generic)
+        chain_ms, _ = timed(torch, lambda: gen(work[0], *generic_lanes(
+            torch, mods, mod, fn, work[0], args, kw)[:2]))
+    c = {"site": f"{mod}.{fn}", "target": list(sk[0].shape),
+         "dtype": str(sk[0].dtype).split(".")[1],
+         "lanes": args[-1].numel(),
+         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "issue_ms": issue_ms, "plain_issue_ms": plain_issue_ms,
+         "chain_ms": chain_ms}
+    c |= fused_bound(torch, mods, mod, fn, sk, args, kw, want)
+    log(f"  {kind} @ {c['site']} {c['target']} {c['dtype']}, "
+        f"{c['lanes']} lanes: device kernel {ms * 1e3:.2f} us, plain "
+        f"{plain_ms * 1e3:.2f} us, unfused route (hash chain + generic "
+        f"kernel) {'-' if chain_ms is None else f'{chain_ms * 1e3:.2f}'}"
+        f" us, bound {c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}, "
+        f"{c['bound_bytes']} B); issue rate {issue_ms * 1e3:.1f} / "
+        f"{plain_issue_ms * 1e3:.1f} us per call; max_abs_err {err}")
+    return c
+
+
 def fused_phase(torch, scatter, captured, launches):
     log("phase 5a: each fused kernel vs its plain version at the main "
         "path's inputs (hll, inv: exact; cms: rtol 1e-6)")
-    mods = sketch_modules()
     calls = {k: [] for k in FUSED}
     for (kind, mod, fn, _, _, generic), (_, _, sk, args, kw) in zip(
             NS_CALLS, captured):
-        m = mods[mod]
-        kernel, plain = getattr(m, fn), getattr(m, fn + "_plain")
-        got, want = _clone(sk), _clone(sk)
-        kernel(got, *args, **kw)
-        plain(want, *args, **kw)
-        torch.cuda.synchronize()
-        err = _same_sketch(torch, kind, got, want)
-        work = _clone(sk)
-        ms, issue_ms = timed(torch, lambda: kernel(work, *args, **kw))
-        plain_ms, plain_issue_ms = timed(torch, lambda: plain(work, *args,
-                                                              **kw))
-        # the route it replaced: the plain hash chain, then the generic
-        # scatter kernel (hll, cms; inv's election has no such split)
-        chain_ms = None
-        if mod != "invertible":
-            gen = getattr(scatter, generic)
-            chain_ms, _ = timed(torch, lambda: gen(work[0], *generic_lanes(
-                torch, mods, mod, fn, work[0], args, kw)[:2]))
-        c = {"site": f"{mod}.{fn}", "target": list(sk[0].shape),
-             "dtype": str(sk[0].dtype).split(".")[1],
-             "lanes": args[-1].numel(),
-             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-             "issue_ms": issue_ms, "plain_issue_ms": plain_issue_ms,
-             "chain_ms": chain_ms}
-        c |= fused_bound(torch, mods, mod, fn, sk, args, kw, want)
-        calls[kind].append(c)
-        log(f"  {kind} @ {c['site']} {c['target']} {c['dtype']}, "
-            f"{c['lanes']} lanes: device kernel {ms * 1e3:.2f} us, plain "
-            f"{plain_ms * 1e3:.2f} us, unfused route (hash chain + generic "
-            f"kernel) {'-' if chain_ms is None else f'{chain_ms * 1e3:.2f}'}"
-            f" us, bound {c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}, "
-            f"{c['bound_bytes']} B); issue rate {issue_ms * 1e3:.1f} / "
-            f"{plain_issue_ms * 1e3:.1f} us per call; max_abs_err {err}")
+        calls[kind].append(fused_call(torch, scatter, kind, mod, fn,
+                                      generic, sk, args, kw))
     return [_entry(kind, FUSED_SOURCE, FUSED[kind], launches[kind], cs,
                    library=False) for kind, cs in calls.items()]
 
@@ -877,6 +905,50 @@ def _entry(kind, source, replaces, launches, cs, library) -> dict:
         "calls": cs}
 
 
+def generic_call(torch, scatter, kind, site, target, idx, val):
+    """One generic scatter call held against its plain version (max:
+    exact; add: rtol 1e-6) and timed beside it and beside the one
+    PyTorch call computing the same function → its entry."""
+    wrapper = getattr(scatter, kind)
+    plain = getattr(scatter, kind + "_plain")
+    got = wrapper(target.clone(), idx, val)
+    want = plain(target.clone(), idx, val)
+    torch.cuda.synchronize()
+    if kind == "scatter_max":
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    err = float((got.double() - want.double()).abs().max())
+    idx64 = idx.to(torch.int64)
+    flat = target.clone().view(-1)
+    if kind == "scatter_max":
+        lib = lambda: flat.scatter_reduce_(0, idx64, val, "amax",  # noqa: E731,E501
+                                           include_self=True)
+    else:
+        lib = lambda: flat.index_add_(0, idx64, val)  # noqa: E731
+    work = target.clone()
+    ms, issue_ms = timed(torch, lambda: wrapper(work, idx, val))
+    plain_ms, plain_issue_ms = timed(torch, lambda: plain(work, idx, val))
+    library_ms, library_issue_ms = timed(torch, lib)
+    n = idx.numel()
+    distinct = int(torch.unique(idx).numel())
+    c = {"site": site, "target": list(target.shape),
+         "dtype": str(target.dtype).split(".")[1], "lanes": n,
+         "distinct_targets": distinct, "max_abs_err": err, "ms": ms,
+         "plain_ms": plain_ms, "library_ms": library_ms,
+         "issue_ms": issue_ms, "plain_issue_ms": plain_issue_ms,
+         "library_issue_ms": library_issue_ms}
+    # idx + val read once; each element read and written once
+    c |= _bound(8 * n + 8 * distinct, n)
+    log(f"  {kind} @ {site} {c['target']} {c['dtype']}, {n} lanes, "
+        f"{distinct} targets: device kernel {ms * 1e3:.2f} us, plain "
+        f"{plain_ms * 1e3:.2f} us, library {library_ms * 1e3:.2f} us, "
+        f"bound {c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}); issue "
+        f"rate {issue_ms * 1e3:.1f} / {plain_issue_ms * 1e3:.1f} / "
+        f"{library_issue_ms * 1e3:.1f} us per call; max_abs_err {err}")
+    return c
+
+
 def generic_phase(torch, scatter, captured, launches):
     log("phase 5b: each generic scatter kernel vs its plain version at the "
         "lanes the fused calls' hash chains give (max: exact; add: rtol "
@@ -886,49 +958,10 @@ def generic_phase(torch, scatter, captured, launches):
     for (_, mod, fn, _, _, kind), (_, _, sk, args, kw) in zip(NS_CALLS,
                                                              captured):
         idx, val, _ = generic_lanes(torch, mods, mod, fn, sk[0], args, kw)
-        target = sk[0]
-        wrapper = getattr(scatter, kind)
-        plain = getattr(scatter, kind + "_plain")
-        got = wrapper(target.clone(), idx, val)
-        want = plain(target.clone(), idx, val)
-        torch.cuda.synchronize()
-        if kind == "scatter_max":
-            torch.testing.assert_close(got, want, rtol=0, atol=0)
-        else:
-            torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
-        err = float((got.double() - want.double()).abs().max())
-        idx64 = idx.to(torch.int64)
-        flat = target.clone().view(-1)
-        if kind == "scatter_max":
-            lib = lambda: flat.scatter_reduce_(0, idx64, val, "amax",  # noqa: E731,E501
-                                               include_self=True)
-        else:
-            lib = lambda: flat.index_add_(0, idx64, val)  # noqa: E731
-        work = target.clone()
-        ms, issue_ms = timed(torch, lambda: wrapper(work, idx, val))
-        plain_ms, plain_issue_ms = timed(torch, lambda: plain(work, idx, val))
-        library_ms, library_issue_ms = timed(torch, lib)
-        n = idx.numel()
-        distinct = int(torch.unique(idx).numel())
-        site = f"{mod}.{fn}"
-        c = {"site": site, "target": list(target.shape),
-             "dtype": str(target.dtype).split(".")[1], "lanes": n,
-             "distinct_targets": distinct, "max_abs_err": err, "ms": ms,
-             "plain_ms": plain_ms, "library_ms": library_ms,
-             "issue_ms": issue_ms, "plain_issue_ms": plain_issue_ms,
-             "library_issue_ms": library_issue_ms}
-        # idx + val read once; each element read and written once
-        c |= _bound(8 * n + 8 * distinct, n)
-        calls[kind].append(c)
-        log(f"  {kind} @ {site} {c['target']} {c['dtype']}, {n} lanes, "
-            f"{distinct} targets: device kernel {ms * 1e3:.2f} us, plain "
-            f"{plain_ms * 1e3:.2f} us, library {library_ms * 1e3:.2f} us, "
-            f"bound {c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}); issue "
-            f"rate {issue_ms * 1e3:.1f} / {plain_issue_ms * 1e3:.1f} / "
-            f"{library_issue_ms * 1e3:.1f} us per call; max_abs_err {err}")
-    return [_entry(kind, "gyeeta_tpu_torch/csrc/scatter.cu", GENERIC[kind],
-                   launches[kind], cs, library=True)
-            for kind, cs in calls.items()]
+        calls[kind].append(generic_call(torch, scatter, kind, f"{mod}.{fn}",
+                                        sk[0], idx, val))
+    return [_entry(kind, GENERIC_SOURCE, GENERIC[kind], launches[kind], cs,
+                   library=True) for kind, cs in calls.items()]
 
 
 # ----------------------------------------------------------- phase 7
@@ -1390,12 +1423,14 @@ RT_BUFFERS = 16             # feed buffers a measured tick
 RT_DISTINCT = 4             # distinct feed buffers, cycled
 RT_WARM_BUFFERS = 2         # feed buffers of the warm-up tick
 RT_FRESH_ROUNDS = 20        # feed buffer → svcstate query rounds
+# the 20 subsystems the port serves
+RT_SERVED = ("svcstate", "hoststate", "clusterstate", "flowstate",
+             "taskstate", "topcpu", "toppgcpu", "toprss", "topdelay",
+             "topfork", "cpumem", "tracereq", "traceuniq", "svcsumm",
+             "hostlist", "topk", "svcdependency", "svcmesh", "activeconn",
+             "clientconn")
 # one request per served subsystem, and three svcstate variants
-RT_QUERIES = {s: {"subsys": s} for s in (
-    "svcstate", "hoststate", "clusterstate", "flowstate", "taskstate",
-    "topcpu", "toppgcpu", "toprss", "topdelay", "topfork", "cpumem",
-    "tracereq", "traceuniq", "svcsumm", "hostlist", "topk",
-    "svcdependency", "svcmesh", "activeconn", "clientconn")}
+RT_QUERIES = {s: {"subsys": s} for s in RT_SERVED}
 RT_QUERIES |= {
     "svcstate filter+sort": {
         "subsys": "svcstate", "maxrecs": 100, "sortcol": "p95resp5s",
@@ -1652,6 +1687,7 @@ def runtime_phase(torch, scatter):
     tick_parts = SyncTimer(torch, (
         (rt, "flush", "flush"), (rt, "td_drain", "td_drain"),
         (derive, "classify_pass", "classify_pass"),
+        (rt, "publish_snapshot", "publish_snapshot"),
         (rt, "heavy_recover", "heavy_recover"),
         (depgraph, "age", "dep_age"), (rt, "engine_health", "health"),
         (step, "tick_5s", "tick_5s"), (step, "age_tasks", "age_tasks"),
@@ -1793,6 +1829,7 @@ def runtime_phase(torch, scatter):
           f"recovered keys ({rec['recovered_keys']})")
     perf["recovered_keys"] = rec["recovered_keys"]
     del rt
+    gc.collect()              # a published snapshot refers to its runtime
     torch.cuda.empty_cache()
 
     # ---- card vs CPU, tiny stream
@@ -1828,6 +1865,574 @@ def runtime_phase(torch, scatter):
     return perf, launches
 
 
+# ----------------------------------------------------------- phase 9
+DELTA_TICKS = 2             # measured ticks
+DELTA_BUFFERS = 16          # phase-8 feed buffers' worth of records a tick
+DELTA_WARM_BUFFERS = 2      # ... of the warm-up tick
+DELTA_FEED_BYTES = 1 << 20  # SKETCH_DELTA frames fed in ~1 MB buffers
+DELTA_PROFILED = 4          # delta dispatches under torch.profiler
+# launches of each kernel in a delta-only dispatch (hh_width > 0)
+DELTA_LAUNCHES = {"hll_update": 0, "cms_update": 1, "inv_update": 1,
+                  "scatter_max": 2, "scatter_add": 1}
+# the delta section's kernel call sites: (kernel, module, function)
+DELTA_SITES = (("cms_update", "countmin", "update"),
+               ("inv_update", "invertible", "write_candidates"),
+               ("scatter_max", "scatter", "scatter_max"),
+               ("scatter_add", "scatter", "scatter_add"))
+# the tiny delta stream of tests/test_torch_delta_fold.py (card vs CPU)
+TINY_DELTA_CFG = dict(
+    svc_capacity=64, n_hosts=8, hll_p_svc=4, hll_p_global=8, cms_depth=2,
+    cms_width=1 << 10, topk_capacity=16, topk_budget=48, td_capacity=16,
+    hh_depth=2, hh_width=256, conn_batch=64, resp_batch=128,
+    listener_batch=32, fold_k=4, task_capacity=128, api_capacity=256)
+TINY_DELTA_OPTS = dict(dep_pair_capacity=256, dep_edge_capacity=1024)
+
+
+def state_sweep_frames(sim, wire) -> bytes:
+    """One tick's 5 s state sweep, raw in delta mode too: listeners,
+    process groups, hosts' state and cpu/mem (no traces: the trace→resp
+    bridge suppresses a host only when it sends raw resp records, so it
+    would feed a delta-fed engine samples a raw-fed one does not get)."""
+    return (sim.listener_frames() + sim.task_frames()
+            + wire.encode_frames_chunked(wire.NOTIFY_HOST_STATE,
+                                         sim.host_state_records())
+            + wire.encode_frames_chunked(wire.NOTIFY_CPU_MEM_STATE,
+                                         sim.cpu_mem_records()))
+
+
+def delta_feed_buffers(wire, recs) -> list:
+    """SKETCH_DELTA records framed into feed buffers of ~1 MB."""
+    n = max(1, DELTA_FEED_BYTES // wire.DELTA_DT.itemsize)
+    return [wire.encode_frames_chunked(wire.NOTIFY_SKETCH_DELTA,
+                                       recs[i:i + n])
+            for i in range(0, len(recs), n)]
+
+
+def mixed_dispatch(wire, recs, part: int) -> bytes:
+    """One delta dispatch's worth of records (256), ``256 // 8`` of each
+    kind (the ``part``-th such slice of each), framed."""
+    n = 256 // 8
+    pick = np.concatenate([np.flatnonzero(recs["kind"] == k)
+                           [part * n:(part + 1) * n] for k in range(1, 9)])
+    rest = np.setdiff1d(np.arange(len(recs)), pick)
+    pick = np.concatenate([pick, rest[part * 256:][:256 - len(pick)]])
+    return wire.encode_frames_chunked(wire.NOTIFY_SKETCH_DELTA,
+                                      recs[np.sort(pick)])
+
+
+def _sorted_edges(torch, table, dep):
+    """Live dependency edges → (keys (E, 4) int64 sorted, e_ctr (E, 2))."""
+    live = table.live_mask(dep.edge_tbl)
+    keys = torch.stack([dep.e_cli_hi[live], dep.e_cli_lo[live],
+                        dep.e_ser_hi[live], dep.e_ser_lo[live]],
+                       1).to(torch.int64).cpu().numpy()
+    ctr = dep.e_ctr[live].double().cpu().numpy()
+    order = np.lexsort(keys.T[::-1])
+    return keys[order], ctr[order]
+
+
+def delta_vs_raw(torch, table, windows, raw, dlt, keys64, resid) -> dict:
+    """tests/test_preagg.py's bounds between the raw-fed and the
+    delta-fed runtime over the same records (the folded totals: each
+    window's lifetime slab + its current one) → the measured margins."""
+    def rows(rt):
+        hi = torch.from_numpy((keys64 >> np.uint64(32)).astype(np.int64))
+        lo = torch.from_numpy((keys64 & np.uint64(0xFFFFFFFF))
+                              .astype(np.int64))
+        r = table.lookup(rt.state.tbl, hi.to(rt.device), lo.to(rt.device))
+        check(bool((r >= 0).all()), "every sim service is live in "
+              "both runtimes")
+        return r
+
+    def folded(win):
+        return windows.read(win, len(win.totals))
+
+    sA, sB = raw.state, dlt.state
+    ra, rb = rows(raw), rows(dlt)
+    out = {}
+    check(torch.equal(sA.glob_hll.regs, sB.glob_hll.regs)
+          and torch.equal(sA.svc_hll.regs[ra], sB.svc_hll.regs[rb]),
+          "global and per-service HLL registers bit-identical")
+    ha, hb = folded(sA.resp_win)[ra], folded(sB.resp_win)[rb]
+    check(torch.equal(ha.sum(1), hb.sum(1)),
+          "loghist totals per service equal")
+    out["bucket_flips"] = float((ha - hb).abs().double().sum()) / 2
+    out["loghist_total"] = float(ha.double().sum())
+    check(out["bucket_flips"] <= max(2.0, 1e-4 * out["loghist_total"]),
+          f"loghist bucket flips {out['bucket_flips']} <= max(2, 1e-4 of "
+          f"{out['loghist_total']:.0f})")
+    ca, cb = folded(sA.ctr_win)[ra].double(), folded(sB.ctr_win)[rb].double()
+    out["ctr_max_rel"] = float(((ca - cb).abs() / ca.abs().clamp(min=1e-3))
+                               .max())
+    torch.testing.assert_close(cb, ca, rtol=1e-4, atol=1e-3)
+    check(True, f"per-service counters within rtol 1e-4 (largest relative "
+          f"difference {out['ctr_max_rel']:.3g})")
+    out["n_conn"], out["n_resp"] = float(sA.n_conn), float(sA.n_resp)
+    check(float(sB.n_conn) == out["n_conn"]
+          and float(sB.n_resp) == out["n_resp"],
+          f"n_conn {out['n_conn']:.0f} and n_resp {out['n_resp']:.0f} "
+          "exact")
+    mA = float(sA.cms.counts[0].double().sum())
+    mB = float(sB.cms.counts[0].double().sum())
+    out["cms_mass_raw"], out["cms_mass_delta"] = mA, mB
+    out["resid"] = resid
+    out["cms_rel"] = abs(mA - (mB + resid)) / mA
+    check(mB <= mA * (1 + 1e-6) and out["cms_rel"] <= 1e-5,
+          f"CMS mass: delta {mB:.6g} + residual {resid:.6g} = raw "
+          f"{mA:.6g} (relative difference {out['cms_rel']:.3g})")
+    ka, va = _sorted_edges(torch, table, raw.dep)
+    kb, vb = _sorted_edges(torch, table, dlt.dep)
+    out["edges"] = len(ka)
+    out["edge_drops"] = (float(raw.dep.edge_tbl.n_drop),
+                         float(dlt.dep.edge_tbl.n_drop))
+    check(len(ka) > 0 and np.array_equal(ka, kb),
+          f"dependency edges equal as a key set ({len(ka)} edges; probe "
+          f"drops raw/delta {out['edge_drops']})")
+    np.testing.assert_allclose(vb, va, rtol=1e-5, atol=1e-3)
+    check(True, "dependency edge counts and bytes within rtol 1e-5")
+    return out
+
+
+def _delta_stream(sim, ef, wire, tick):
+    """One tick of the tiny delta stream (as tests/test_torch_delta_fold.py
+    feeds it) → (buffer, cut, raw resp values)."""
+    delta = ef.fold_sweep(sim.conn_records(300), sim.resp_records(500))
+    if tick == 2:
+        odd = np.zeros(2, wire.DELTA_DT)
+        odd["kind"] = [99, wire.DK_SVC_HIST]
+        odd["nitem"] = [0, 2]
+        pv = odd["payload"][1][:12].view(wire.DELTA_PAIR_DT)
+        pv["idx"], pv["wt"] = [3, 4000], [1.0, 1.0]
+        delta = np.concatenate([delta, odd])
+    dbytes = wire.encode_frames_chunked(wire.NOTIFY_SKETCH_DELTA, delta)
+    agent = np.zeros(2, wire.AGENT_STATS_DT)
+    agent["host_id"] = [1, 2]
+    agent["spool_dropped"] = [tick, 1]
+    agent["spool_dropped_records"] = [10 * tick, 3]
+    agent["spool_resent"] = [2, 0]
+    agent["connect_timeouts"] = [0, tick]
+    lst = sim.listener_state_records()
+    head = ((sim.name_frames() if tick == 0 else b"")
+            + wire.encode_frames_chunked(wire.NOTIFY_LISTENER_STATE, lst)
+            + wire.encode_frames_chunked(wire.NOTIFY_HOST_STATE,
+                                         sim.host_state_records()))
+    resp = sim.resp_records(60)
+    buf = (head + dbytes
+           + wire.encode_frames_chunked(wire.NOTIFY_TCP_CONN,
+                                        sim.conn_records(40))
+           + wire.encode_frames_chunked(wire.NOTIFY_RESP_SAMPLE, resp)
+           + wire.encode_frames_chunked(wire.NOTIFY_AGENT_STATS, agent))
+    return buf, len(head) + len(dbytes) // 2 + 5, resp["resp_usec"], lst
+
+
+def tiny_delta_run(device):
+    """The tiny delta stream through ``Runtime(device=...)`` → (runtime,
+    tick reports, snapshot JSON of every served subsystem after each
+    tick, {spec name: loghist inputs the device buckets})."""
+    from gyeeta_tpu_torch.engine import aggstate
+    from gyeeta_tpu_torch.ingest import decode, wire
+    from gyeeta_tpu_torch.runtime import Runtime
+    from gyeeta_tpu_torch.sim import ParthaSim
+    from gyeeta_tpu_torch.sketch import edgefold, loghist
+    from gyeeta_tpu_torch.utils.config import RuntimeOpts
+
+    cfg = aggstate.EngineCfg(resp_spec=loghist.LogHistSpec(1.0, 1e8, 32),
+                             **TINY_DELTA_CFG)
+    rt = Runtime(cfg, RuntimeOpts(**TINY_DELTA_OPTS), device=device)
+    sim = ParthaSim(n_hosts=8, n_svcs=4, n_clients=256, seed=7)
+    ef = edgefold.EdgeFold(edgefold.params_of_cfg(cfg, flow_max=24),
+                           host_id=0, hll_refresh_every=3)
+    reports, snaps = [], []
+    fed = {"resp_spec": [], "qps_spec": [], "active_spec": []}
+    for tick in range(4):
+        buf, cut, resp, lst = _delta_stream(sim, ef, wire, tick)
+        lb = decode.listener_batch(lst, 4096)
+        fed["resp_spec"].append(resp)
+        fed["qps_spec"].append(lb.stats[lb.valid, decode.STAT_NQRYS] / 5.0)
+        fed["active_spec"].append(
+            lb.stats[lb.valid, decode.STAT_NCONNS_ACTIVE])
+        rt.feed(buf[:cut])
+        rt.feed(buf[cut:])
+        reports.append(rt.run_tick())
+        snaps.append({s: rt.query({"subsys": s, "maxrecs": 10000,
+                                   "consistency": "snapshot"})
+                      for s in RT_SERVED})
+    return rt, reports, snaps, {k: np.concatenate(v).astype(np.float32)
+                                for k, v in fed.items()}
+
+
+def delta_phase(torch, scatter):
+    """Edge pre-aggregation through the Runtime at ns geometry: agents'
+    EdgeFolds turn each tick's records into SKETCH_DELTA records, fed
+    beside the raw state sweep; then the same records raw into a second
+    Runtime and the reference's delta-vs-raw bounds; each kernel of the
+    delta section against its plain version on one delta dispatch's
+    inputs; the snapshot tier; the tiny delta stream card vs CPU."""
+    from gyeeta_tpu_torch.engine import aggstate, compact, step, table
+    from gyeeta_tpu_torch.ingest import wire
+    from gyeeta_tpu_torch.parallel import depgraph
+    from gyeeta_tpu_torch.runtime import Runtime
+    from gyeeta_tpu_torch.semantic import derive
+    from gyeeta_tpu_torch.sim import ParthaSim
+    from gyeeta_tpu_torch.sketch import edgefold, loghist, windows
+    from gyeeta_tpu_torch.utils.config import RuntimeOpts
+    from gyeeta_tpu_torch.utils.tensor import tree_paths
+
+    t_phase = time.perf_counter()
+    cfg = aggstate.EngineCfg(**NS_CFG)
+    sim = ParthaSim(**NS_SIM, seed=13)
+    nb_c = cfg.fold_k * cfg.conn_batch
+    nb_r = cfg.fold_k * cfg.resp_batch
+    log(f"phase 9: delta-fed Runtime at north-star geometry (dep "
+        f"{RT_OPTS}): a tick's sweep is {DELTA_BUFFERS} feed buffers' worth "
+        f"of records ({nb_c} conn + {nb_r} resp each) folded by the agent, "
+        f"the warm-up tick {DELTA_WARM_BUFFERS}")
+    t0 = time.perf_counter()
+    names = sim.name_frames()
+    conns = [sim.conn_records(nb_c) for _ in range(RT_DISTINCT)]
+    resps = [sim.resp_records(nb_r) for _ in range(RT_DISTINCT)]
+    raw_bufs = [wire.encode_frames_chunked(wire.NOTIFY_TCP_CONN, c)
+                + wire.encode_frames_chunked(wire.NOTIFY_RESP_SAMPLE, r)
+                for c, r in zip(conns, resps)]
+    sweeps = [state_sweep_frames(sim, wire)
+              for _ in range(DELTA_TICKS + 1)]
+    log(f"  generated {RT_DISTINCT} distinct buffers' records, names and "
+        f"{len(sweeps)} state sweeps in {time.perf_counter() - t0:.2f}s")
+    params = edgefold.params_of_cfg(cfg)
+    ef = edgefold.EdgeFold(params, host_id=0)
+    ticks, j = [], 0
+    perf = {"params": params, "edgefold_s": [], "delta_records": [],
+            "delta_bytes": [], "raw_records": [], "raw_bytes": []}
+    for n_buf in [DELTA_WARM_BUFFERS] + [DELTA_BUFFERS] * DELTA_TICKS:
+        idx = [(j + i) % RT_DISTINCT for i in range(n_buf)]
+        j += n_buf
+        t0 = time.perf_counter()
+        recs = ef.fold_sweep(np.concatenate([conns[i] for i in idx]),
+                             np.concatenate([resps[i] for i in idx]))
+        perf["edgefold_s"].append(time.perf_counter() - t0)
+        dbufs = delta_feed_buffers(wire, recs)
+        ticks.append({"idx": idx, "recs": recs, "bufs": dbufs})
+        perf["delta_records"].append(len(recs))
+        perf["delta_bytes"].append(sum(len(b) for b in dbufs))
+        perf["raw_records"].append(n_buf * (nb_c + nb_r))
+        perf["raw_bytes"].append(sum(len(raw_bufs[i]) for i in idx))
+    kinds = np.bincount(ticks[-1]["recs"]["kind"], minlength=9)
+    perf["delta_kinds_last_tick"] = {
+        k: int(kinds[getattr(wire, f"DK_{k.upper()}")]) for k in (
+            "svc_ctr", "svc_hist", "svc_hll", "glob_hll", "svc_td", "flow",
+            "dep", "resid")}
+    log(f"  agent fold (EdgeFold.fold_sweep, host): "
+        f"{', '.join(f'{s:.2f}' for s in perf['edgefold_s'])} s by tick; "
+        f"delta records {perf['delta_records']} ({perf['delta_bytes']} B) "
+        f"for raw records {perf['raw_records']} ({perf['raw_bytes']} B); "
+        f"last tick's records by kind {perf['delta_kinds_last_tick']}")
+
+    torch.cuda.reset_peak_memory_stats()
+    rt = Runtime(cfg, RuntimeOpts(**RT_OPTS), device=DEV)
+    t0 = time.perf_counter()
+    rt.feed(names)
+    rt.feed(sweeps[0])
+    for b in ticks[0]["bufs"]:
+        rt.feed(b)
+    rt.run_tick()
+    torch.cuda.synchronize()
+    log(f"  warm-up tick (names, sweep, {len(ticks[0]['bufs'])} delta "
+        f"buffers, run_tick): {time.perf_counter() - t0:.2f}s, "
+        f"{int(rt.state.tbl.n_live)} services live")
+
+    # ---- the delta path, counted
+    mods = sketch_modules()
+    n_delta, n_connresp = [0], [0]
+    fold_all = step.fold_all
+
+    def counting_fold_all(*a, **kw):
+        n_delta[0] += kw.get("delta") is not None
+        n_connresp[0] += kw.get("connresp") is not None
+        return fold_all(*a, **kw)
+
+    dispatch = rt._dispatch_fused
+    disp_ms = []
+
+    def timed_dispatch(*a, **kw):
+        d0 = n_delta[0]
+        t = time.perf_counter()
+        dispatch(*a, **kw)
+        torch.cuda.synchronize()
+        if n_delta[0] > d0:
+            disp_ms.append((time.perf_counter() - t) * 1e3)
+
+    tick_parts = SyncTimer(torch, (
+        (rt, "flush", "flush"), (rt, "td_drain", "td_drain"),
+        (derive, "classify_pass", "classify_pass"),
+        (rt, "publish_snapshot", "publish_snapshot"),
+        (rt, "heavy_recover", "heavy_recover"),
+        (depgraph, "age", "dep_age"), (rt, "engine_health", "health"),
+        (step, "tick_5s", "tick_5s"), (step, "age_tasks", "age_tasks"),
+        (step, "age_apis", "age_apis"),
+        (compact, "compact_state", "compact_state"),
+        (step, "compact_tasks", "compact_tasks")))
+    perf |= {"sweep_s": [], "delta_feed_s": [], "dispatches": [],
+             "delta_dispatches": [], "tick_ms": [], "tick_parts_ms": []}
+    reset_launches(scatter, mods)
+    step.fold_all = counting_fold_all
+    rt._dispatch_fused = timed_dispatch
+    try:
+        for tick in ticks[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rt.feed(sweeps[len(perf["sweep_s"]) + 1])
+            torch.cuda.synchronize()
+            perf["sweep_s"].append(time.perf_counter() - t0)
+            d0, n0 = rt.stats.counters["fold_dispatches"], n_delta[0]
+            t0 = time.perf_counter()
+            for b in tick["bufs"]:
+                rt.feed(b)
+            torch.cuda.synchronize()
+            perf["delta_feed_s"].append(time.perf_counter() - t0)
+            perf["dispatches"].append(rt.stats.counters["fold_dispatches"]
+                                      - d0)
+            perf["delta_dispatches"].append(n_delta[0] - n0)
+            t0 = time.perf_counter()
+            with tick_parts:
+                rt.run_tick()
+            torch.cuda.synchronize()
+            perf["tick_ms"].append((time.perf_counter() - t0) * 1e3)
+            perf["tick_parts_ms"].append(dict(tick_parts.ms))
+            tick_parts.ms = {}
+    finally:
+        step.fold_all = fold_all
+        del rt._dispatch_fused
+    launches = read_launches(scatter, mods)
+    n_d = sum(perf["delta_dispatches"])
+    q = np.percentile(disp_ms, [50])
+    perf["delta_dispatch_ms"] = {"p50": q[0], "max": max(disp_ms),
+                                 "n": len(disp_ms)}
+    perf["raw_events_per_s"] = [
+        r / s for r, s in zip(perf["raw_records"][1:],
+                              perf["delta_feed_s"])]
+    sweep_ms = ", ".join(f"{s * 1e3:.1f}" for s in perf["delta_feed_s"])
+    log(f"  fold dispatches a tick's delta sweep: {perf['dispatches']} "
+        f"({perf['delta_dispatches']} with a delta section); ms per tick's "
+        f"delta sweep: {sweep_ms}; ms per delta dispatch (each synchronised): p50 {q[0]:.3f}, max "
+        f"{max(disp_ms):.3f}; raw events represented per second: "
+        f"{', '.join(f'{e:.0f}' for e in perf['raw_events_per_s'])}")
+    log(f"  state sweep feed (s, by tick): "
+        f"{', '.join(f'{s:.3f}' for s in perf['sweep_s'])}")
+    log(f"  ms per run_tick: {', '.join(f'{m:.2f}' for m in perf['tick_ms'])}"
+        "; parts (synchronised): " + " | ".join(
+            ", ".join(f"{k} {v:.2f}" for k, v in p.items())
+            for p in perf["tick_parts_ms"]))
+    log(f"  kernel launches on the delta path: {launches}")
+    want = {k: v * n_d for k, v in DELTA_LAUNCHES.items()}
+    check(n_connresp[0] == 0 and n_d > 0 and launches == want,
+          f"each of the {n_d} delta dispatches launched cms_update 1x, "
+          "inv_update 1x, scatter_max 2x and scatter_add 1x, and "
+          "hll_update never")
+
+    # ---- the same records raw, and the reference's bounds
+    raw = Runtime(cfg, RuntimeOpts(**RT_OPTS), device=DEV)
+    raw_s = []
+    raw.feed(names)
+    for t, tick in enumerate(ticks):
+        raw.feed(sweeps[t])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in tick["idx"]:
+            raw.feed(raw_bufs[i])
+        torch.cuda.synchronize()
+        raw_s.append(time.perf_counter() - t0)
+        raw.run_tick()
+    perf["raw_feed_s"] = raw_s
+    perf["raw_dispatches"] = raw.stats.counters["fold_dispatches"]
+    log(f"  the same records raw: feed s by tick "
+        f"{', '.join(f'{s:.3f}' for s in raw_s)}, "
+        f"{raw.stats.counters['slab_dispatches']} slab dispatches")
+    perf["vs_raw"] = delta_vs_raw(torch, table, windows, raw, rt,
+                                  sim.glob_ids.reshape(-1),
+                                  ef.stats["resid_bytes"])
+    del raw
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- syncs, profile and kernel inputs of delta dispatches
+    last = ticks[-1]["recs"]
+    d0 = rt.stats.counters["fold_dispatches"]
+    syncs = count_syncs(torch, lambda: rt.feed(ticks[-1]["bufs"][0]))
+    nd = rt.stats.counters["fold_dispatches"] - d0
+    perf["syncs_per_delta_dispatch"] = len(syncs) / nd
+    perf["sync_sites"] = sorted(set(syncs))
+    log(f"  host syncs in one ~1 MB delta buffer: {len(syncs)} in {nd} "
+        f"dispatches ({len(syncs) / nd:.2f} a dispatch) at "
+        f"{perf['sync_sites']}")
+    from torch.profiler import ProfilerActivity, profile
+    frame = wire.encode_frames_chunked(
+        wire.NOTIFY_SKETCH_DELTA, last[:DELTA_PROFILED * 256])
+    cuda = torch.autograd.DeviceType.CUDA
+    d0 = rt.stats.counters["fold_dispatches"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rt.feed(frame)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    nd = rt.stats.counters["fold_dispatches"] - d0
+    check(nd == DELTA_PROFILED, f"{DELTA_PROFILED * 256} delta records "
+          f"fold in {DELTA_PROFILED} dispatches")
+    busy_us = device_us(torch, prof)
+    n_dev = sum(1 for e in prof.events() if e.device_type == cuda)
+    perf["profile"] = {"wall_ms_per_dispatch": wall_us / nd / 1e3,
+                       "device_busy_ms_per_dispatch": busy_us / nd / 1e3,
+                       "device_busy_share": busy_us / wall_us,
+                       "device_ops_per_dispatch": n_dev / nd}
+    log(f"  profile of {nd} delta dispatches: wall "
+        f"{wall_us / nd / 1e3:.3f} ms/dispatch, device busy "
+        f"{busy_us / nd / 1e3:.3f} ms/dispatch ({busy_us / wall_us:.1%}), "
+        f"{n_dev / nd:.0f} device ops/dispatch")
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages() if e.device_type == cuda),
+                  reverse=True)
+    for dev_us, count, key in rows[:12]:
+        log(f"    {dev_us / nd:9.1f} us/dispatch  {count / nd:6.1f} calls  "
+            f"{key[:100]}")
+
+    # one delta dispatch with each kernel's inputs recorded: records of
+    # every kind the ticks shipped (the later sweeps ship few HLL
+    # registers)
+    allrecs = np.concatenate([t["recs"] for t in ticks])
+    site_mods = dict(sketch_modules(), scatter=scatter)
+    captured = []
+    saved = [(site_mods[m], f, getattr(site_mods[m], f))
+             for _, m, f in DELTA_SITES]
+
+    def recorder(kind, mod, fn, orig):
+        def rec(target, *args, **kw):
+            captured.append((kind, mod, fn, _clone(target), _clone(args),
+                             _clone(kw)))
+            return orig(target, *args, **kw)
+        return rec
+
+    for (kind, m, f), (mod, _, orig) in zip(DELTA_SITES, saved):
+        setattr(mod, f, recorder(kind, m, f, orig))
+    try:
+        rt.feed(mixed_dispatch(wire, allrecs, 0))
+    finally:
+        for mod, f, orig in saved:
+            setattr(mod, f, orig)
+    got = [(k, m, f) for k, m, f, *_ in captured]
+    check(sorted(got) == sorted([s for s in DELTA_SITES
+                                 if s[0] != "scatter_max"]
+                                + [DELTA_SITES[2]] * 2),
+          f"one delta dispatch calls {got}")
+    log("  each kernel of the delta section vs its plain version at one "
+        "delta dispatch's inputs (inv, scatter_max: exact; cms, "
+        "scatter_add: rtol 1e-6)")
+    sites = {}
+    for kind, mod, fn, target, args, kw in captured:
+        if mod == "scatter":
+            c = generic_call(torch, scatter, kind,
+                             f"step.ingest_delta:{kind}", target, *args)
+        else:
+            generic = "scatter_add" if mod == "countmin" else "scatter_max"
+            c = fused_call(torch, scatter, kind, mod, fn, generic, target,
+                           args, kw)
+        sites.setdefault(kind, []).append(c)
+
+    # ---- the snapshot tier
+    perf["snapshot_query_ms"] = {}
+    snap = rt.publish_snapshot()
+    outs = {}
+    for name, req in RT_QUERIES.items():
+        req = dict(req, consistency="snapshot")
+        t0 = time.perf_counter()
+        outs[name] = rt.query(dict(req))
+        first = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        again = rt.query(dict(req))
+        cached = (time.perf_counter() - t0) * 1e3
+        check(again is outs[name] or again == outs[name],
+              f"snapshot {name}: first {first:.1f} ms, cached {cached:.2f} "
+              f"ms, nrecs {outs[name]['nrecs']}")
+        perf["snapshot_query_ms"][name] = {"first": first, "cached": cached}
+    for sub in ("selfstats", "metrics"):
+        t0 = time.perf_counter()
+        out = rt.query({"subsys": sub, "consistency": "snapshot"})
+        ms = (time.perf_counter() - t0) * 1e3
+        perf["snapshot_query_ms"][sub] = {"first": ms}
+        check(("counters" in out and out["counters"]["snapshots_published"]
+               >= 1) if sub == "selfstats" else
+              "gyt_snapshot_tick" in out["text"], f"{sub}: {ms:.1f} ms")
+    multi = [dict(r, consistency="snapshot")
+             for r in list(RT_QUERIES.values())[:16]]
+    t0 = time.perf_counter()
+    mq = rt.query({"multiquery": multi})
+    perf["snapshot_query_ms"]["multiquery16"] = {
+        "first": (time.perf_counter() - t0) * 1e3}
+    check(mq["nqueries"] == 16 and all("error" not in r
+                                       for r in mq["multiquery"]),
+          f"a 16-wide multiquery: "
+          f"{perf['snapshot_query_ms']['multiquery16']['first']:.1f} ms")
+    check(outs["svcstate"]["ntotal"] == sim.n_hosts * sim.n_svcs,
+          f"snapshot svcstate: {outs['svcstate']['ntotal']} services")
+    # isolation: a feed after the publish moves the strong answer only
+    req = {"subsys": "svcstate", "maxrecs": 100000}
+    before = rt.query(dict(req, consistency="snapshot"))
+    strong = rt.query(req)
+    rt.feed(mixed_dispatch(wire, allrecs, 1))
+    snap.on_mutation()
+    after = rt.query(dict(req, consistency="snapshot"))
+    moved = rt.query(req)
+    check(rt.snapshot is snap and after == before,
+          "snapshot isolation: the snapshot's svcstate JSON, re-rendered "
+          "after one more delta dispatch, is unchanged")
+    check(moved != strong, "... while the strong svcstate JSON moved")
+    perf["max_memory_allocated_gib"] = \
+        torch.cuda.max_memory_allocated() / 2**30
+    log(f"  peak device memory: {perf['max_memory_allocated_gib']:.3f} GiB")
+    del rt, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- card vs CPU, tiny delta stream
+    log("  tiny delta stream, card vs CPU")
+    g_rt, g_rep, g_snaps, fed_vals = tiny_delta_run(DEV)
+    c_rt, c_rep, c_snaps, _ = tiny_delta_run("cpu")
+    tcfg = c_rt.cfg
+    moved = {k: _moved(torch, loghist, getattr(tcfg, k), v)
+             for k, v in fed_vals.items()}
+    log(f"  loghist inputs whose bucket CUDA's logf moves: {moved}")
+    check(g_rep == c_rep, f"tick reports equal: {g_rep}")
+    n_exact, n_close = _compare_leaves(
+        tree_paths(aggstate.init(tcfg, "meta")),
+        aggstate.state_to_numpy(c_rt.state),
+        aggstate.state_to_numpy(g_rt.state), moved)
+    check(n_exact + n_close == 85, f"AggState: 85 leaves agree ({n_exact} "
+          f"exactly, {n_close} within tolerance)")
+    n_exact, n_close = _compare_leaves(
+        tree_paths(depgraph.init(1, 1, "meta")),
+        depgraph.dep_to_numpy(c_rt.dep), depgraph.dep_to_numpy(g_rt.dep),
+        {})
+    check(n_exact + n_close == 29, f"DepGraph: 29 leaves agree ({n_exact} "
+          f"exactly, {n_close} within tolerance)")
+    n_q = [0, 0]
+    for t, (cs, gs) in enumerate(zip(c_snaps, g_snaps)):
+        for name in cs:
+            _json_diff(torch, loghist, tcfg, cs[name], gs[name], moved,
+                       f"{name}@{t}", n_q)
+    cc = {k: v for k, v in c_rt.stats.counters.items()
+          if k.startswith(("preagg_", "spool_", "agent_"))}
+    check(cc and cc == {k: g_rt.stats.counters[k] for k in cc},
+          f"delta and agent counters equal: {cc}")
+    check(True, f"snapshot JSON of {len(c_snaps[0])} subsystems after each "
+          f"of 4 ticks agrees card vs CPU ({n_q[0]} quantiles one loghist "
+          f"bucket apart, {n_q[1]} values one unit apart in the third "
+          "decimal)")
+    perf["tiny_json_bucket_apart"], perf["tiny_json_rounding_apart"] = n_q
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 9: {perf['phase_s']:.1f}s")
+    return perf, launches, sites
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1861,9 +2466,21 @@ def main(argv) -> int:
     fa = fold_all_phase(torch, scatter)
     torch.cuda.empty_cache()
     rtp, rt_launches = runtime_phase(torch, scatter)
+    gc.collect()              # a published snapshot refers to its runtime
+    torch.cuda.empty_cache()
+    dp, d_launches, d_sites = delta_phase(torch, scatter)
     for k in kernels:
         k["launches_fold_all"] = fa["launches"][k["name"]]
         k["launches_runtime"] = rt_launches[k["name"]]
+        k["launches_delta"] = d_launches[k["name"]]
+        cs = d_sites.get(k["name"])
+        if cs:
+            k["delta"] = {f: sum(c[f] for c in cs) for f in (
+                "ms", "plain_ms", "bound_ms")} | {
+                "max_abs_err": max(c["max_abs_err"] for c in cs),
+                "library_ms": sum(c["library_ms"] for c in cs)
+                if "library_ms" in cs[0] else None,
+                "calls": cs}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1880,6 +2497,7 @@ def main(argv) -> int:
     log(json.dumps({"fold": perf}))
     log(json.dumps({"fold_all": fa}))
     log(json.dumps({"runtime": rtp}))
+    log(json.dumps({"delta": dp}, default=float))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -6,6 +6,7 @@ CMS, budgeted top-K, invertible heavy-hitter buckets),
 ``ingest_resp_flat`` (loghist and t-digest staging), ``fold_step`` /
 ``fold_many``, the sweep sections (``ingest_listener``, ``ingest_host``,
 ``ingest_task``, ``ingest_cpumem``, ``ingest_trace``, ``ping_tasks``),
+edge pre-aggregation's ``ingest_delta``,
 ``fold_all`` (every section + the conn/resp slab + the dependency graph
 in one dispatch), the digest flushes, ``tick_5s``, the tick's upkeep
 (``age_tasks``, ``age_apis``, ``compact_tasks``), the health vector and
@@ -17,7 +18,8 @@ state with its small leaves replaced. The state passed in is consumed,
 as a donated one is: keep using the returned state. Batches are the
 tensor columns of ``ingest/decode.to_device``. PyTorch runs eagerly, so
 there is nothing to compile; each ``upsert_fast2`` any-miss test (conn
-fold, trace fold, dependency edges) is one device→host sync.
+fold, trace fold, delta fold, dependency edges) is one device→host
+sync.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from gyeeta_tpu_torch.ingest import decode as D
 from gyeeta_tpu_torch.parallel import depgraph as dg
 from gyeeta_tpu_torch.semantic import cpumem as CM
 from gyeeta_tpu_torch.sketch import countmin, hyperloglog as hll, \
-    invertible, loghist, tdigest, topk, windows
+    invertible, loghist, scatter, tdigest, topk, windows
 from gyeeta_tpu_torch.utils.tensor import add_drop, set_drop, \
     set_rows_drop, top_k, tree_map
 
@@ -270,6 +272,108 @@ def ping_tasks(cfg: EngineCfg, st: AggState, pb) -> AggState:
     return st
 
 
+def ingest_delta(cfg: EngineCfg, st: AggState, dep, db, tick):
+    """Fold a DeltaBatch (``ingest/decode.delta_batch`` on the device):
+    edge pre-aggregation, the partials an agent folded from its own
+    conn/resp streams (``sketch/edgefold.py``) → ``(state, dep)``.
+    Every merge is the monotone one the raw fold applies, so a delta-fed
+    engine reaches the raw-fed state up to float-addition order and the
+    agent's declared flow truncation:
+
+    - counters, dependency edges: row scatter-adds of per-sweep sums;
+    - loghist bucket counts: :func:`scatter.scatter_add` at
+      ``row * B + bucket`` (integer-valued counts: the sum is exact in
+      any order);
+    - per-service and global HLL registers: :func:`scatter.scatter_max`
+      at ``row * m + reg`` (invalid lanes carry rank 0 at index 0);
+    - flows: aggregated ``(key, bytes)`` lanes into the CMS, top-K and
+      invertible buckets as raw lanes go, the agent's truncated residual
+      charged to the top-K ``evicted`` bound.
+
+    One table upsert a dispatch (the unique service keys); every family
+    then resolves its rows by lookups against the updated table."""
+    # ---- one upsert over the unique service keys of the dispatch
+    tbl, urows, any_new = table.upsert_fast2(st.tbl, db.svc_hi, db.svc_lo,
+                                             db.svc_valid)
+    if any_new:               # the owning host changes only when claimed
+        set_drop(st.svc_host, urows, db.svc_host,
+                 db.svc_valid & (urows >= 0))
+
+    # ---- per-service exact counters (ctr_win order) + event counts
+    rc = table.lookup(tbl, db.ctr_hi, db.ctr_lo, db.ctr_valid)
+    ok_c = db.ctr_valid & (rc >= 0)
+    add_drop(st.ctr_win.cur, rc, db.ctr_vals[:, :4], ok_c)
+    n_conn_add = torch.sum(torch.where(ok_c, db.ctr_vals[:, 4], 0.0))
+    n_resp_add = torch.sum(torch.where(ok_c, db.ctr_vals[:, 5], 0.0))
+
+    # ---- per-service resp loghist bucket counts
+    rh = table.lookup(tbl, db.hist_hi, db.hist_lo, db.hist_valid)
+    ok_h = db.hist_valid & (rh >= 0)
+    nb = cfg.resp_spec.nbuckets
+    scatter.scatter_add(
+        st.resp_win.cur,
+        torch.where(ok_h, rh * nb + db.hist_bucket, 0).to(torch.int32),
+        torch.where(ok_h, db.hist_w, 0.0))
+
+    # ---- per-service distinct-client HLL register maxes
+    rs = table.lookup(tbl, db.shll_hi, db.shll_lo, db.shll_valid)
+    ok_s = db.shll_valid & (rs >= 0)
+    m = st.svc_hll.regs.shape[-1]
+    scatter.scatter_max(
+        st.svc_hll.regs,
+        torch.where(ok_s, rs * m + db.shll_reg, 0).to(torch.int32),
+        torch.where(ok_s, db.shll_rank, 0).to(torch.int32))
+
+    # ---- global flow HLL register maxes
+    scatter.scatter_max(
+        st.glob_hll.regs,
+        torch.where(db.ghll_valid, db.ghll_reg, 0).to(torch.int32),
+        torch.where(db.ghll_valid, db.ghll_rank, 0).to(torch.int32))
+
+    # ---- t-digest stage (strided at the agent)
+    rt_ = table.lookup(tbl, db.td_hi, db.td_lo, db.td_valid)
+    ok_t = db.td_valid & (rt_ >= 0)
+    _, _, n_over = tdigest.stage_samples(
+        st.td_stage, st.td_stage_n, torch.where(ok_t, rt_, -1), db.td_val)
+
+    # ---- flow aggregates → CMS, top-K, invertible buckets
+    fv = db.flow_valid
+    countmin.update(st.cms, db.flow_hi, db.flow_lo, db.flow_val, valid=fv)
+    est = countmin.upper_bound(st.cms, db.flow_hi, db.flow_lo)
+    ftk = st.flow_topk._replace(
+        evicted=st.flow_topk.evicted + db.evicted_add[0])
+    hot = None
+    vhot = fv
+    if cfg.hh_hot_frac > 0:
+        thresh = float(np.float32(cfg.hh_hot_frac)) * countmin.total(st.cms)
+        hot = est >= thresh
+        vhot = fv & hot
+        # cold valid mass never reaches the exact merge: accounted
+        ftk = ftk._replace(evicted=ftk.evicted + torch.sum(
+            torch.where(fv & ~hot, db.flow_val, 0.0)))
+    flow_topk = topk.update(ftk, db.flow_hi, db.flow_lo, db.flow_val,
+                            valid=vhot, est=est, budget=cfg.topk_budget)
+    if cfg.hh_width <= 0:
+        inv = st.inv
+    else:
+        inv = invertible.update(st.inv, db.flow_hi, db.flow_lo,
+                                torch.where(vhot, est, 0.0), valid=vhot,
+                                budget=cfg.topk_budget)
+        if hot is not None:
+            inv = inv._replace(n_hot=inv.n_hot + torch.sum(
+                fv & hot).to(torch.float32))
+
+    # ---- dependency edges (pre-aggregated direct edges)
+    dep = dg.fold_edges(dep, db.dep_cli_hi, db.dep_cli_lo, db.dep_cli_svc,
+                        db.dep_ser_hi, db.dep_ser_lo, db.dep_bytes,
+                        db.dep_valid, tick, nconn=db.dep_nconn)
+    st = st._replace(
+        tbl=tbl, flow_topk=flow_topk, inv=inv,
+        n_conn=st.n_conn + n_conn_add, n_resp=st.n_resp + n_resp_add,
+        n_td_overflow=st.n_td_overflow + n_over.to(torch.float32))
+    return st, dep
+
+
 def age_tasks(cfg: EngineCfg, st: AggState, max_age_ticks: int) -> AggState:
     """Tombstone process groups not seen for ``max_age_ticks`` base
     ticks (by last-sweep tick)."""
@@ -416,13 +520,7 @@ def fold_all(cfg: EngineCfg, st: AggState, dep, tick, *, listener=None,
     ``(cbs, rbs)``, stacked ``(K, B)``) with the dependency-graph fold
     → ``(state, dep, pressure)``. ``pressure`` is :func:`stage_pressure`
     as a 0-d device tensor, not read back. Absent sections are ``None``
-    and cost nothing. The ``delta`` section (edge pre-aggregation) is
-    not ported yet and raises."""
-    if delta is not None:
-        raise NotImplementedError(
-            "fold_all(delta=...): the edge pre-aggregation section "
-            "(sketch/edgefold.py, decode.delta_batch, step.ingest_delta) "
-            "is not ported yet; see ROADMAP.md, queue 1")
+    and cost nothing."""
     if listener is not None:
         st = ingest_listener(cfg, st, listener)
     if host is not None:
@@ -435,6 +533,8 @@ def fold_all(cfg: EngineCfg, st: AggState, dep, tick, *, listener=None,
         st = ingest_trace(cfg, st, trace)
     if ping is not None:
         st = ping_tasks(cfg, st, ping)
+    if delta is not None:
+        st, dep = ingest_delta(cfg, st, dep, delta, tick)
     if connresp is not None:
         cbs, rbs = connresp
         st = fold_many(cfg, st, cbs, rbs)

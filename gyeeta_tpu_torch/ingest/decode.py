@@ -1,8 +1,10 @@
 """Structured wire records → fixed-shape columnar microbatches (numpy).
 
 Counterpart of ``gyeeta_tpu/ingest/decode.py`` for the record types of
-``fold_all``: the conn/resp slab and the sweep sections (listener, host,
-task, cpu/mem, trace, ping). The builders stay numpy, exactly as in the reference:
+``fold_all``: the conn/resp slab, the sweep sections (listener, host,
+task, cpu/mem, trace, ping) and the SKETCH_DELTA section of edge
+pre-aggregation (:func:`delta_batch`). The builders stay numpy, exactly
+as in the reference:
 64-bit ids split into ``(hi, lo)`` uint32 pairs, IPs folded to two
 uint32 words, the flow 5-tuple hashed to a 64-bit key on the host
 (bit-identical to the device hash), and a ``valid`` lane mask marking
@@ -227,6 +229,65 @@ class TaskBatch(NamedTuple):
     valid: np.ndarray
 
 
+class DeltaBatch(NamedTuple):
+    """Columnar SKETCH_DELTA microbatch: the wire's typed-envelope
+    records (``wire.DELTA_DT``) expanded on the host into per-family
+    fixed lanes that ``engine/step.py:ingest_delta`` scatters directly;
+    the unique svc-key section drives one table upsert a dispatch."""
+    # unique svc keys across every svc-referencing family (one upsert)
+    svc_hi: np.ndarray        # (Lk,) uint32
+    svc_lo: np.ndarray
+    svc_host: np.ndarray      # (Lk,) int32 — owning agent
+    svc_valid: np.ndarray
+    # per-svc exact counter rows (ctr_win order + n_conn/n_resp)
+    ctr_hi: np.ndarray        # (Lc,)
+    ctr_lo: np.ndarray
+    ctr_vals: np.ndarray      # (Lc, 6) float32
+    ctr_valid: np.ndarray
+    # per-svc resp loghist bucket counts
+    hist_hi: np.ndarray       # (Lh,)
+    hist_lo: np.ndarray
+    hist_bucket: np.ndarray   # (Lh,) int32
+    hist_w: np.ndarray        # (Lh,) float32
+    hist_valid: np.ndarray
+    # per-svc distinct-client HLL register maxes
+    shll_hi: np.ndarray       # (Ls,)
+    shll_lo: np.ndarray
+    shll_reg: np.ndarray      # (Ls,) int32
+    shll_rank: np.ndarray     # (Ls,) int32
+    shll_valid: np.ndarray
+    # global flow-HLL register maxes
+    ghll_reg: np.ndarray      # (Lg,) int32
+    ghll_rank: np.ndarray     # (Lg,) int32
+    ghll_valid: np.ndarray
+    # per-svc t-digest stage samples (pre-strided at the agent)
+    td_hi: np.ndarray         # (Lt,)
+    td_lo: np.ndarray
+    td_val: np.ndarray        # (Lt,) float32
+    td_valid: np.ndarray
+    # flow aggregates (CMS / top-K / invertible inputs)
+    flow_hi: np.ndarray       # (Lf,)
+    flow_lo: np.ndarray
+    flow_val: np.ndarray      # (Lf,) float32
+    flow_valid: np.ndarray
+    # dependency edges (direct-edge fold)
+    dep_cli_hi: np.ndarray    # (Ld,)
+    dep_cli_lo: np.ndarray
+    dep_cli_svc: np.ndarray   # (Ld,) bool
+    dep_ser_hi: np.ndarray
+    dep_ser_lo: np.ndarray
+    dep_nconn: np.ndarray     # (Ld,) float32
+    dep_bytes: np.ndarray     # (Ld,) float32
+    dep_valid: np.ndarray
+    # sweep residuals: agent-truncated flow mass → top-K evicted bound
+    evicted_add: np.ndarray   # (1,) float32
+
+
+# SKETCH_DELTA records a dispatch (the drain_chunks chunk size and the
+# runtime's delta section lanes)
+DELTA_LANES_DEFAULT = 256
+
+
 def _pad(a: np.ndarray, size: int, fill=0):
     out = np.full((size,) + a.shape[1:], fill, a.dtype)
     out[: len(a)] = a[:size]
@@ -418,6 +479,198 @@ cpumem_batch_fast = cpumem_batch
 host_batch_fast = host_batch
 
 
+def _delta_pad(a, lanes, dtype):
+    a = np.asarray(a)
+    out = np.zeros((lanes,) + a.shape[1:], dtype)
+    out[: len(a)] = a[:lanes]
+    return out
+
+
+def _delta_mask(n, lanes):
+    v = np.zeros(lanes, bool)
+    v[:n] = True
+    return v
+
+
+def delta_batch(recs: np.ndarray, size: int = DELTA_LANES_DEFAULT,
+                stats=None, resp_nbuckets: int = 0,
+                hll_m_svc: int = 0, hll_m_glob: int = 0) -> DeltaBatch:
+    """SKETCH_DELTA records → expanded per-family columnar lanes.
+
+    ``resp_nbuckets`` / ``hll_m_svc`` / ``hll_m_glob``: the consuming
+    engine's geometry — payload items whose index falls outside it are
+    DROPPED AND COUNTED (``preagg_oob_items``), never scattered out of
+    range (a corrupt or mis-negotiated index must not fold garbage).
+    Family lane budgets derive from ``size`` at the per-record payload
+    maxima, so a ≤size record batch can never overflow a family."""
+    n = _check_fit(recs, size)
+    r = recs[:n]
+    kinds = r["kind"]
+    nitem = r["nitem"].astype(np.int64)
+    oob = 0
+
+    def pairs_of(mask, cap_items):
+        """(svc64, idx, wt, src_row) lanes for one pair-payload kind."""
+        rows = np.nonzero(mask)[0]
+        if not len(rows):
+            z = np.empty(0, np.int64)
+            return (np.empty(0, np.uint32), np.empty(0, np.uint32),
+                    z, np.empty(0, np.float32), 0)
+        P = wire.DELTA_PAIRS
+        pv = r["payload"][rows].reshape(len(rows), -1)[
+            :, : P * 6].copy().reshape(-1).view(wire.DELTA_PAIR_DT)
+        ni = np.minimum(nitem[rows], P)
+        lane = np.arange(P)[None, :]
+        keep = (lane < ni[:, None]).reshape(-1)
+        idx = pv["idx"].astype(np.int64)[keep]
+        wt = pv["wt"].astype(np.float32)[keep]
+        src = np.repeat(rows, P)[keep]
+        no = 0
+        if cap_items:
+            ok = idx < cap_items
+            no = int((~ok).sum())
+            idx, wt, src = idx[ok], wt[ok], src[ok]
+        return (r["key_hi"][src], r["key_lo"][src], idx, wt, no)
+
+    # ---- ctr rows
+    cm = kinds == wire.DK_SVC_CTR
+    crows = np.nonzero(cm)[0]
+    if len(crows):
+        ctr_vals = r["payload"][crows].reshape(len(crows), -1)[
+            :, :24].copy().view("<f4")[:, :6]
+    else:
+        ctr_vals = np.zeros((0, 6), np.float32)
+    Lc = size
+    ctr = (_delta_pad(r["key_hi"][crows], Lc, np.uint32),
+           _delta_pad(r["key_lo"][crows], Lc, np.uint32),
+           _delta_pad(ctr_vals, Lc, np.float32),
+           _delta_mask(len(crows), Lc))
+
+    # ---- sparse-pair families
+    hh, hl, hb, hw, no = pairs_of(kinds == wire.DK_SVC_HIST,
+                                  resp_nbuckets)
+    oob += no
+    Lh = size * wire.DELTA_PAIRS
+    sh, sl, sr, srk, no = pairs_of(kinds == wire.DK_SVC_HLL, hll_m_svc)
+    oob += no
+    gh_, gl_, gr, grk, no = pairs_of(kinds == wire.DK_GLOB_HLL,
+                                     hll_m_glob)
+    oob += no
+
+    # ---- td sample rows
+    tm = np.nonzero(kinds == wire.DK_SVC_TD)[0]
+    S = wire.DELTA_SAMPLES
+    if len(tm):
+        pv = r["payload"][tm].reshape(len(tm), -1).copy().view("<f4")
+        ni = np.minimum(nitem[tm], S)
+        keep = (np.arange(S)[None, :] < ni[:, None]).reshape(-1)
+        td_v = pv.reshape(-1)[keep]
+        src = np.repeat(tm, S)[keep]
+        td_hi, td_lo = r["key_hi"][src], r["key_lo"][src]
+    else:
+        td_v = np.empty(0, np.float32)
+        td_hi = td_lo = np.empty(0, np.uint32)
+    Lt = size * S
+
+    # ---- flow rows
+    fm = np.nonzero(kinds == wire.DK_FLOW)[0]
+    F = wire.DELTA_FLOWS
+    if len(fm):
+        pv = r["payload"][fm].reshape(len(fm), -1)[
+            :, : F * 12].copy().reshape(-1).view(wire.DELTA_FLOW_DT)
+        ni = np.minimum(nitem[fm], F)
+        keep = (np.arange(F)[None, :] < ni[:, None]).reshape(-1)
+        fl_hi = pv["hi"][keep]
+        fl_lo = pv["lo"][keep]
+        fl_v = pv["val"].astype(np.float32)[keep]
+    else:
+        fl_hi = fl_lo = np.empty(0, np.uint32)
+        fl_v = np.empty(0, np.float32)
+    Lf = size * F
+
+    # ---- dep rows
+    dm = np.nonzero(kinds == wire.DK_DEP)[0]
+    if len(dm):
+        pv = r["payload"][dm].reshape(len(dm), -1)[
+            :, :8].copy().view("<f4")
+        dep_nconn, dep_bytes = pv[:, 0].copy(), pv[:, 1].copy()
+    else:
+        dep_nconn = dep_bytes = np.empty(0, np.float32)
+    Ld = size
+
+    # ---- residuals + unknown kinds (forward compat inside the subtype)
+    resid = float(r["errb"][kinds == wire.DK_RESID].astype(
+        np.float64).sum())
+    known = np.isin(kinds, (wire.DK_SVC_CTR, wire.DK_SVC_HIST,
+                            wire.DK_SVC_HLL, wire.DK_GLOB_HLL,
+                            wire.DK_SVC_TD, wire.DK_FLOW, wire.DK_DEP,
+                            wire.DK_RESID))
+    n_unknown = int((~known).sum())
+
+    # ---- unique svc keys across the svc-referencing families (the
+    # one-upsert section; host attribution from the first mention)
+    svcm = np.isin(kinds, (wire.DK_SVC_CTR, wire.DK_SVC_HIST,
+                           wire.DK_SVC_HLL, wire.DK_SVC_TD))
+    k64 = ((r["key_hi"][svcm].astype(np.uint64) << np.uint64(32))
+           | r["key_lo"][svcm].astype(np.uint64))
+    uk, first = np.unique(k64, return_index=True)
+    uhost = r["host_id"][svcm][first].astype(np.int32)
+    Lk = size
+
+    if stats is not None:
+        fills = (len(crows) + len(hb) + len(sr) + len(gr) + len(td_v)
+                 + len(fl_v) + len(dm))
+        stats.bump("preagg_lanes", fills)
+        if len(crows):
+            stats.bump("preagg_source_conn",
+                       int(ctr_vals[:, 4].astype(np.float64).sum()))
+            stats.bump("preagg_source_resp",
+                       int(ctr_vals[:, 5].astype(np.float64).sum()))
+        if oob:
+            stats.bump("preagg_oob_items", oob)
+        if n_unknown:
+            stats.bump("preagg_unknown_kinds", n_unknown)
+
+    u32 = np.uint32
+    return DeltaBatch(
+        svc_hi=_delta_pad((uk >> np.uint64(32)).astype(u32), Lk, u32),
+        svc_lo=_delta_pad(uk.astype(u32), Lk, u32),
+        svc_host=_delta_pad(uhost, Lk, np.int32),
+        svc_valid=_delta_mask(len(uk), Lk),
+        ctr_hi=ctr[0], ctr_lo=ctr[1], ctr_vals=ctr[2], ctr_valid=ctr[3],
+        hist_hi=_delta_pad(hh, Lh, u32),
+        hist_lo=_delta_pad(hl, Lh, u32),
+        hist_bucket=_delta_pad(hb.astype(np.int32), Lh, np.int32),
+        hist_w=_delta_pad(hw, Lh, np.float32),
+        hist_valid=_delta_mask(len(hb), Lh),
+        shll_hi=_delta_pad(sh, Lh, u32),
+        shll_lo=_delta_pad(sl, Lh, u32),
+        shll_reg=_delta_pad(sr.astype(np.int32), Lh, np.int32),
+        shll_rank=_delta_pad(srk.astype(np.int32), Lh, np.int32),
+        shll_valid=_delta_mask(len(sr), Lh),
+        ghll_reg=_delta_pad(gr.astype(np.int32), Lh, np.int32),
+        ghll_rank=_delta_pad(grk.astype(np.int32), Lh, np.int32),
+        ghll_valid=_delta_mask(len(gr), Lh),
+        td_hi=_delta_pad(td_hi, Lt, u32),
+        td_lo=_delta_pad(td_lo, Lt, u32),
+        td_val=_delta_pad(td_v.astype(np.float32), Lt, np.float32),
+        td_valid=_delta_mask(len(td_v), Lt),
+        flow_hi=_delta_pad(fl_hi, Lf, u32),
+        flow_lo=_delta_pad(fl_lo, Lf, u32),
+        flow_val=_delta_pad(fl_v, Lf, np.float32),
+        flow_valid=_delta_mask(len(fl_v), Lf),
+        dep_cli_hi=_delta_pad(r["aux_hi"][dm], Ld, u32),
+        dep_cli_lo=_delta_pad(r["aux_lo"][dm], Ld, u32),
+        dep_cli_svc=_delta_pad((r["flags"][dm] & 1).astype(bool), Ld,
+                               bool),
+        dep_ser_hi=_delta_pad(r["key_hi"][dm], Ld, u32),
+        dep_ser_lo=_delta_pad(r["key_lo"][dm], Ld, u32),
+        dep_nconn=_delta_pad(dep_nconn, Ld, np.float32),
+        dep_bytes=_delta_pad(dep_bytes, Ld, np.float32),
+        dep_valid=_delta_mask(len(dm), Ld),
+        evicted_add=np.array([resid], np.float32),
+    )
+
 def take_raw_chunks(lst: list, want: int) -> tuple[list, int]:
     """Pop up to ``want`` records off a raw-record-array backlog as a
     list of array views (no copy, no concatenation)."""
@@ -511,11 +764,6 @@ def drain_chunks(recs: dict, conn_batch: int, resp_batch: int,
     nm = recs.get(wire.NOTIFY_NAME_INTERN)
     if nm is not None:
         yield ("names", nm)
-
-
-# SKETCH_DELTA records a fold plan chunk holds (the reference's default
-# delta lanes; the delta fold itself is not ported)
-DELTA_LANES_DEFAULT = 256
 
 
 def resp_from_trace(recs: np.ndarray) -> np.ndarray:

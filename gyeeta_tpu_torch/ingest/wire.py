@@ -7,11 +7,13 @@ cap), ``EVENT_NOTIFY`` (subtype + nevents), the two hot record types of
 the flow path, ``TCP_CONN`` and ``RESP_SAMPLE``, and the record types of
 ``fold_all``'s sweep sections: ``LISTENER_STATE``, ``HOST_STATE``,
 ``AGGR_TASK_STATE``, ``TASK_PING``, ``CPU_MEM_STATE`` and ``REQ_TRACE``;
-the runtime's ``NAME_INTERN`` (with the ``NAME_KIND_*`` namespaces) and
-``SWEEP_SEQ``; and the record types of the tiers not ported yet
-(``LISTENER_INFO``, ``HOST_INFO``, ``CGROUP_STATE``, ``MOUNT_STATE``,
-``NETIF_STATE``, ``AGENT_STATS``, ``SKETCH_DELTA``), decoded so that the
-runtime can refuse them by name instead of counting them as unknown.
+the runtime's ``NAME_INTERN`` (with the ``NAME_KIND_*`` namespaces),
+``SWEEP_SEQ`` and ``AGENT_STATS``; edge pre-aggregation's
+``SKETCH_DELTA`` (the ``DK_*`` kinds and their payload layouts) with
+the ``PREAGG_DT`` advert; and the record types of the tiers not ported
+yet (``LISTENER_INFO``, ``HOST_INFO``, ``CGROUP_STATE``,
+``MOUNT_STATE``, ``NETIF_STATE``), decoded so that the runtime can
+refuse them by name instead of counting them as unknown.
 Records are fixed width, so a whole batch decodes with one
 ``np.frombuffer``.
 
@@ -389,6 +391,26 @@ DELTA_DT = np.dtype([
     ("pad", "u1", (4,)),
 ])
 
+# payload interpretations (all little-endian, packed)
+DELTA_PAIR_DT = np.dtype([("idx", "<u2"), ("wt", "<f4")])   # 6 B/item
+DELTA_FLOW_DT = np.dtype([("hi", "<u4"), ("lo", "<u4"),
+                          ("val", "<f4")])                  # 12 B/item
+DELTA_PAIRS = DELTA_PAYLOAD_BYTES // DELTA_PAIR_DT.itemsize    # 16
+DELTA_FLOWS = DELTA_PAYLOAD_BYTES // DELTA_FLOW_DT.itemsize    # 8
+DELTA_SAMPLES = DELTA_PAYLOAD_BYTES // 4                       # 24 f32
+
+# DK_* record kinds (unknown kinds are skipped and counted at decode)
+DK_SVC_CTR = 1    # payload f32[6]: bytes_sent, bytes_rcvd, n_close,
+#                   dur_sum_us, n_conn_records, n_resp_records
+DK_SVC_HIST = 2   # pairs (resp loghist bucket, count)
+DK_SVC_HLL = 3    # pairs (register, rank) of the per-svc client HLL
+DK_GLOB_HLL = 4   # pairs (register, rank) of the global flow HLL
+DK_SVC_TD = 5     # f32 samples for the per-svc t-digest stage
+DK_FLOW = 6       # packed (flow_hi, flow_lo, bytes) aggregates
+DK_DEP = 7        # one dependency edge: key = server svc, aux = client
+#                   entity, payload f32[2] = [nconn, bytes]
+DK_RESID = 8      # errb = flow bytes truncated by the agent's flow_max
+
 MAX_DELTA_PER_BATCH = 1024
 
 DTYPE_OF_SUBTYPE = {
@@ -577,3 +599,44 @@ def drain2(buf: bytes) -> tuple[dict, int, int]:
     out = {sub: np.concatenate([r.view(np.uint8) for r in rs]).view(
         rs[0].dtype) for sub, rs in parts.items()}
     return out, consumed, cnt.get("unknown_records", 0)
+
+
+# --------------------------------------------------- pre-aggregation advert
+# The REGISTER_RESP v5 tail: the server's sketch geometry, which an
+# edge-folding agent folds with so that its partials land in exactly the
+# buckets and registers the raw fold would hit.
+PREAGG_MAGIC = 0x50524147        # "GARP" little-endian sanity word
+
+PREAGG_DT = np.dtype([
+    ("magic", "<u4"),
+    ("hll_p_svc", "<u4"),        # per-svc distinct-client HLL precision
+    ("hll_p_global", "<u4"),     # global flow HLL precision
+    ("td_stride", "<u4"),        # digest duty cycle (1-in-N samples)
+    ("resp_nbuckets", "<u4"),    # resp loghist spec (vmin/vmax below)
+    ("flow_max", "<u4"),         # per-sweep flow-aggregate cap
+    ("resp_vmin", "<f8"),
+    ("resp_vmax", "<f8"),
+])
+
+_PREAGG_FIELDS = ("hll_p_svc", "hll_p_global", "td_stride",
+                  "resp_nbuckets", "flow_max", "resp_vmin", "resp_vmax")
+
+
+def encode_preagg(params: dict) -> bytes:
+    """Pre-aggregation advert dict → the REGISTER_RESP v5 tail."""
+    r = np.zeros((), PREAGG_DT)
+    r["magic"] = PREAGG_MAGIC
+    for f in _PREAGG_FIELDS:
+        r[f] = params[f]
+    return r.tobytes()
+
+
+def decode_preagg(buf: bytes):
+    """v5 tail bytes → params dict, or None when absent or foreign."""
+    if len(buf) < PREAGG_DT.itemsize:
+        return None
+    r = np.frombuffer(buf, PREAGG_DT, count=1)[0]
+    if int(r["magic"]) != PREAGG_MAGIC:
+        return None
+    return {f: (float(r[f]) if f.startswith("resp_v") else int(r[f]))
+            for f in _PREAGG_FIELDS}

@@ -11,9 +11,10 @@ JSON-compatible dict)::
      "maxrecs": 100}
 
 The port serves the 20 subsystems whose columns come from ``AggState``,
-the ``DepGraph`` or the ``InternTable`` alone (:data:`SERVED`); every
-other subsystem of ``fieldmaps.FIELDS_OF_SUBSYS`` raises ``ValueError``
-naming the ROADMAP.md item that ports it.
+the ``DepGraph`` or the ``InternTable`` alone (:data:`SERVED`), and the
+process-local ``selfstats`` and ``metrics`` (:func:`local_response`);
+every other subsystem of ``fieldmaps.FIELDS_OF_SUBSYS`` raises
+``ValueError`` naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -26,9 +27,11 @@ import torch
 from gyeeta_tpu_torch import unported
 from gyeeta_tpu_torch.engine.aggstate import AggState, EngineCfg
 from gyeeta_tpu_torch.ingest import decode as D, wire
+from gyeeta_tpu_torch.obs import prom
 from gyeeta_tpu_torch.query import criteria, fieldmaps, readback
 from gyeeta_tpu_torch.query.lazycols import LazyCols, rows_of
 from gyeeta_tpu_torch.semantic import hoststate, states as S
+from gyeeta_tpu_torch.utils.selfstats import selfstats_response
 
 
 class QueryOptions(NamedTuple):
@@ -370,6 +373,22 @@ def _host_name_cols(n: int, names):
             [names.lookup(wire.NAME_KIND_HOST, h) or str(h)
              for h in hostids], object)
     return hostids, hostnames
+
+
+def hostlist_columns(last: np.ndarray, tick: int, names=None):
+    """hostlist (ref parthalist): hosts that have ever reported, with
+    liveness from their last-report tick (``last``, per host) as of
+    ``tick``."""
+    seen = np.nonzero(last >= 0)[0]
+    age = tick - last[seen]
+    _, hostnames = _host_name_cols(len(last), names)
+    cols = {
+        "hostid": seen.astype(np.float64),
+        "hostname": np.asarray(hostnames, object)[seen],
+        "up": age <= DOWN_AFTER_TICKS,
+        "lastseen": age.astype(np.float64),
+    }
+    return cols, np.ones(len(seen), bool)
 
 
 def cpumem_columns(cfg: EngineCfg, st: AggState, names=None) -> dict:
@@ -756,6 +775,41 @@ def columns_for(cfg: EngineCfg, st: AggState, subsys: str, names=None,
         raise ValueError(f"subsystem {subsys!r} is answered by the "
                          "runtime (Runtime.query)")
     return _COLUMNS_OF[subsys](cfg, st, names=names)
+
+
+# process-local subsystems answered by the runtime itself: the
+# self-metrics readback and the Prometheus exposition
+LOCAL_SUBSYS = ("selfstats", "metrics")
+
+
+def local_response(rt, req: dict, snapshot=None):
+    """Answer a process-local subsystem for a runtime (``.stats``,
+    ``.spans``, ``.flush()``, ``.engine_health()``), or None when
+    ``req`` targets an engine subsystem.
+
+    ``snapshot`` (an ``EngineSnapshot``) selects the snapshot path: a
+    ``metrics`` scrape refreshes only the freshness gauges and renders
+    the gauges the last tick's health pass left, without touching live
+    device state; the strong path folds staged records and refreshes
+    the health gauges first.
+
+    The port has no alert manager yet (ROADMAP.md, queue 1: the alert
+    manager and CRUD): ``selfstats`` carries ``"alerts": {}`` and
+    ``metrics`` no ``gyt_alerts_*_total`` lines, where the reference
+    renders its alert manager's counters."""
+    subsys = req.get("subsys")
+    if subsys == "selfstats":
+        return selfstats_response(rt.stats, None, spans=rt.spans)
+    if subsys == "metrics":
+        if snapshot is None:
+            rt.flush()
+            rt.engine_health()
+        else:
+            rt.stats.gauge("snapshot_age_seconds", max(
+                0.0, rt._clock() - snapshot.published_at))
+            rt.stats.gauge("snapshot_tick", float(snapshot.tick))
+        return prom.metrics_response(rt.stats, None)
+    return None
 
 
 def execute(cfg: EngineCfg, st: AggState, opts: QueryOptions,

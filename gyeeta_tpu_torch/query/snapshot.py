@@ -1,0 +1,183 @@
+"""Snapshot-isolated query serving: per-tick immutable engine views.
+
+Counterpart of ``gyeeta_tpu/query/snapshot.py``. Each tick the runtime
+publishes an :class:`EngineSnapshot`: the state and the dependency graph
+CLONED on the device (every fold of the port writes into the live
+tensors in place, so a snapshot that aliased them would change under the
+next ``feed``), a snapshot-scoped
+:class:`~gyeeta_tpu_torch.utils.colcache.ColumnCache` and a result cache
+keyed by the normalized request. The runtime swaps ``rt.snapshot`` — a
+plain attribute store — so readers of snapshot N never see the folds
+that build N+1, and a dashboard's repeated queries cost one render a
+tick.
+
+Snapshot state is never written after the publish, so device readbacks
+from any number of query threads are safe. Per-request and
+per-subsystem locks make concurrent identical misses on a fresh
+snapshot render once (single flight). Views of the tiers the port does
+not have (the registries, alerts, ``serverstatus``, ``shardlist``) are
+refused by name (``api.check_served``), as on the strong path.
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+
+import numpy as np
+
+from gyeeta_tpu_torch.engine import step
+from gyeeta_tpu_torch.query import api
+from gyeeta_tpu_torch.query.lazycols import rows_of
+# the result cache's key: the normalized request (query/normalize.py)
+from gyeeta_tpu_torch.query.normalize import request_key
+from gyeeta_tpu_torch.sketch import invertible
+from gyeeta_tpu_torch.utils.colcache import ColumnCache
+
+
+def recover(cfg, state) -> dict:
+    """Heavy-hitter key recovery from a state (live or frozen): one
+    read-only device pass (``step.heavy_recover``) read back once, then
+    the host merge of the exact top-K lanes and the verified candidates
+    → {"flows", "recovered", "hot", "err_term", "total_mass",
+    "evicted"}."""
+    out = {k: v.cpu().numpy()
+           for k, v in step.heavy_recover(cfg, state).items()}
+    evicted = float(out["evicted"])
+    total = float(out["total_mass"])
+    err_term = invertible.cms_error_term(total, cfg.cms_width)
+    hot_thresh = (cfg.hh_hot_frac * total if cfg.hh_hot_frac > 0 else 0.0)
+    flows, recovered, hot = invertible.merge_recovered_np(
+        out, err_term, hot_thresh)
+    return {"flows": flows, "recovered": recovered, "hot": hot,
+            "err_term": err_term, "total_mass": total, "evicted": evicted}
+
+
+class EngineSnapshot:
+    """One immutable published engine view: the ``columns_fn`` of
+    :func:`gyeeta_tpu_torch.query.api.execute` plus a result cache.
+
+    ``state``/``dep`` are device clones of the runtime's at publish
+    time. ``version`` rises by one each publish; ``tick`` is the window
+    tick the view was frozen at."""
+
+    def __init__(self, rt, state, dep, tick: int, published_at: float,
+                 version: int, result_cache_max: int = 1024):
+        self.rt = rt
+        self.state = state
+        self.dep = dep
+        self.tick = int(tick)
+        self.published_at = float(published_at)
+        self.version = int(version)
+        self._cols = ColumnCache()
+        self._results: collections.OrderedDict = collections.OrderedDict()
+        self._results_max = int(result_cache_max)
+        self._lock = threading.Lock()
+        # single flight: per-request and per-subsystem compute locks
+        # (keyed locks form a DAG — topk → svcstate/tracereq,
+        # traceuniq → tracereq — so they cannot deadlock)
+        self._flight: dict = {}
+
+    def _flight_lock(self, key) -> threading.Lock:
+        with self._lock:
+            lk = self._flight.get(key)
+            if lk is None:
+                lk = self._flight[key] = threading.Lock()
+            return lk
+
+    # ------------------------------------------------------ result cache
+    def query(self, req: dict) -> dict:
+        """Serve one live query from this snapshot; repeated identical
+        requests hit the result cache (``query_cache_hits`` /
+        ``query_cache_misses``), concurrent ones render once."""
+        stats = self.rt.stats
+        key = request_key(req)
+        if self._results_max <= 0:
+            stats.bump("query_cache_misses")
+            return self._render(req)
+        with self._lock:
+            hit = self._results.get(key)
+        if hit is not None:
+            stats.bump("query_cache_hits")
+            return hit
+        with self._flight_lock(("r", key)):
+            with self._lock:              # the holder may have stored
+                hit = self._results.get(key)
+            if hit is not None:
+                stats.bump("query_cache_hits")
+                return hit
+            stats.bump("query_cache_misses")
+            out = self._render(req)
+            with self._lock:
+                self._results[key] = out
+                while len(self._results) > self._results_max:
+                    self._results.popitem(last=False)
+            return out
+
+    def _render(self, req: dict) -> dict:
+        out = api.execute(self.rt.cfg, None,
+                          api.QueryOptions.from_json(req),
+                          names=self.rt.names, columns_fn=self.columns)
+        out["snaptick"] = self.tick
+        return out
+
+    def on_mutation(self) -> None:
+        """Invalidation hook for a mutation of host-side views between
+        publishes: drops both caches (device-backed columns recompute
+        from the frozen state)."""
+        with self._lock:
+            self._results.clear()
+        self._cols.bump()
+
+    def result_cache_len(self) -> int:
+        with self._lock:
+            return len(self._results)
+
+    # ---------------------------------------------------------- columns
+    def columns(self, subsys: str):
+        """(cols, mask) for ``subsys`` over the frozen view, memoized per
+        snapshot: queries differing only in filter, sort or projection
+        share one readback."""
+        got = self._cols.peek(subsys)
+        if got is not None:
+            return got
+        with self._flight_lock(("c", subsys)):
+            return self._cols.get(subsys, lambda: self._columns(subsys))
+
+    def _columns(self, subsys: str):
+        if subsys == "topk":
+            return self._topk_columns()
+        if subsys == "hostlist":
+            return self._hostlist_columns()
+        if subsys == "traceuniq":
+            tcols, tlive = self.columns("tracereq")
+            return api.traceuniq_from_trace(tcols, tlive)
+        return api.columns_for(self.rt.cfg, self.state, subsys,
+                               names=self.rt.names, dep=self.dep)
+
+    # ------------------------------------------- state-backed aux views
+    def _topk_columns(self):
+        """Heavy-hitter recovery over the frozen state (read-only)."""
+        rec = self._cols.get("__hh_recover",
+                             lambda: recover(self.rt.cfg, self.state))
+        return api.heavy_topk_columns(
+            rec["flows"], svc=self.columns("svcstate"),
+            trace=self.columns("tracereq"))
+
+    def _host_last_ticks(self) -> np.ndarray:
+        return self.state.host_last_tick.cpu().numpy()
+
+    def _hostlist_columns(self):
+        return api.hostlist_columns(self._host_last_ticks(), self.tick,
+                                    self.rt.names)
+
+    def _svc_task_ids(self):
+        """Hex process-group ids that serve a listener (taskstate rows
+        with a nonzero relsvcid): the ``traceconn`` view's server-side
+        source, for the registries' port."""
+        cols, live = self.columns("taskstate")
+        zero = "0" * 16
+        idx = np.nonzero(np.asarray(live, bool))[0]
+        got = rows_of(cols, ["taskid", "relsvcid"], idx)
+        return {t for t, r in zip(got["taskid"], got["relsvcid"])
+                if r != zero}

@@ -2,21 +2,24 @@
 
 Counterpart of ``gyeeta_tpu/runtime.py`` on its default fused-fold
 path: ``feed()`` takes byte streams (the reference's Python deframe),
-stages raw conn/resp records and sweep sections on the host and folds
-them in one ``fold_all`` dispatch per feed boundary; ``run_tick()``
-closes a 5s window (digest drain, classification, heavy-hitter
-recovery, dependency-graph ageing, health readback, window tick,
-ageing and compaction cadences, checkpoints); ``query()`` answers the
-JSON query API over the live state (the strong path: staged events are
-folded first).
+stages raw conn/resp records, sweep sections and edge pre-aggregated
+SKETCH_DELTA records on the host and folds them in one ``fold_all``
+dispatch per feed boundary; ``run_tick()`` closes a 5s window (digest
+drain, classification, snapshot publish, heavy-hitter recovery,
+dependency-graph ageing, health readback, window tick, ageing and
+compaction cadences, checkpoints); ``query()`` answers the JSON query
+API on the strong path (staged events are folded first, the live state
+is read) or, with ``consistency="snapshot"``, from the last published
+:class:`~gyeeta_tpu_torch.query.snapshot.EngineSnapshot`; it also
+serves ``multiquery`` batches and the ``selfstats`` and ``metrics``
+subsystems.
 
 The state lives on ``device`` — CUDA unless the caller asks for the
 CPU, and a GPU-less machine raises (``device.resolve``). Tiers not
-ported yet — the alert manager, the snapshot tier, history and the
-journal, the host-side registries, edge pre-aggregation — refuse their
-records, options, subsystems and request forms with
-:class:`~gyeeta_tpu_torch.unported.NotPortedError`, naming the
-ROADMAP.md item that ports them.
+ported yet — the alert manager and CRUD, history and the journal, the
+host-side registries — refuse their records, options, subsystems and
+request forms with :class:`~gyeeta_tpu_torch.unported.NotPortedError`,
+naming the ROADMAP.md item that ports them.
 
 Host↔device crossings of a feed: the section and slab columns go to the
 device once per dispatch; the digest-stage pressure of the dispatch two
@@ -33,6 +36,7 @@ from collections import deque
 from typing import Optional
 
 import numpy as np
+import torch
 
 from gyeeta_tpu_torch import unported
 from gyeeta_tpu_torch.device import resolve
@@ -40,15 +44,17 @@ from gyeeta_tpu_torch.engine import aggstate, compact, step
 from gyeeta_tpu_torch.engine.aggstate import EngineCfg
 from gyeeta_tpu_torch.ingest import decode, wire
 from gyeeta_tpu_torch.obs import health as obs_health
+from gyeeta_tpu_torch.obs.spans import SpanTracer
 from gyeeta_tpu_torch.parallel import depgraph as dg
-from gyeeta_tpu_torch.query import api
+from gyeeta_tpu_torch.query import api, crud
+from gyeeta_tpu_torch.query.snapshot import EngineSnapshot, recover
 from gyeeta_tpu_torch.semantic import derive
-from gyeeta_tpu_torch.sketch import invertible
 from gyeeta_tpu_torch.utils import checkpoint as ckpt
 from gyeeta_tpu_torch.utils.colcache import ColumnCache
 from gyeeta_tpu_torch.utils.config import RuntimeOpts, check_ported
 from gyeeta_tpu_torch.utils.intern import InternTable
 from gyeeta_tpu_torch.utils.selfstats import Stats
+from gyeeta_tpu_torch.utils.tensor import tree_map
 
 # a native resp stream is "live" for bridge-suppression purposes if it
 # reported within this many base ticks (2 min at 5s)
@@ -57,7 +63,9 @@ _RESP_FRESH_TICKS = 24
 
 def _slab_lanes() -> dict:
     """Per-section lane capacities of the fused fold slab: 1-2 wire-max
-    batches a section (the reference's defaults)."""
+    batches a section, and the drain chunk of SKETCH_DELTA records (each
+    expands into its per-family payload lanes on the host) — the
+    reference's defaults."""
     return {
         "listener": 2 * wire.MAX_LISTENERS_PER_BATCH,
         "host": wire.MAX_HOSTS_PER_BATCH,
@@ -65,6 +73,7 @@ def _slab_lanes() -> dict:
         "cpumem": wire.MAX_CPUMEM_PER_BATCH,
         "trace": wire.MAX_TRACE_PER_BATCH,
         "ping": wire.MAX_PINGS_PER_BATCH,
+        "delta": decode.DELTA_LANES_DEFAULT,
     }
 
 
@@ -74,17 +83,19 @@ _SECTION_COUNTERS = {
     "listener": "listener_records", "host": "host_records",
     "task": "task_records", "ping": "task_pings",
     "cpumem": "cpumem_records", "trace": "trace_records",
+    "delta": "preagg_delta_records",
 }
 _SECTION_SUBTYPES = {
     "listener": wire.NOTIFY_LISTENER_STATE, "host": wire.NOTIFY_HOST_STATE,
     "task": wire.NOTIFY_AGGR_TASK_STATE, "ping": wire.NOTIFY_TASK_PING,
     "cpumem": wire.NOTIFY_CPU_MEM_STATE, "trace": wire.NOTIFY_REQ_TRACE,
+    "delta": wire.NOTIFY_SKETCH_DELTA,
 }
 _SECTION_BUILDERS = {
     "listener": decode.listener_batch_fast, "host": decode.host_batch_fast,
     "task": decode.task_batch_fast, "ping": decode.ping_batch,
     "cpumem": decode.cpumem_batch_fast, "trace": decode.trace_batch,
-}
+}   # + "delta", bound per runtime to its stats and geometry
 
 # record kinds of unported tiers → the ROADMAP.md item that ports them
 _UNPORTED_KINDS = {
@@ -94,14 +105,14 @@ _UNPORTED_KINDS = {
     wire.NOTIFY_CGROUP_STATE: ("CGROUP_STATE records", unported.REGISTRIES),
     wire.NOTIFY_MOUNT_STATE: ("MOUNT_STATE records", unported.REGISTRIES),
     wire.NOTIFY_NETIF_STATE: ("NETIF_STATE records", unported.REGISTRIES),
-    wire.NOTIFY_AGENT_STATS: ("AGENT_STATS records", unported.SNAPSHOT),
-    wire.NOTIFY_SKETCH_DELTA: ("SKETCH_DELTA records",
-                               unported.EDGE_PREAGG),
 }
 
-# process-local subsystems of the reference (selfstats readback and the
-# Prometheus exposition)
-LOCAL_SUBSYS = ("selfstats", "metrics")
+# agent delivery-continuity fields of AGENT_STATS → server counters
+_AGENT_STATS_COUNTERS = (
+    ("spool_dropped", "spool_dropped"),
+    ("spool_dropped_records", "spool_dropped_records"),
+    ("spool_resent", "spool_resent"),
+    ("connect_timeouts", "agent_connect_timeouts"))
 
 
 class Runtime:
@@ -113,8 +124,8 @@ class Runtime:
         self.opts = check_ported(opts or RuntimeOpts())
         self.state = aggstate.init(self.cfg, self.device)
         self.stats = Stats()
-        # the wall clock of the reference's alert and snapshot tiers,
-        # which read it; kept for their port
+        self.spans = SpanTracer()     # pipeline span ring (selfstats)
+        # wall clock of the snapshot tier's freshness gauges
         self._clock = clock or time.time
         # per-host sweep-seq high-water marks (NOTIFY_SWEEP_SEQ),
         # checkpointed
@@ -140,6 +151,14 @@ class Runtime:
         self.dep = dg.init(self.opts.dep_pair_capacity,
                            self.opts.dep_edge_capacity, self.device)
         self._slab_lanes_cfg = _slab_lanes()
+        # delta decode geometry: payload indices outside it are dropped
+        # and counted at decode, never scattered out of range
+        dims = dict(resp_nbuckets=self.cfg.resp_spec.nbuckets,
+                    hll_m_svc=1 << self.cfg.hll_p_svc,
+                    hll_m_glob=1 << self.cfg.hll_p_global)
+        self._sect_builders = dict(_SECTION_BUILDERS)
+        self._sect_builders["delta"] = lambda r, sz: decode.delta_batch(
+            r, sz, stats=self.stats, **dims)
         # per-section raw record backlogs that ride the next fold_all
         # dispatch (drained at the end of every ingest_records call)
         self._stage_recs = {k: [] for k in self._slab_lanes_cfg}
@@ -150,6 +169,8 @@ class Runtime:
             "traceuniq": self._traceuniq_columns,
             "hostlist": self._hostlist_columns,
         }
+        self.snapshot = None          # last published EngineSnapshot
+        self._snap_version = 0
 
     # ------------------------------------------------------------- ingest
     def feed(self, buf: bytes) -> int:
@@ -158,7 +179,9 @@ class Runtime:
         next call."""
         data = (self._pending + buf) if self._pending else buf
         try:
-            with self.stats.timeit("deframe"):
+            with self.stats.timeit("deframe"), \
+                    self.spans.span("deframe", nrec=len(data),
+                                    path="python"):
                 recs, consumed, unknown = wire.drain2(data)
         except wire.FrameError:
             self.stats.bump("frames_bad")
@@ -204,6 +227,12 @@ class Runtime:
                 self.cfg.listener_batch):
             if kind in _SECTION_COUNTERS:
                 n += self._stage_section(kind, chunks[0])
+            elif kind == "agent_stats":
+                # agent delivery-continuity deltas → server counters
+                for fld, ctr in _AGENT_STATS_COUNTERS:
+                    tot = int(chunks[0][fld].sum())
+                    if tot:
+                        self.stats.bump(ctr, tot)
             elif kind == "names":
                 # names are not telemetry events, but resolved names are
                 # part of every view
@@ -277,13 +306,14 @@ class Runtime:
         "single" = ``(1, B)``, the flush shape), the dependency fold
         and the digest-stage pressure scalar."""
         sections = {}
+        nc = nr = 0
         with self.stats.timeit("decode"):
             for kind in self._slab_lanes_cfg:
                 if self._stage_n[kind]:
                     recs = decode._concat_chunks(
                         self._stage_recs[kind],
                         wire.DTYPE_OF_SUBTYPE[_SECTION_SUBTYPES[kind]])
-                    sections[kind] = _SECTION_BUILDERS[kind](
+                    sections[kind] = self._sect_builders[kind](
                         recs, self._slab_lanes_cfg[kind])
                     self._stage_recs[kind] = []
                     self._stage_n[kind] = 0
@@ -298,7 +328,7 @@ class Runtime:
                 sections["connresp"] = (cbs, rbs)
                 self.stats.bump("slab_dispatches")
             elif connresp == "single":
-                cbs, rbs, _, _ = self._take_connresp(1)
+                cbs, rbs, nc, nr = self._take_connresp(1)
                 sections["connresp"] = (cbs, rbs)
         if not sections:
             return
@@ -311,7 +341,8 @@ class Runtime:
             self.state = step.td_flush_partial(self.cfg, self.state)
             self.stats.bump("td_partial_flushes")
         names = tuple(k for k in step.FOLD_ALL_ORDER if k in sections)
-        with self.stats.timeit("fold_dispatch"):
+        with self.stats.timeit("fold_dispatch"), \
+                self.spans.span("decode_fold", nrec=nc + nr, path="python"):
             secs = {k: (decode.to_device(sections[k][0], self.device),
                         decode.to_device(sections[k][1], self.device))
                     if k == "connresp"
@@ -379,25 +410,18 @@ class Runtime:
         bound-annotated heavy-flow view of the ``topk`` subsystem."""
         self.flush()
         with self.stats.timeit("topk_recover"):
-            out = {k: v.cpu().numpy() for k, v in
-                   step.heavy_recover(self.cfg, self.state).items()}
+            rec = recover(self.cfg, self.state)
         self.stats.bump("topk_recover_readbacks")
-        evicted = float(out["evicted"])
-        total = float(out["total_mass"])
-        err_term = invertible.cms_error_term(total, self.cfg.cms_width)
-        hot_thresh = (self.cfg.hh_hot_frac * total
-                      if self.cfg.hh_hot_frac > 0 else 0.0)
-        flows, recovered, hot = invertible.merge_recovered_np(
-            out, err_term, hot_thresh)
-        new_hot = hot - self._hh_prev_hot
+        new_hot = rec["hot"] - self._hh_prev_hot
         if new_hot:
             self.stats.bump("topk_hot_promotions", len(new_hot))
-        self._hh_prev_hot = hot
-        self.stats.gauge("topk_recovered_keys", float(len(recovered)))
-        self.stats.gauge("topk_evicted_mass", evicted)
-        return {"flows": flows, "recovered_keys": len(recovered),
-                "evicted": evicted, "err_term": err_term,
-                "total_mass": total, "new_hot": len(new_hot)}
+        self._hh_prev_hot = rec["hot"]
+        self.stats.gauge("topk_recovered_keys", float(len(rec["recovered"])))
+        self.stats.gauge("topk_evicted_mass", rec["evicted"])
+        return {"flows": rec["flows"],
+                "recovered_keys": len(rec["recovered"]),
+                "evicted": rec["evicted"], "err_term": rec["err_term"],
+                "total_mass": rec["total_mass"], "new_hot": len(new_hot)}
 
     def _topk_columns(self):
         """topk columns: heavy flows (exact ∪ recovered) and the dense
@@ -407,21 +431,47 @@ class Runtime:
             rec["flows"], svc=self._cached_columns("svcstate"),
             trace=self._cached_columns("tracereq"))
 
+    # ----------------------------------------------------- snapshot tier
+    def publish_snapshot(self) -> EngineSnapshot:
+        """Freeze the current engine view into an immutable
+        :class:`EngineSnapshot` and swap it in: every ``AggState`` and
+        ``DepGraph`` leaf cloned on the device (the folds write the live
+        tensors in place, so a view would change under the next feed).
+        Called once a tick, after classification, and on ``restore``.
+        The replaced snapshot is dropped before the copy, so a publish
+        holds two copies of the state, not three, unless a caller still
+        holds the old one."""
+        self.snapshot = None
+        with self.stats.timeit("snapshot_publish"):
+            state = tree_map(torch.clone, self.state)
+            dep = tree_map(torch.clone, self.dep)
+        self._snap_version += 1
+        self.snapshot = EngineSnapshot(
+            self, state, dep, tick=self._tick_no,
+            published_at=self._clock(), version=self._snap_version)
+        self.stats.bump("snapshots_published")
+        self.stats.gauge("snapshot_tick", float(self._tick_no))
+        self.stats.gauge("snapshot_age_seconds", 0.0)
+        return self.snapshot
+
     # ------------------------------------------------------------ cadence
     def run_tick(self) -> dict:
-        with self.stats.timeit("tick"):
+        with self.stats.timeit("tick"), self.spans.span(
+                "tick", nrec=self._tick_no):
             return self._run_tick()
 
     def _run_tick(self) -> dict:
         """Close one 5s window → the tick report (the reference's keys
         but those of unported tiers: ``alerts_fired``,
-        ``history_rows``)."""
+        ``history_rows``). The snapshot dashboards read for the next
+        window is published right after classification."""
         self.flush()
         if self._td_dirty:    # tick-cadence digest compression (bounded)
             self.td_drain(max_iters=self.opts.td_drain_iters_per_tick)
         report = {}
         self.state = derive.classify_pass(self.cfg, self.state)
         self._cols.bump()             # classify + tick mutate views
+        self.publish_snapshot()
         ev = self.opts.hh_recover_every_ticks
         if ev and self.cfg.hh_width > 0 \
                 and (self._tick_no + 1) % ev == 0:
@@ -466,19 +516,9 @@ class Runtime:
 
     # ------------------------------------------------------- providers
     def _hostlist_columns(self):
-        """hostlist (ref parthalist): hosts that have ever reported,
-        with liveness from the last-report tick."""
-        last = self.state.host_last_tick.cpu().numpy()
-        seen = np.nonzero(last >= 0)[0]
-        age = self._tick_no - last[seen]
-        _, hostnames = api._host_name_cols(self.cfg.n_hosts, self.names)
-        cols = {
-            "hostid": seen.astype(np.float64),
-            "hostname": np.asarray(hostnames, object)[seen],
-            "up": age <= api.DOWN_AFTER_TICKS,
-            "lastseen": age.astype(np.float64),
-        }
-        return cols, np.ones(len(seen), bool)
+        """hostlist (ref parthalist) over the live state."""
+        return api.hostlist_columns(self.state.host_last_tick.cpu().numpy(),
+                                    self._tick_no, self.names)
 
     def _cached_columns(self, subsys: str):
         """Version-keyed column cache: readbacks recompute only after
@@ -497,32 +537,44 @@ class Runtime:
 
     # -------------------------------------------------------------- query
     def query(self, req: dict) -> dict:
-        """Point-in-time JSON query on the strong path: staged events
-        are folded first, then the live state is read. The request
-        forms of unported tiers raise."""
+        """Point-in-time JSON query. ``consistency``: ``"strong"`` (the
+        default: staged events are folded first, then the live state is
+        read) or ``"snapshot"`` (the last published snapshot; no fold).
+        A ``"multiquery"`` list runs up to 16 plain queries in one call.
+        The request forms of unported tiers raise."""
         if req.get("op"):
             raise unported.refuse("CRUD requests ('op')", unported.ALERTS)
         if "multiquery" in req:
-            raise unported.refuse("multiquery", unported.SNAPSHOT)
+            return crud.multiquery(self.query, req)
         if req.get("consistency") == "snapshot":
-            raise unported.refuse("consistency='snapshot'",
-                                  unported.SNAPSHOT)
+            return self.query_snapshot(req)
         if "consistency" in req:
             req = dict(req)
             if req.pop("consistency") != "strong":
                 raise ValueError(
                     "consistency must be 'snapshot' or 'strong'")
-        if req.get("subsys") in LOCAL_SUBSYS:
-            raise unported.refuse(f"subsystem {req['subsys']!r}",
-                                  unported.SNAPSHOT)
+        out = api.local_response(self, req)
+        if out is not None:
+            return out
         with self.stats.timeit("query"):
             return self._query(req)
 
+    def query_snapshot(self, req: dict) -> dict:
+        """Serve a live query from the last published snapshot: no
+        ``flush()``, no fold. Publishes one first if none exists yet."""
+        req = {k: v for k, v in req.items() if k != "consistency"}
+        snap = self.snapshot
+        if snap is None:
+            snap = self.publish_snapshot()
+        if req.get("subsys") in api.LOCAL_SUBSYS:
+            return api.local_response(self, req, snapshot=snap)
+        _refuse_historical(req)
+        self.stats.bump("queries")
+        with self.stats.timeit("query"):
+            return snap.query(req)
+
     def _query(self, req: dict) -> dict:
-        for k in ("tstart", "tend", "at", "window"):
-            if k in req:
-                raise unported.refuse(f"historical queries ({k!r})",
-                                      unported.HISTORY)
+        _refuse_historical(req)
         self.flush()                  # live queries see all staged events
         self.stats.bump("queries")
         return api.execute(self.cfg, self.state,
@@ -552,4 +604,15 @@ class Runtime:
         self._sweep_last_seq = {
             int(k): int(v)
             for k, v in extra.get("sweep_seq", {}).items()}
+        # snapshot serving must not keep answering from the state before
+        # the restore: republish (only where a snapshot was published)
+        if self.snapshot is not None:
+            self.publish_snapshot()
         return extra
+
+
+def _refuse_historical(req: dict) -> None:
+    for k in ("tstart", "tend", "at", "window"):
+        if k in req:
+            raise unported.refuse(f"historical queries ({k!r})",
+                                  unported.HISTORY)

@@ -3,8 +3,9 @@
 Counterpart of ``gyeeta_tpu/sim/partha.py`` for the TCP_CONN and
 RESP_SAMPLE streams (flows, service→service flows, split halves), the
 5s LISTENER_STATE / AGGR_TASK_STATE / HOST_STATE sweeps, the 2s
-CPU_MEM_STATE sweep, REQ_TRACE transactions and the NAME_INTERN
-announcements of every name the fleet uses. It draws from
+CPU_MEM_STATE sweep, REQ_TRACE transactions, the NAME_INTERN
+announcements of every name the fleet uses, and the edge
+pre-aggregated form of a conn/resp sweep (:meth:`ParthaSim.delta_frames`). It draws from
 ``np.random.default_rng(seed)`` in the reference's order, so the same
 seed and the same sequence of calls give byte-identical records in both
 packages.
@@ -37,6 +38,7 @@ class ParthaSim:
         self.n_groups = n_groups
         self.host_base = host_base
         self.rng = np.random.default_rng(seed)
+        self._edgefold = None   # delta_frames' agent-side fold state
         self.zipf_a = zipf_a
         # distinct client process groups calling each service
         self.cli_groups_per_svc = cli_groups_per_svc
@@ -404,6 +406,23 @@ class ParthaSim:
         """n_events conn records framed into ≤2048-record messages."""
         return wire.encode_frames_chunked(
             wire.NOTIFY_TCP_CONN, self.conn_records(n_events))
+
+    def delta_frames(self, n_conn: int, n_resp: int,
+                     params: dict | None = None) -> bytes:
+        """Edge pre-aggregation form of one conn + resp sweep: the
+        records folded locally (``sketch/edgefold.py``) and framed as
+        one NOTIFY_SKETCH_DELTA stream instead of raw tuples. The fold
+        state (the cumulative HLL registers) persists on the sim, so
+        successive sweeps ship only the registers that rose."""
+        from gyeeta_tpu_torch.sketch import edgefold as EF
+        if self._edgefold is None:
+            self._edgefold = EF.EdgeFold(
+                params if params is not None else EF.default_params(),
+                host_id=self.host_base)
+        return wire.encode_frames_chunked(
+            wire.NOTIFY_SKETCH_DELTA,
+            self._edgefold.fold_sweep(self.conn_records(n_conn),
+                                      self.resp_records(n_resp)))
 
     def resp_frames(self, n_events: int) -> bytes:
         return wire.encode_frames_chunked(

@@ -4,8 +4,9 @@ Counterpart of ``gyeeta_tpu/sketch/loghist.py``: ``(..., B)`` counts
 over geometric buckets, one scatter-add per microbatch. The bucket is
 ``floor(log(v/vmin)/log γ)`` taken in f32 torch exactly as the
 reference writes it (never through numpy, whose f32 log rounds some
-boundary samples differently). On the card CUDA's ``logf`` may still
-move a boundary sample by one bucket.
+boundary samples differently); a numpy array takes the reference's
+numpy path, for the agent-side fold. On the card CUDA's ``logf`` may
+still move a boundary sample by one bucket.
 """
 
 from __future__ import annotations
@@ -34,7 +35,14 @@ class LogHistSpec(NamedTuple):
 
 
 def bucket_of(spec: LogHistSpec, values):
-    """values → bucket index [0, B) (int32), clamped at both ends."""
+    """values → bucket index [0, B) (int32), clamped at both ends. A
+    numpy array takes the reference's numpy path (the agent-side fold of
+    ``sketch/edgefold.py`` runs on the host)."""
+    if isinstance(values, np.ndarray):
+        v = np.maximum(values.astype(np.float32), spec.vmin)
+        inv_log_gamma = 1.0 / np.log(spec.gamma)
+        b = np.floor(np.log(v / spec.vmin) * inv_log_gamma).astype(np.int32)
+        return np.clip(b, 0, spec.nbuckets - 1)
     v = torch.clamp(values.to(torch.float32), min=spec.vmin)
     inv_log_gamma = float(1.0 / np.log(spec.gamma))
     b = torch.floor(torch.log(v / spec.vmin) * inv_log_gamma).to(torch.int32)

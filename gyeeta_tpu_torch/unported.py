@@ -8,12 +8,10 @@ dropped, no section skipped, no empty answer served in its place.
 from __future__ import annotations
 
 # ROADMAP.md, queue 1: the items that port what is still missing
-EDGE_PREAGG = "item 1, edge pre-aggregation"
-SNAPSHOT = "item 2, the snapshot tier, selfstats/metrics and multiquery"
-REGISTRIES = "item 3, the host-side registries and their subsystems"
-ALERTS = "item 4, the alert manager and CRUD"
-HISTORY = "item 5, history and the journal"
-SHARDED = "item 8, the sharded tier"
+REGISTRIES = "item 1, the host-side registries and their subsystems"
+ALERTS = "item 2, the alert manager and CRUD"
+HISTORY = "item 3, history and the journal"
+SHARDED = "item 6, the sharded tier"
 
 
 class NotPortedError(NotImplementedError, ValueError):

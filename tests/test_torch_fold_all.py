@@ -289,10 +289,30 @@ def test_connresp_fold_all_equals_fold_many_then_dep_fold_many():
 
 
 def test_fold_all_delta_section_raises():
+    """The delta section (ported since this test refused it) raises on
+    anything but a DeltaBatch, and folds one exactly as
+    ``ingest_delta`` does; the section order is the reference's."""
+    from gyeeta_tpu_torch.sketch import edgefold as t_ef
+
     cfg = _t_cfg()
     st, dep = t_agg.init(cfg, "cpu"), t_dg.init(PC, EC, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(AttributeError):
         t_step.fold_all(cfg, st, dep, 0, delta=object())
+    sim = TSim(**SIM_KW)
+    ef = t_ef.EdgeFold(t_ef.params_of_cfg(cfg), host_id=0)
+    db = t_dec.to_device(t_dec.delta_batch(
+        ef.fold_sweep(sim.conn_records(100), sim.resp_records(150)), 256,
+        resp_nbuckets=cfg.resp_spec.nbuckets,
+        hll_m_svc=1 << cfg.hll_p_svc, hll_m_glob=1 << cfg.hll_p_global),
+        "cpu")
+    st, dep, p = t_step.fold_all(cfg, t_agg.init(cfg, "cpu"),
+                                 t_dg.init(PC, EC, "cpu"), 2, delta=db)
+    st2, dep2 = t_step.ingest_delta(cfg, t_agg.init(cfg, "cpu"),
+                                    t_dg.init(PC, EC, "cpu"), db, 2)
+    for a, b in zip(t_agg.state_to_numpy(st) + t_dg.dep_to_numpy(dep),
+                    t_agg.state_to_numpy(st2) + t_dg.dep_to_numpy(dep2)):
+        np.testing.assert_array_equal(a, b)
+    assert float(st.n_conn) == 100 and int(p) > 0
     assert t_step.FOLD_ALL_ORDER == j_step.FOLD_ALL_ORDER
     assert t_step.HEALTH_KEYS == j_step.HEALTH_KEYS
 

@@ -67,11 +67,10 @@ SERVED = ("svcstate", "hoststate", "clusterstate", "flowstate", "taskstate",
           "tracereq", "traceuniq", "svcsumm", "hostlist", "topk",
           "svcdependency", "svcmesh", "activeconn", "clientconn")
 # reference counters of tiers or paths the port does not have: the
-# alert manager, the snapshot tier, the native decoder and its
-# double-buffered staging slabs
-REF_ONLY_COUNTERS = {"alert_eval_skipped", "snapshots_published",
-                     "ref_native_decoded", "ref_fallback_decoded",
-                     "stage_slab_flips"}
+# alert manager, the native decoder and its double-buffered staging
+# slabs
+REF_ONLY_COUNTERS = {"alert_eval_skipped", "ref_native_decoded",
+                     "ref_fallback_decoded", "stage_slab_flips"}
 FOLD_COUNTERS = ("conn_events", "resp_events", "listener_records",
                  "host_records", "task_records", "cpumem_records",
                  "trace_records", "resp_from_trace", "sweep_marks",
@@ -412,8 +411,6 @@ _KINDS = {
     t_wire.NOTIFY_CGROUP_STATE: unported.REGISTRIES,
     t_wire.NOTIFY_MOUNT_STATE: unported.REGISTRIES,
     t_wire.NOTIFY_NETIF_STATE: unported.REGISTRIES,
-    t_wire.NOTIFY_AGENT_STATS: unported.SNAPSHOT,
-    t_wire.NOTIFY_SKETCH_DELTA: unported.EDGE_PREAGG,
 }
 
 
@@ -439,12 +436,6 @@ def test_unported_record_kind_raises(subtype):
 
 _REQUESTS = {
     "op": ({"op": "add", "subsys": "alertdef"}, unported.ALERTS),
-    "multiquery": ({"multiquery": [{"subsys": "svcstate"}]},
-                   unported.SNAPSHOT),
-    "snapshot": ({"subsys": "svcstate", "consistency": "snapshot"},
-                 unported.SNAPSHOT),
-    "selfstats": ({"subsys": "selfstats"}, unported.SNAPSHOT),
-    "metrics": ({"subsys": "metrics"}, unported.SNAPSHOT),
     "tstart": ({"subsys": "svcstate", "tstart": 0}, unported.HISTORY),
     "tend": ({"subsys": "svcstate", "tend": 5}, unported.HISTORY),
     "at": ({"subsys": "svcstate", "at": 5}, unported.HISTORY),
