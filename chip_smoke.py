@@ -67,12 +67,27 @@ checkout of the repository. Phases:
    buffer followed by a svcstate query (its p50/p99). The launch counters are zeroed
    before the measured ticks: each dispatch that carries a conn/resp
    slab launches the fused kernels 2/1/1 times, the generic ones never.
-   Checks: the event counters, 65,536 live services, 512 hosts,
-   svcdependency rows = live edges, topk rows and recovered keys. Then
-   the tiny stream of ``tests/test_torch_runtime.py`` through
-   ``Runtime`` on the card and on the CPU: 85 + 29 leaves, and the JSON
-   of every request (quantiles moved by CUDA's ``logf`` may sit one
-   loghist bucket apart, counted).
+   Each sweep also carries the announce-rate records at full width
+   (LISTENER_INFO for all 65,536 listeners, HOST_INFO and CGROUP_STATE
+   for the 512 hosts, 4 MOUNT_STATE and 2 NETIF_STATE records a host,
+   service flows dialled through a VIP); before the measured ticks,
+   "op" requests install 8 realtime alertdefs (two sharing one
+   canonical filter), a silence, an inhibit, a tracedef and a webhook
+   action to a receiver on 127.0.0.1 in this process. It prints the
+   registry updates' ms, the alert and drop-pressure steps' ms, the
+   alerts fired, the webhook posts and ``ncq_group_evals``; checks
+   ``stage_slab_flips`` = slab dispatches, fewer than 28 syncs a feed
+   buffer and pinned staging columns; and serves the 23 subsystems of
+   the registries and the alert tier live and from the snapshot, each
+   timed first and cached. Checks: the event counters, 65,536 live
+   services, 512 hosts, svcdependency rows = live edges, topk rows and
+   recovered keys, the registry views' row counts. Then the tiny stream
+   of ``tests/test_torch_runtime.py`` with registry records and the
+   same defs through ``Runtime`` on the card and on the CPU: 85 + 29
+   leaves, the tick reports (``alerts_fired``), the counters, the alert
+   manager's stats, and the JSON of every request, the 23 new
+   subsystems from the snapshot too (quantiles moved by CUDA's ``logf``
+   may sit one loghist bucket apart, counted).
 9. Edge pre-aggregation through the ``Runtime`` at ns geometry: one
    agent-side ``EdgeFold`` turns each tick's records (16 feed buffers'
    worth of plain conn and resp records, 2 for the warm-up tick) into
@@ -103,6 +118,8 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
+import socket
 import subprocess
 import sys
 import time
@@ -1429,6 +1446,45 @@ RT_SERVED = ("svcstate", "hoststate", "clusterstate", "flowstate",
              "topfork", "cpumem", "tracereq", "traceuniq", "svcsumm",
              "hostlist", "topk", "svcdependency", "svcmesh", "activeconn",
              "clientconn")
+# the 23 subsystems of the host-side registries, the alert manager, the
+# notification log and the server's own status (43 with RT_SERVED)
+RT_NEW = ("svcinfo", "procinfo", "hostinfo", "extsvcstate", "svcprocmap",
+          "tracedef", "tracestatus", "traceconn", "tags", "mountstate",
+          "netif", "extactiveconn", "extclientconn", "exttracereq",
+          "cgroupstate", "svcipclust", "serverstatus", "notifymsg",
+          "alerts", "alertdef", "silences", "inhibits", "actions")
+RT_MOUNTS = 4               # MOUNT_STATE records a host a sweep
+RT_NETIFS = 2               # NETIF_STATE records a host a sweep
+RT_NAT_FLOWS = 4096         # service flows a sweep dialled through a VIP
+# alertdefs installed through "op" requests (the first two share one
+# canonical filter: one predicate pass for both), a silence, an inhibit
+RT_ALERT_OPS = (
+    {"alertname": "svc_bad", "subsys": "svcstate",
+     "filter": "{ svcstate.state in 'Bad','Severe' }"},
+    {"alertname": "svc_bad_2", "subsys": "svcstate", "numcheckfor": 2,
+     "severity": "critical",
+     "filter": "{svcstate.state in 'Bad', 'Severe'}"},
+    {"alertname": "svc_busy", "subsys": "svcstate",
+     "filter": "{ svcstate.qps5s > 45 }"},
+    {"alertname": "host_issue", "subsys": "hoststate",
+     "filter": "{ hoststate.nprocissue > 2 }", "actions": ["hook", "log"]},
+    {"alertname": "host_down", "subsys": "hoststate",
+     "filter": "{ hoststate.state = 'Down' }"},
+    {"alertname": "cpu_hot", "subsys": "cpumem",
+     "filter": "{ cpumem.cpu > 60 }", "actions": ["hook", "log"]},
+    {"alertname": "mem_hot", "subsys": "cpumem",
+     "filter": "{ cpumem.rsspct > 70 }"},
+    {"alertname": "task_busy", "subsys": "taskstate",
+     "filter": "{ taskstate.cpu > 50 }", "groupwaitsec": 4},
+)
+RT_OTHER_OPS = (
+    {"op": "add", "objtype": "silence", "name": "quiet_busy",
+     "alertnames": ["svc_busy"]},
+    {"op": "add", "objtype": "inhibit", "name": "host_over_cpu",
+     "src_alertnames": ["host_issue"], "target_alertnames": ["mem_hot"]},
+    {"op": "add", "objtype": "tracedef", "name": "http_svcs",
+     "filter": "{ svcinfo.ishttp = true }"},
+)
 # one request per served subsystem, and three svcstate variants
 RT_QUERIES = {s: {"subsys": s} for s in RT_SERVED}
 RT_QUERIES |= {
@@ -1514,6 +1570,120 @@ class SyncTimer:
             setattr(mod, attr, fn)
 
 
+def mount_records(wire, n_hosts: int, tick: int) -> np.ndarray:
+    """RT_MOUNTS MOUNT_STATE records a host (free space drifting by
+    tick)."""
+    n = n_hosts * RT_MOUNTS
+    out = np.zeros(n, wire.MOUNT_DT)
+    out["host_id"] = np.repeat(np.arange(n_hosts), RT_MOUNTS)
+    out["mnt_id"] = np.arange(n) * 7919 + 11
+    out["dir_id"] = np.arange(n) % RT_MOUNTS + 101
+    out["fstype_id"] = 7
+    out["size_mb"] = 102400.0
+    out["free_mb"] = 1000.0 + (np.arange(n) * 37 + tick * 11) % 90000
+    out["used_pct"] = 100.0 * (1.0 - out["free_mb"] / out["size_mb"])
+    out["inodes_used_pct"] = np.arange(n) % 50
+    out["is_network_fs"] = np.arange(n) % RT_MOUNTS == 3
+    return out
+
+
+def netif_records(wire, n_hosts: int, tick: int) -> np.ndarray:
+    """RT_NETIFS NETIF_STATE records a host (rates drifting by tick)."""
+    n = n_hosts * RT_NETIFS
+    out = np.zeros(n, wire.NETIF_DT)
+    out["host_id"] = np.repeat(np.arange(n_hosts), RT_NETIFS)
+    out["if_id"] = np.arange(n) * 104729 + 3
+    out["name_id"] = np.arange(n) % RT_NETIFS + 201
+    out["speed_mbps"] = 10000.0
+    out["rx_mb_sec"] = (np.arange(n) * 13 + tick) % 500
+    out["tx_mb_sec"] = (np.arange(n) * 17 + tick) % 400
+    out["rx_errs_sec"] = np.arange(n) % 3
+    out["is_up"] = np.arange(n) % 16 != 5
+    return out
+
+
+def registry_frames(sim, wire, tick: int, nat_flows: int) -> bytes:
+    """A tick's announce-rate records at the sim's full width:
+    LISTENER_INFO for every listener, HOST_INFO and CGROUP_STATE for
+    every host, the MOUNT_STATE and NETIF_STATE records, and service
+    flows dialled through a VIP (the svcipclust source)."""
+    return (wire.encode_frames_chunked(wire.NOTIFY_LISTENER_INFO,
+                                       sim.listener_info_records())
+            + sim.host_info_frames() + sim.cgroup_frames()
+            + wire.encode_frames_chunked(
+                wire.NOTIFY_MOUNT_STATE, mount_records(wire, sim.n_hosts,
+                                                       tick))
+            + wire.encode_frames_chunked(
+                wire.NOTIFY_NETIF_STATE, netif_records(wire, sim.n_hosts,
+                                                       tick))
+            + wire.encode_frames_chunked(
+                wire.NOTIFY_TCP_CONN, sim.svc_conn_records(nat_flows,
+                                                           nat=True)))
+
+
+def install_alert_ops(rt, hook_url=None) -> list:
+    """The alertdefs, silence, inhibit and tracedef through ``"op"``
+    requests, and a webhook action to ``hook_url`` (defs routed to an
+    absent action notify the log only) → the replies."""
+    ops = []
+    if hook_url:
+        ops.append({"op": "add", "objtype": "action", "name": "hook",
+                    "type": "webhook", "url": hook_url, "timeout_s": 5.0})
+    ops += [dict(d, op="add", objtype="alertdef") for d in RT_ALERT_OPS]
+    ops += list(RT_OTHER_OPS)
+    return [rt.query(dict(o)) for o in ops]
+
+
+def prime_vips(rt) -> int:
+    """Prime the runtime's DNS cache with a name for every VIP of
+    svcipclust: its answer never waits on a resolver."""
+    cols, _ = rt.natclusters.columns(rt.names)
+    ips = {str(v).rsplit(":", 1)[0] for v in cols["vip"]}
+    for ip in ips:
+        rt.dns.prime(ip, f"vip-{ip.replace('.', '-')}.svc.local")
+    return len(ips)
+
+
+class HookServer:
+    """A webhook receiver on 127.0.0.1 in this process: counts the POSTs
+    and the alerts they carry."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        posts = self.posts = []
+
+        class Hook(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                posts.append(json.loads(body))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Hook)
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}/alerts"
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def wait(self, n: int, timeout: float = 20.0) -> bool:
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < timeout:
+            if len(self.posts) >= n:
+                return True
+            time.sleep(0.05)
+        return False
+
+    def close(self) -> None:
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(timeout=5.0)
+
+
 def tiny_runtime_buffers(sim, wire):
     """The four ticks of the tiny runtime stream (names, sweep marks,
     every sweep section, conn with split halves, resp)."""
@@ -1547,8 +1717,11 @@ def tiny_runtime_buffers(sim, wire):
 
 
 def tiny_runtime_run(device):
-    """The tiny stream through ``Runtime(device=...)`` in uneven byte
-    cuts, a run_tick after each tick → (runtime, loghist inputs fed)."""
+    """The tiny stream, each tick with its registry records, through
+    ``Runtime(device=...)`` in uneven byte cuts, a run_tick after each
+    tick, with RT_ALERT_OPS installed through "op" requests first and a
+    clock of 5 s a tick → (runtime, tick reports, loghist inputs
+    fed)."""
     from gyeeta_tpu_torch.engine import aggstate
     from gyeeta_tpu_torch.ingest import decode, wire
     from gyeeta_tpu_torch.runtime import Runtime
@@ -1558,11 +1731,17 @@ def tiny_runtime_run(device):
 
     cfg = tiny_cfg(aggstate, loghist)._replace(
         n_hosts=8, task_capacity=128, api_capacity=256)
-    rt = Runtime(cfg, RuntimeOpts(**TINY_RT_OPTS), device=device)
+    now = [1.7e9]
+    rt = Runtime(cfg, RuntimeOpts(**TINY_RT_OPTS), clock=lambda: now[0],
+                 device=device)
+    install_alert_ops(rt)
     fed = {"resp_spec": [], "apiresp_spec": [], "taskcpu_spec": [],
            "qps_spec": [], "active_spec": []}
-    for buf in tiny_runtime_buffers(ParthaSim(n_hosts=8, n_svcs=4,
-                                              n_clients=256), wire):
+    sim = ParthaSim(n_hosts=8, n_svcs=4, n_clients=256)
+    reg_sim = ParthaSim(n_hosts=8, n_svcs=4, n_clients=256, seed=9)
+    reports = []
+    for tick, buf in enumerate(tiny_runtime_buffers(sim, wire)):
+        buf = registry_frames(reg_sim, wire, tick, 6) + buf
         recs, _, _ = wire.drain2(buf)
         tr = recs[wire.NOTIFY_REQ_TRACE]
         fed["resp_spec"] += [recs[wire.NOTIFY_RESP_SAMPLE]["resp_usec"],
@@ -1577,9 +1756,11 @@ def tiny_runtime_run(device):
         cuts = [0] + [len(buf) - c for c in TINY_CUTS] + [len(buf)]
         for a, b in zip(cuts, cuts[1:]):
             rt.feed(buf[a:b])
-        rt.run_tick()
-    return rt, {k: np.concatenate(v).astype(np.float32)
-                for k, v in fed.items()}
+        now[0] += 5.0
+        reports.append(rt.run_tick())
+    prime_vips(rt)
+    return rt, reports, {k: np.concatenate(v).astype(np.float32)
+                         for k, v in fed.items()}
 
 
 def _json_diff(torch, loghist, cfg, ref, got, moved, path, n_moved):
@@ -1647,8 +1828,12 @@ def runtime_phase(torch, scatter):
     t0 = time.perf_counter()
     trace_svcs = list(sim.glob_ids.reshape(-1)[::n_svcs // TRACE_SVCS])
     names = sim.name_frames()
+    # the registry records come from a sim of their own: the main
+    # stream stays the one earlier runs fed
+    reg_sim = ParthaSim(**NS_SIM, seed=13)
     sweeps = [sweep_frames(sim, wire, trace_svcs)
-              for _ in range(RT_TICKS + 1)]
+              + registry_frames(reg_sim, wire, t, RT_NAT_FLOWS)
+              for t in range(RT_TICKS + 1)]
     bufs = [feed_buffer(sim, cfg, wire) for _ in range(RT_DISTINCT)]
     log(f"  generated names ({len(names)} B), {len(sweeps)} sweeps "
         f"({len(sweeps[0])} B each) and {RT_DISTINCT} feed buffers "
@@ -1666,7 +1851,7 @@ def runtime_phase(torch, scatter):
     # warm-up tick: names, a sweep, a few buffers, the tick
     t0 = time.perf_counter()
     feed(names)
-    feed(sweeps[0])
+    feed(sweeps[0], RT_NAT_FLOWS)
     for i in range(RT_WARM_BUFFERS):
         feed(*bufs[i % RT_DISTINCT])
     rt.run_tick()
@@ -1674,6 +1859,13 @@ def runtime_phase(torch, scatter):
     log(f"  warm-up tick (names, sweep, {RT_WARM_BUFFERS} buffers, "
         f"run_tick): {time.perf_counter() - t0:.2f}s, "
         f"{int(rt.state.tbl.n_live)} services live")
+    hook = HookServer()
+    replies = install_alert_ops(rt, hook.url)
+    check(all(r.get("ok") for r in replies),
+          f"{len(replies)} CRUD requests (a webhook action to {hook.url}, "
+          f"{len(RT_ALERT_OPS)} alertdefs, a silence, an inhibit, a "
+          "tracedef) accepted")
+    alerts0 = dict(rt.alerts.stats)
 
     # ---- the main path, counted
     mods = sketch_modules()
@@ -1693,9 +1885,17 @@ def runtime_phase(torch, scatter):
         (step, "tick_5s", "tick_5s"), (step, "age_tasks", "age_tasks"),
         (step, "age_apis", "age_apis"),
         (compact, "compact_state", "compact_state"),
-        (step, "compact_tasks", "compact_tasks")))
+        (step, "compact_tasks", "compact_tasks"),
+        (rt, "_alert_step", "alert_step"),
+        (rt, "_drop_pressure_step", "drop_pressure_step")))
+    reg_parts = SyncTimer(torch, tuple(
+        (getattr(rt, reg), fn, reg) for reg, fn in (
+            ("svcreg", "update"), ("hostinfo", "update"),
+            ("cgroups", "update"), ("mounts", "update"),
+            ("netifs", "update"), ("natclusters", "observe_conns"),
+            ("traceconns", "observe"))))
     perf = {"sweep_s": [], "buffer_ms": [], "tick_ms": [],
-            "tick_parts_ms": []}
+            "tick_parts_ms": [], "registry_ms": []}
     timings0 = rt.stats.timing_totals()
     disp0 = rt.stats.counters["fold_dispatches"]
     buf_disp = 0
@@ -1706,9 +1906,12 @@ def runtime_phase(torch, scatter):
         for tick in range(RT_TICKS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            feed(sweeps[tick + 1])
+            with reg_parts:
+                feed(sweeps[tick + 1], RT_NAT_FLOWS)
             torch.cuda.synchronize()
             perf["sweep_s"].append(time.perf_counter() - t0)
+            perf["registry_ms"].append(dict(reg_parts.ms))
+            reg_parts.ms = {}
             d0 = rt.stats.counters["fold_dispatches"]
             t0 = time.perf_counter()
             for _ in range(RT_BUFFERS):
@@ -1720,9 +1923,10 @@ def runtime_phase(torch, scatter):
             buf_disp += rt.stats.counters["fold_dispatches"] - d0
             t0 = time.perf_counter()
             with tick_parts:
-                rt.run_tick()
+                rep = rt.run_tick()
             torch.cuda.synchronize()
             perf["tick_ms"].append((time.perf_counter() - t0) * 1e3)
+            perf.setdefault("alerts_fired", []).append(rep["alerts_fired"])
             perf["tick_parts_ms"].append(dict(tick_parts.ms))
             tick_parts.ms = {}
     finally:
@@ -1754,6 +1958,17 @@ def runtime_phase(torch, scatter):
         "; parts (synchronised): " + " | ".join(
             ", ".join(f"{k} {v:.2f}" for k, v in p.items())
             for p in perf["tick_parts_ms"]))
+    log("  a sweep's registry updates (ms, synchronised), by tick: "
+        + " | ".join(f"{sum(p.values()):.2f} (" + ", ".join(
+            f"{k} {v:.2f}" for k, v in p.items()) + ")"
+            for p in perf["registry_ms"]))
+    perf["alert_step_ms"] = [p["alert_step"] for p in perf["tick_parts_ms"]]
+    perf["drop_pressure_step_ms"] = [p["drop_pressure_step"]
+                                     for p in perf["tick_parts_ms"]]
+    log(f"  the tick's alert step (ms): "
+        f"{', '.join(f'{m:.2f}' for m in perf['alert_step_ms'])}; its "
+        f"drop-pressure step: "
+        f"{', '.join(f'{m:.2f}' for m in perf['drop_pressure_step_ms'])}")
     log(f"  kernel launches on the Runtime path: {launches}")
     check(launches == {"hll_update": 2 * connresp[0],
                        "cms_update": connresp[0], "inv_update": connresp[0],
@@ -1774,11 +1989,46 @@ def runtime_phase(torch, scatter):
     fed["resp"] += bufs[0][2]
     perf["syncs_per_buffer"] = syncs
     log(f"  host syncs in one feed buffer: {len(syncs)} at {syncs}")
+    check(len(syncs) < 28, f"{len(syncs)} host syncs a feed buffer, "
+          "fewer than the 28 of fresh columns copied with blocking copies")
+    c = rt.stats.counters
+    perf["stage_slab_flips"] = c["stage_slab_flips"]
+    check(c["stage_slab_flips"] == c["slab_dispatches"] > 0,
+          f"stage_slab_flips {c['stage_slab_flips']} = the "
+          f"{c['slab_dispatches']} slab dispatches")
+    pinned = [torch.from_numpy(a).is_pinned() for b in rt._slab_bufs
+              for half in ("conn", "resp") for a in b[half].values()]
+    check(all(pinned), f"the {len(pinned)} staging-slab columns of both "
+          "buffers are pinned host memory")
+
+    # ---- alerts
+    a = {k: v - alerts0.get(k, 0) for k, v in rt.alerts.stats.items()}
+    perf["alerts"] = a
+    n_defs = len(RT_ALERT_OPS)
+    log(f"  alert manager over the measured ticks: {a}; tick reports' "
+        f"alerts_fired {perf['alerts_fired']}")
+    check(a["nchecks"] == RT_TICKS and a["nfired"] > 0,
+          f"{a['nfired']} alerts fired over {a['nchecks']} checks")
+    check(a["ncq_group_evals"] == a["nchecks"] * (n_defs - 1),
+          f"ncq_group_evals {a['ncq_group_evals']} = {a['nchecks']} checks "
+          f"x {n_defs - 1} criteria groups for {n_defs} defs (two share "
+          "one canonical filter)")
+    hooked = sum(1 for d in RT_ALERT_OPS if "hook" in d.get("actions", ())
+                 for x in rt.alerts.alert_log if x.alertname == d[
+                     "alertname"])
+    check(hooked > 0, f"{hooked} alerts routed to the webhook")
+    check(hook.wait(1), f"webhook posts received: {len(hook.posts)}")
+    perf["webhook_posts"] = len(hook.posts)
+    perf["webhook_alerts"] = sum(len(p["alerts"]) for p in hook.posts)
+    log(f"  webhook: {perf['webhook_posts']} posts carrying "
+        f"{perf['webhook_alerts']} alerts")
+    perf["vips_primed"] = prime_vips(rt)
 
     # ---- queries
     perf["query_ms"] = {}
     outs = {}
-    for name, req in RT_QUERIES.items():
+    queries = RT_QUERIES | {s_: {"subsys": s_} for s_ in RT_NEW}
+    for name, req in queries.items():
         t0 = time.perf_counter()
         outs[name] = rt.query(dict(req))
         first = (time.perf_counter() - t0) * 1e3
@@ -1786,12 +2036,26 @@ def runtime_phase(torch, scatter):
         t0 = time.perf_counter()
         again = rt.query(dict(req))
         cached = (time.perf_counter() - t0) * 1e3
-        if again != outs[name]:
+        # serverstatus carries the uptime and the query count
+        if again != outs[name] and name != "serverstatus":
             raise AssertionError(f"{name}: the cached answer differs")
         perf["query_ms"][name] = {"first": first, "cached": cached,
                                   "nrecs": outs[name]["nrecs"]}
         log(f"  query {name}: {first:.1f} ms, cached {cached:.1f} ms, "
             f"nrecs {outs[name]['nrecs']}")
+    perf["snapshot_query_ms"] = {}
+    for name in RT_NEW:
+        req = {"subsys": name, "consistency": "snapshot"}
+        t0 = time.perf_counter()
+        first_out = rt.query(dict(req))
+        first = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        again = rt.query(dict(req))
+        cached = (time.perf_counter() - t0) * 1e3
+        check(again is first_out, f"snapshot {name}: first {first:.1f} ms, "
+              f"cached {cached:.2f} ms, nrecs {first_out['nrecs']}")
+        perf["snapshot_query_ms"][name] = {"first": first, "cached": cached,
+                                           "nrecs": first_out["nrecs"]}
     # query freshness: the first svcstate query after each fold
     fresh = []
     for i in range(RT_FRESH_ROUNDS):
@@ -1828,14 +2092,33 @@ def runtime_phase(torch, scatter):
           f"topk returns rows ({outs['topk']['nrecs']}) and heavy_recover "
           f"recovered keys ({rec['recovered_keys']})")
     perf["recovered_keys"] = rec["recovered_keys"]
+    want = {"svcinfo": n_svcs, "hostinfo": sim.n_hosts,
+            "cgroupstate": sim.n_hosts * len(sim.CGPATHS),
+            "mountstate": sim.n_hosts * RT_MOUNTS,
+            "netif": sim.n_hosts * RT_NETIFS, "extsvcstate": n_svcs,
+            "alertdef": len(RT_ALERT_OPS), "silences": 1, "inhibits": 1,
+            "tracedef": 1}
+    got = {k: outs[k]["ntotal"] for k in want}
+    check(got == want, f"registry and alert views hold what was fed and "
+          f"installed: {got}")
+    check(outs["svcipclust"]["ntotal"] > 0
+          and outs["alerts"]["ntotal"] > 0
+          and outs["notifymsg"]["ntotal"] > 0,
+          f"svcipclust {outs['svcipclust']['ntotal']}, alerts "
+          f"{outs['alerts']['ntotal']}, notifymsg "
+          f"{outs['notifymsg']['ntotal']} rows")
+    rt.close()
+    hook.close()
     del rt
     gc.collect()              # a published snapshot refers to its runtime
     torch.cuda.empty_cache()
 
     # ---- card vs CPU, tiny stream
     log("  tiny runtime stream, card vs CPU")
-    g_rt, fed_vals = tiny_runtime_run(DEV)
-    c_rt, _ = tiny_runtime_run("cpu")
+    g_rt, g_rep, fed_vals = tiny_runtime_run(DEV)
+    c_rt, c_rep, _ = tiny_runtime_run("cpu")
+    check(g_rep == c_rep and sum(r["alerts_fired"] for r in c_rep) > 0,
+          f"tick reports equal, alerts_fired included: {c_rep}")
     tcfg = c_rt.cfg
     moved = {k: _moved(torch, loghist, getattr(tcfg, k), v)
              for k, v in fed_vals.items()}
@@ -1853,15 +2136,28 @@ def runtime_phase(torch, scatter):
     check(n_exact + n_close == 29, f"DepGraph: 29 leaves agree ({n_exact} "
           f"exactly, {n_close} within tolerance)")
     n_q = [0, 0]
-    for name in RT_QUERIES:
-        req = dict(RT_QUERIES[name], maxrecs=10000) \
-            if "aggr" not in RT_QUERIES[name] else RT_QUERIES[name]
+    for name in queries:
+        req = dict(queries[name], maxrecs=10000) \
+            if "aggr" not in queries[name] else queries[name]
         _json_diff(torch, loghist, tcfg, c_rt.query(dict(req)),
                    g_rt.query(dict(req)), moved, name, n_q)
-    check(True, f"query JSON of {len(RT_QUERIES)} requests agrees card vs "
+    for name in RT_NEW:
+        req = {"subsys": name, "maxrecs": 10000, "consistency": "snapshot"}
+        _json_diff(torch, loghist, tcfg, c_rt.query(dict(req)),
+                   g_rt.query(dict(req)), moved, f"{name}@snapshot", n_q)
+    check(True, f"query JSON of {len(queries)} requests, and of the "
+          f"{len(RT_NEW)} new subsystems from the snapshot, agrees card vs "
           f"CPU ({n_q[0]} quantiles one loghist bucket apart, {n_q[1]} "
           "values one unit apart in the JSON's third decimal)")
     perf["tiny_json_bucket_apart"], perf["tiny_json_rounding_apart"] = n_q
+    cc, gc_ = dict(c_rt.stats.counters), dict(g_rt.stats.counters)
+    check(cc == gc_ and cc["stage_slab_flips"] > 0,
+          f"counters equal card vs CPU ({len(cc)}, stage_slab_flips "
+          f"{cc['stage_slab_flips']})")
+    check(g_rt.alerts.stats == c_rt.alerts.stats,
+          f"alert manager stats equal: {c_rt.alerts.stats}")
+    g_rt.close()
+    c_rt.close()
     return perf, launches
 
 
@@ -2194,9 +2490,10 @@ def delta_phase(torch, scatter):
             perf["delta_dispatches"].append(n_delta[0] - n0)
             t0 = time.perf_counter()
             with tick_parts:
-                rt.run_tick()
+                rep = rt.run_tick()
             torch.cuda.synchronize()
             perf["tick_ms"].append((time.perf_counter() - t0) * 1e3)
+            perf.setdefault("alerts_fired", []).append(rep["alerts_fired"])
             perf["tick_parts_ms"].append(dict(tick_parts.ms))
             tick_parts.ms = {}
     finally:
@@ -2433,6 +2730,10 @@ def delta_phase(torch, scatter):
     return perf, launches, sites
 
 
+def _no_lookup(*a, **kw):
+    raise OSError("chip_smoke resolves no names")
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2445,6 +2746,11 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from gyeeta_tpu_torch.sketch import scatter
+
+    # no name lookups and no proxy: the only socket phase 8 opens is
+    # its webhook receiver on 127.0.0.1
+    socket.getnameinfo = _no_lookup
+    os.environ["no_proxy"] = os.environ["NO_PROXY"] = "127.0.0.1,localhost"
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -5,9 +5,12 @@ names, so each counterpart is easy to find: ``runtime.py`` (``Runtime``:
 ``feed`` → ``run_tick`` → ``query``), ``ingest/{wire,decode}.py``,
 ``sim/partha.py``, ``sketch/*``, ``engine/*``, ``parallel/depgraph.py``,
 ``semantic/*``, ``query/*`` (readbacks, criteria, aggregation, the
-JSON query API), ``obs/health.py`` and ``utils/*`` (hashing, interning,
-config, checkpoints, self-stats). What is not ported yet raises,
-naming its ROADMAP.md item (``unported.py``).
+JSON query API, the CRUD channel, continuous queries), ``alerts/*``
+(the alert manager and webhook delivery), ``trace/defs.py``,
+``obs/*`` and ``utils/*`` (hashing, interning, config, checkpoints,
+self-stats, the host-side registries, the notification log, drop
+pressure). What is not ported yet raises, naming its ROADMAP.md item
+(``unported.py``).
 
 The two Pallas kernels of the reference
 (``gyeeta_tpu/sketch/pallas_scatter.py``) are hand-written CUDA kernels

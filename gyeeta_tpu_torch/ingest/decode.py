@@ -15,7 +15,8 @@ uint32 column in the int64 carrier of ``utils/hashing.py``.
 The runtime's staging helpers are here too: :func:`drain_chunks` (the
 fold plan of a drained feed), :func:`take_raw_chunks`,
 :func:`conn_slab` / :func:`resp_slab` (raw records → one ``(K, B)``
-slab) and :func:`resp_from_trace` (the trace→resp bridge).
+slab, decoded in place into a reused buffer of the double-buffered
+staging slabs: :func:`alloc_conn_cols` / :func:`alloc_resp_cols`) and :func:`resp_from_trace` (the trace→resp bridge).
 """
 
 from __future__ import annotations
@@ -302,10 +303,10 @@ def _check_fit(recs, size):
     return len(recs)
 
 
-def conn_batch(recs: np.ndarray, size: int = wire.MAX_CONNS_PER_BATCH
-               ) -> ConnBatch:
-    n = _check_fit(recs, size)
-    r = recs[:n]
+def _conn_cols(r: np.ndarray) -> dict:
+    """TCP_CONN records → unpadded ConnBatch columns (all but
+    ``valid``)."""
+    n = len(r)
     svc_hi, svc_lo = split_u64(r["ser_glob_id"])
     # NAT-aware flow identity: when conntrack resolved a translated
     # tuple, both halves key on the POST-NAT 5-tuple
@@ -329,37 +330,37 @@ def conn_batch(recs: np.ndarray, size: int = wire.MAX_CONNS_PER_BATCH
     closed = r["tusec_close"] > 0
     dur = np.where(closed, r["tusec_close"] - r["tusec_start"],
                    0).astype(np.float32)
-    valid = np.zeros(size, bool)
-    valid[:n] = True
-    return ConnBatch(
-        svc_hi=_pad(svc_hi, size), svc_lo=_pad(svc_lo, size),
-        flow_hi=_pad(f_hi, size), flow_lo=_pad(f_lo, size),
-        cli_hi=_pad(c_hi, size), cli_lo=_pad(c_lo, size),
-        cli_task_hi=_pad(t_hi, size), cli_task_lo=_pad(t_lo, size),
-        cli_rel_hi=_pad(rel_hi, size), cli_rel_lo=_pad(rel_lo, size),
-        bytes_sent=_pad(r["bytes_sent"].astype(np.float32), size),
-        bytes_rcvd=_pad(r["bytes_rcvd"].astype(np.float32), size),
-        duration_us=_pad(dur, size),
-        host_id=_pad(r["host_id"].astype(np.int32), size),
-        is_close=_pad(closed, size),
-        is_accept=_pad((r["flags"] & 2) != 0, size),
-        valid=valid,
-    )
+    return dict(
+        svc_hi=svc_hi, svc_lo=svc_lo, flow_hi=f_hi, flow_lo=f_lo,
+        cli_hi=c_hi, cli_lo=c_lo, cli_task_hi=t_hi, cli_task_lo=t_lo,
+        cli_rel_hi=rel_hi, cli_rel_lo=rel_lo,
+        bytes_sent=r["bytes_sent"].astype(np.float32),
+        bytes_rcvd=r["bytes_rcvd"].astype(np.float32),
+        duration_us=dur, host_id=r["host_id"].astype(np.int32),
+        is_close=closed, is_accept=(r["flags"] & 2) != 0)
+
+
+def _resp_cols(r: np.ndarray) -> dict:
+    """RESP_SAMPLE records → unpadded RespBatch columns (all but
+    ``valid``)."""
+    svc_hi, svc_lo = split_u64(r["glob_id"])
+    return dict(svc_hi=svc_hi, svc_lo=svc_lo,
+                resp_us=r["resp_usec"].astype(np.float32),
+                host_id=r["host_id"].astype(np.int32))
+
+
+def conn_batch(recs: np.ndarray, size: int = wire.MAX_CONNS_PER_BATCH
+               ) -> ConnBatch:
+    n = _check_fit(recs, size)
+    cols = {k: _pad(v, size) for k, v in _conn_cols(recs[:n]).items()}
+    return ConnBatch(valid=_valid(n, size), **cols)
 
 
 def resp_batch(recs: np.ndarray, size: int = wire.MAX_RESP_PER_BATCH
                ) -> RespBatch:
     n = _check_fit(recs, size)
-    r = recs[:n]
-    svc_hi, svc_lo = split_u64(r["glob_id"])
-    valid = np.zeros(size, bool)
-    valid[:n] = True
-    return RespBatch(
-        svc_hi=_pad(svc_hi, size), svc_lo=_pad(svc_lo, size),
-        resp_us=_pad(r["resp_usec"].astype(np.float32), size),
-        host_id=_pad(r["host_id"].astype(np.int32), size),
-        valid=valid,
-    )
+    cols = {k: _pad(v, size) for k, v in _resp_cols(recs[:n]).items()}
+    return RespBatch(valid=_valid(n, size), **cols)
 
 
 def _valid(n: int, size: int) -> np.ndarray:
@@ -694,21 +695,106 @@ def _concat_chunks(chunks: list, dtype) -> np.ndarray:
     return chunks[0] if len(chunks) == 1 else np.concatenate(chunks)
 
 
-def conn_slab(recs, k: int, b: int) -> ConnBatch:
+# staging-slab column dtypes: the u32 columns in their int64 carrier,
+# so a decode widens in place and the copy to the device is the column
+# as the fold consumes it
+_CONN_COL_DTYPES = dict(
+    svc_hi=np.int64, svc_lo=np.int64, flow_hi=np.int64, flow_lo=np.int64,
+    cli_hi=np.int64, cli_lo=np.int64, cli_task_hi=np.int64,
+    cli_task_lo=np.int64, cli_rel_hi=np.int64, cli_rel_lo=np.int64,
+    bytes_sent=np.float32, bytes_rcvd=np.float32, duration_us=np.float32,
+    host_id=np.int32, is_close=np.bool_, is_accept=np.bool_,
+    valid=np.bool_)
+_RESP_COL_DTYPES = dict(svc_hi=np.int64, svc_lo=np.int64,
+                        resp_us=np.float32, host_id=np.int32,
+                        valid=np.bool_)
+_TORCH_DTYPE = {np.int64: torch.int64, np.int32: torch.int32,
+                np.float32: torch.float32, np.bool_: torch.bool}
+
+
+def _alloc_cols(dtypes: dict, size: int, pin: bool) -> dict:
+    if not pin:
+        return {k: np.zeros(size, dt) for k, dt in dtypes.items()}
+    # page-locked host memory, written through numpy views (the array
+    # keeps its tensor alive): copies out of it run asynchronously
+    return {k: torch.zeros(size, dtype=_TORCH_DTYPE[dt],
+                           pin_memory=True).numpy()
+            for k, dt in dtypes.items()}
+
+
+def alloc_conn_cols(size: int, pin: bool = False) -> dict:
+    """Zeroed flat ConnBatch columns (``valid`` included): one buffer of
+    the runtime's double-buffered staging slabs. ``pin`` allocates them
+    in page-locked memory (for CUDA)."""
+    return _alloc_cols(_CONN_COL_DTYPES, size, pin)
+
+
+def alloc_resp_cols(size: int, pin: bool = False) -> dict:
+    """Zeroed flat RespBatch columns: the resp half of a staging-slab
+    buffer (see :func:`alloc_conn_cols`)."""
+    return _alloc_cols(_RESP_COL_DTYPES, size, pin)
+
+
+def _reuse_cols(cols: dict, n: int, clear_to: int) -> None:
+    """Reset a reused staging buffer to the all-zero padding of a fresh
+    one: lanes ``[n, clear_to)`` may hold a previous, larger fill."""
+    if clear_to > n:
+        for a in cols.values():
+            a[n:clear_to] = 0
+
+
+def _fill_cols(cols: dict, out: dict, n: int, clear_to: int) -> dict:
+    _reuse_cols(out, n, clear_to)
+    for k, v in cols.items():
+        out[k][:n] = v                # u32 widens in place
+    out["valid"][:n] = True
+    return out
+
+
+def conn_batch_parts(chunks: list, size: int, out=None,
+                     clear_to: int = 0) -> ConnBatch:
+    """A list of raw TCP_CONN chunks (total ≤ size) → one flat padded
+    ConnBatch. ``out``: a column dict of :func:`alloc_conn_cols`, reused
+    across dispatches, decoded into in place with lanes ``[n, clear_to)``
+    re-zeroed — the same columns as a fresh batch."""
+    recs = _concat_chunks(chunks, wire.TCP_CONN_DT)
+    if out is None:
+        return conn_batch(recs, size)
+    n = _check_fit(recs, size)
+    return ConnBatch(**_fill_cols(_conn_cols(recs), out, n, clear_to))
+
+
+def resp_batch_parts(chunks: list, size: int, out=None,
+                     clear_to: int = 0) -> RespBatch:
+    """A list of raw RESP_SAMPLE chunks (total ≤ size) → one flat padded
+    RespBatch (see :func:`conn_batch_parts`; ``out`` is an
+    :func:`alloc_resp_cols` dict)."""
+    recs = _concat_chunks(chunks, wire.RESP_SAMPLE_DT)
+    if out is None:
+        return resp_batch(recs, size)
+    n = _check_fit(recs, size)
+    return RespBatch(**_fill_cols(_resp_cols(recs), out, n, clear_to))
+
+
+def conn_slab(recs, k: int, b: int, out=None,
+              clear_to: int = 0) -> ConnBatch:
     """TCP_CONN records (n ≤ k·b; an array or a list of chunk arrays)
     → ConnBatch with ``(k, b)`` stacked columns: one flat decode and a
     reshape. Record i lands in flattened lane i, the padding at the
-    tail (the fold reads lanes only through ``valid``)."""
+    tail (the fold reads lanes only through ``valid``). ``out`` /
+    ``clear_to``: decode into a staging buffer (:func:`conn_batch_parts`).
+    """
     chunks = recs if isinstance(recs, list) else [recs]
-    cb = conn_batch(_concat_chunks(chunks, wire.TCP_CONN_DT), k * b)
+    cb = conn_batch_parts(chunks, k * b, out=out, clear_to=clear_to)
     return ConnBatch(*(x.reshape(k, b) for x in cb))
 
 
-def resp_slab(recs, k: int, b: int) -> RespBatch:
+def resp_slab(recs, k: int, b: int, out=None,
+              clear_to: int = 0) -> RespBatch:
     """RESP_SAMPLE records (n ≤ k·b; array or chunk list) → RespBatch
     with ``(k, b)`` stacked columns (see :func:`conn_slab`)."""
     chunks = recs if isinstance(recs, list) else [recs]
-    rb = resp_batch(_concat_chunks(chunks, wire.RESP_SAMPLE_DT), k * b)
+    rb = resp_batch_parts(chunks, k * b, out=out, clear_to=clear_to)
     return RespBatch(*(x.reshape(k, b) for x in rb))
 
 
@@ -777,21 +863,30 @@ def resp_from_trace(recs: np.ndarray) -> np.ndarray:
     return out
 
 
-def _col_to_tensor(a: np.ndarray, device) -> torch.Tensor:
+def _col_to_tensor(a: np.ndarray, device, staged: bool) -> torch.Tensor:
     if a.dtype == np.uint32:
         a = a.astype(np.int64)          # the u32 carrier
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if not staged:
+        return t.to(device)
+    # a staging-slab buffer the host decodes into again two dispatches
+    # on: an asynchronous copy on CUDA (the caller records an event and
+    # waits on it before that decode), a copy of its own on the CPU
+    return t.to(device, non_blocking=True) if device.type == "cuda" \
+        else t.clone()
 
 
-def to_device(batches, device=None):
+def to_device(batches, device=None, staged: bool = False):
     """One batch (any batch NamedTuple of this module, ``(B, ...)``
     columns) or a list of K batches → the same NamedTuple of tensors on
-    ``device``,
-    ``(B,)`` or stacked ``(K, B)``. Defaults to CUDA; raises without a
-    GPU unless ``device="cpu"``."""
+    ``device``, ``(B,)`` or stacked ``(K, B)``. Defaults to CUDA; raises
+    without a GPU unless ``device="cpu"``. ``staged``: the batch views a
+    staging-slab buffer of :func:`alloc_conn_cols` /
+    :func:`alloc_resp_cols` (copied without blocking on CUDA)."""
     dev = resolve(device)
     if isinstance(batches, tuple):
-        return type(batches)(*(_col_to_tensor(c, dev) for c in batches))
+        return type(batches)(*(_col_to_tensor(c, dev, staged)
+                               for c in batches))
     cls = type(batches[0])
-    return cls(*(_col_to_tensor(np.stack(cols), dev)
+    return cls(*(_col_to_tensor(np.stack(cols), dev, False)
                  for cols in zip(*batches)))

@@ -70,3 +70,12 @@ def gauges_from_vec(vec, caps: dict) -> dict:
             h["hh_occupied"] / max(caps["hh"], 1), 4),
         "engine_hh_hot_lanes": h["hh_hot_lanes"],
     }
+
+
+def drops_for_pressure(gauges: dict) -> dict:
+    """The cumulative drop counters ``utils/droppressure.check``
+    watches, pulled from the health gauges (no extra readback)."""
+    return {"svc": int(gauges["engine_svc_probe_failures"]),
+            "task": int(gauges["engine_task_probe_failures"]),
+            "api": int(gauges["engine_api_probe_failures"]),
+            "dep": int(gauges["engine_dep_dropped"])}

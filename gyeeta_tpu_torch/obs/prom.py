@@ -11,8 +11,9 @@ registry (``utils/selfstats.py``) as exposition format 0.0.4 text:
   geometric buckets as cumulative ``le`` buckets in seconds with
   ``_sum``/``_count``, trailing all-zero buckets elided (+Inf always
   emitted);
-- an alert manager's counters → ``gyt_alerts_<name>_total`` (the port
-  has no alert manager yet, so its runtime renders none).
+- an alert manager's counters → ``gyt_alerts_<name>_total`` (including
+  ``gyt_alerts_ncq_group_evals_total``: criteria-group predicate passes,
+  one per group of defs sharing a canonical filter).
 
 The ``metrics`` query subsystem serves this text
 (``query/api.py:local_response``).

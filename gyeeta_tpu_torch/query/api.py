@@ -10,11 +10,13 @@ JSON-compatible dict)::
      "sortcol": "p95resp5s", "sortdesc": true,      # optional sort
      "maxrecs": 100}
 
-The port serves the 20 subsystems whose columns come from ``AggState``,
-the ``DepGraph`` or the ``InternTable`` alone (:data:`SERVED`), and the
-process-local ``selfstats`` and ``metrics`` (:func:`local_response`);
-every other subsystem of ``fieldmaps.FIELDS_OF_SUBSYS`` raises
-``ValueError`` naming the ROADMAP.md item that ports it.
+The port serves 43 subsystems (:data:`SERVED`): those whose columns
+come from ``AggState``, the ``DepGraph`` or the host-side listener
+registry here, and those the runtime answers from its own providers
+(its registries, the alert manager, the notification log); plus the
+process-local ``selfstats`` and ``metrics`` (:func:`local_response`).
+``shardlist`` raises ``ValueError`` naming the ROADMAP.md item that
+ports it.
 """
 
 from __future__ import annotations
@@ -652,6 +654,93 @@ def svcsumm_columns(cfg: EngineCfg, st: AggState, names=None):
     return svcsumm_from_svc(cols, live, names)
 
 
+def svcinfo_columns(cfg: EngineCfg, st: AggState, names=None,
+                    svcreg=None):
+    """svcinfo: the host-side listener-metadata registry."""
+    if svcreg is None:
+        raise ValueError("svcinfo needs the listener-info registry")
+    return svcreg.columns(names)
+
+
+_EXT_JOIN_KEYS = (("ip", ""), ("port", 0.0), ("comm", ""),
+                  ("cmdline", ""), ("pid", 0.0), ("tstart", 0.0))
+
+
+def info_join(cols, live, info_cols, idcol="svcid",
+              keys=_EXT_JOIN_KEYS):
+    """Left-join svcinfo metadata columns onto any column set whose
+    ``idcol`` holds service glob-id hex strings (the "extended"
+    subsystems: state ⋈ info). Rows without announced metadata keep
+    defaults."""
+    n = len(cols[idcol])
+    # a lazy column set materializes everything: ext views are
+    # full-width joins
+    joined = cols.full() if isinstance(cols, LazyCols) else dict(cols)
+    out = {}
+    for key, default in keys:
+        col = np.empty(n, object if isinstance(default, str)
+                       else np.float64)
+        col[:] = default
+        out[key] = col
+    if info_cols:
+        pos_of = {sid: j for j, sid in enumerate(info_cols["svcid"])}
+        for i in np.nonzero(np.asarray(live, bool))[0]:
+            j = pos_of.get(joined[idcol][i])
+            if j is not None:
+                for key, _ in keys:
+                    out[key][i] = info_cols[key][j]
+    joined.update(out)
+    return joined, live
+
+
+def extsvcstate_columns(cfg: EngineCfg, st: AggState, names=None,
+                        svcreg=None):
+    """extsvcstate: svcstate ⋈ svcinfo on svcid. State rows without
+    announced metadata still appear, with empty info columns."""
+    cols, live = svc_columns(cfg, st, names=names)
+    info_cols, _ = (svcreg.columns(names) if svcreg is not None
+                    else ({}, None))
+    return info_join(cols, live, info_cols)
+
+
+def svcprocmap_columns(cfg: EngineCfg, st: AggState, names=None,
+                       svcreg=None):
+    """svcprocmap: listener ↔ process-group mapping through the shared
+    related_listen_id."""
+    tcols, tlive = task_columns(cfg, st, names=names)
+    info_cols, _ = (svcreg.columns(names) if svcreg is not None
+                    else (None, None))
+    return svcprocmap_join(tcols, tlive, info_cols)
+
+
+def svcprocmap_join(tcols, tlive, info_cols):
+    """Join task columns with svcinfo on related_listen_id."""
+    rows = {"svcid": [], "svcname": [], "relsvcid": [], "taskid": [],
+            "comm": [], "hostid": []}
+    if info_cols is not None and len(tcols["taskid"]):
+        by_rel: dict[str, list[int]] = {}
+        for i in np.nonzero(tlive)[0]:
+            by_rel.setdefault(tcols["relsvcid"][i], []).append(i)
+        for j, rel in enumerate(info_cols["relsvcid"]):
+            for i in by_rel.get(rel, ()):
+                rows["svcid"].append(info_cols["svcid"][j])
+                rows["svcname"].append(info_cols["svcname"][j])
+                rows["relsvcid"].append(rel)
+                rows["taskid"].append(tcols["taskid"][i])
+                rows["comm"].append(tcols["comm"][i])
+                rows["hostid"].append(float(tcols["hostid"][i]))
+    n = len(rows["svcid"])
+    cols = {}
+    for k, vals in rows.items():
+        if k == "hostid":
+            cols[k] = np.array(vals, np.float64)
+        else:
+            col = np.empty(n, object)
+            col[:] = vals
+            cols[k] = col
+    return cols, np.ones(n, bool)
+
+
 def traceuniq_from_trace(tcols, tlive):
     """Group per-(svc, api) trace columns by service → traceuniq."""
     idx = np.nonzero(np.asarray(tlive, bool))[0]
@@ -687,6 +776,26 @@ def _task_identity_cols(snap, names):
     }
 
 
+def procinfo_columns(cfg: EngineCfg, st: AggState, names=None):
+    """procinfo: the static face of the process-group slab (identity,
+    placement, service linkage)."""
+    snap = _live_rows(readback.task_snapshot(cfg, st), "live")
+    rel_ids = ((snap["rel_hi"].astype(np.uint64) << np.uint64(32))
+               | snap["rel_lo"].astype(np.uint64))
+    if names is not None:
+        svcnames = names.resolve_array(wire.NAME_KIND_SVC, rel_ids,
+                                       fallback_hex=False)
+    else:
+        svcnames = np.full(len(rel_ids), "", object)
+    cols = _task_identity_cols(snap, names)
+    cols.update({
+        "svcname": np.where(rel_ids == 0, "", svcnames),
+        "ntasks": snap["stats"][:, D.TASK_NTASKS],
+        "hostid": snap["hostid"],
+    })
+    return cols, snap["live"]
+
+
 _COLUMNS_OF = {
     fieldmaps.SUBSYS_SVCSTATE: svc_columns,
     fieldmaps.SUBSYS_HOSTSTATE: host_columns,
@@ -701,6 +810,7 @@ _COLUMNS_OF = {
     fieldmaps.SUBSYS_CPUMEM: cpumem_columns,
     fieldmaps.SUBSYS_TRACEREQ: trace_columns,
     fieldmaps.SUBSYS_SVCSUMM: svcsumm_columns,
+    fieldmaps.SUBSYS_PROCINFO: procinfo_columns,
 }
 
 # subsystems whose columns come from the dependency graph, not AggState
@@ -711,34 +821,36 @@ _DEP_COLUMNS_OF = {
     fieldmaps.SUBSYS_CLIENTCONN: clientconn_columns,
 }
 
-# subsystems the runtime answers from its own providers (heavy-hitter
-# recovery, the trace slab grouped, the host-report ticks)
-RUNTIME_SUBSYS = (fieldmaps.SUBSYS_TOPK, fieldmaps.SUBSYS_TRACEUNIQ,
-                  fieldmaps.SUBSYS_HOSTLIST)
+# subsystems backed by the host-side listener-metadata registry
+_SVCREG_COLUMNS_OF = {
+    fieldmaps.SUBSYS_SVCINFO: svcinfo_columns,
+    fieldmaps.SUBSYS_EXTSVCSTATE: extsvcstate_columns,
+    fieldmaps.SUBSYS_SVCPROCMAP: svcprocmap_columns,
+}
 
-# every subsystem the port serves (20)
-SERVED = tuple(_COLUMNS_OF) + tuple(_DEP_COLUMNS_OF) + RUNTIME_SUBSYS
+# subsystems the runtime answers from its own providers (heavy-hitter
+# recovery, the trace slab grouped, the host-report ticks, the host-side
+# registries, the alert manager, the notification log, its own status)
+RUNTIME_SUBSYS = (
+    fieldmaps.SUBSYS_TOPK, fieldmaps.SUBSYS_TRACEUNIQ,
+    fieldmaps.SUBSYS_HOSTLIST, fieldmaps.SUBSYS_HOSTINFO,
+    fieldmaps.SUBSYS_TRACEDEF, fieldmaps.SUBSYS_TRACESTATUS,
+    fieldmaps.SUBSYS_TRACECONN, fieldmaps.SUBSYS_TAGS,
+    fieldmaps.SUBSYS_MOUNTSTATE, fieldmaps.SUBSYS_NETIF,
+    fieldmaps.SUBSYS_EXTACTIVECONN, fieldmaps.SUBSYS_EXTCLIENTCONN,
+    fieldmaps.SUBSYS_EXTTRACEREQ, fieldmaps.SUBSYS_CGROUPSTATE,
+    fieldmaps.SUBSYS_SVCIPCLUST, fieldmaps.SUBSYS_ALERTS,
+    fieldmaps.SUBSYS_ALERTDEF, fieldmaps.SUBSYS_SILENCES,
+    fieldmaps.SUBSYS_INHIBITS, fieldmaps.SUBSYS_ACTIONS,
+    fieldmaps.SUBSYS_NOTIFYMSG, fieldmaps.SUBSYS_SERVERSTATUS)
+
+# every subsystem the port serves (43)
+SERVED = (tuple(_COLUMNS_OF) + tuple(_DEP_COLUMNS_OF)
+          + tuple(_SVCREG_COLUMNS_OF) + RUNTIME_SUBSYS)
 
 # the rest of fieldmaps.FIELDS_OF_SUBSYS, by the ROADMAP.md item that
 # ports it
-UNPORTED_SUBSYS = {
-    **dict.fromkeys((
-        fieldmaps.SUBSYS_SVCINFO, fieldmaps.SUBSYS_PROCINFO,
-        fieldmaps.SUBSYS_HOSTINFO, fieldmaps.SUBSYS_EXTSVCSTATE,
-        fieldmaps.SUBSYS_SVCPROCMAP, fieldmaps.SUBSYS_TRACEDEF,
-        fieldmaps.SUBSYS_TRACESTATUS, fieldmaps.SUBSYS_TRACECONN,
-        fieldmaps.SUBSYS_TAGS, fieldmaps.SUBSYS_MOUNTSTATE,
-        fieldmaps.SUBSYS_NETIF, fieldmaps.SUBSYS_EXTACTIVECONN,
-        fieldmaps.SUBSYS_EXTCLIENTCONN, fieldmaps.SUBSYS_EXTTRACEREQ,
-        fieldmaps.SUBSYS_CGROUPSTATE, fieldmaps.SUBSYS_SVCIPCLUST),
-        unported.REGISTRIES),
-    **dict.fromkeys((
-        fieldmaps.SUBSYS_ALERTS, fieldmaps.SUBSYS_ALERTDEF,
-        fieldmaps.SUBSYS_SILENCES, fieldmaps.SUBSYS_INHIBITS,
-        fieldmaps.SUBSYS_ACTIONS, fieldmaps.SUBSYS_NOTIFYMSG,
-        fieldmaps.SUBSYS_SERVERSTATUS), unported.ALERTS),
-    fieldmaps.SUBSYS_SHARDLIST: unported.SHARDED,
-}
+UNPORTED_SUBSYS = {fieldmaps.SUBSYS_SHARDLIST: unported.SHARDED}
 
 # top-N views: preset sort + limit over taskstate columns
 _TOP_PRESETS = {
@@ -762,13 +874,17 @@ def check_served(subsys: str) -> str:
 
 
 def columns_for(cfg: EngineCfg, st: AggState, subsys: str, names=None,
-                dep=None, aux=None):
+                dep=None, svcreg=None, aux=None):
     """Resolve a subsystem to its (cols, base_mask) column source:
-    runtime providers (``aux``) ≻ dep-graph views ≻ device-slab
-    readbacks."""
+    runtime providers (``aux``) ≻ the listener registry ≻ dep-graph
+    views ≻ device-slab readbacks. Shared by query execution and
+    realtime alertdef evaluation."""
     check_served(subsys)
     if aux is not None and subsys in aux:
         return aux[subsys]()
+    if subsys in _SVCREG_COLUMNS_OF:
+        return _SVCREG_COLUMNS_OF[subsys](cfg, st, names=names,
+                                          svcreg=svcreg)
     if subsys in _DEP_COLUMNS_OF:
         return _DEP_COLUMNS_OF[subsys](cfg, st, names=names, dep=dep)
     if subsys not in _COLUMNS_OF:
@@ -784,22 +900,17 @@ LOCAL_SUBSYS = ("selfstats", "metrics")
 
 def local_response(rt, req: dict, snapshot=None):
     """Answer a process-local subsystem for a runtime (``.stats``,
-    ``.spans``, ``.flush()``, ``.engine_health()``), or None when
-    ``req`` targets an engine subsystem.
+    ``.alerts``, ``.spans``, ``.flush()``, ``.engine_health()``), or
+    None when ``req`` targets an engine subsystem.
 
     ``snapshot`` (an ``EngineSnapshot``) selects the snapshot path: a
     ``metrics`` scrape refreshes only the freshness gauges and renders
     the gauges the last tick's health pass left, without touching live
     device state; the strong path folds staged records and refreshes
-    the health gauges first.
-
-    The port has no alert manager yet (ROADMAP.md, queue 1: the alert
-    manager and CRUD): ``selfstats`` carries ``"alerts": {}`` and
-    ``metrics`` no ``gyt_alerts_*_total`` lines, where the reference
-    renders its alert manager's counters."""
+    the health gauges first."""
     subsys = req.get("subsys")
     if subsys == "selfstats":
-        return selfstats_response(rt.stats, None, spans=rt.spans)
+        return selfstats_response(rt.stats, rt.alerts, spans=rt.spans)
     if subsys == "metrics":
         if snapshot is None:
             rt.flush()
@@ -808,12 +919,13 @@ def local_response(rt, req: dict, snapshot=None):
             rt.stats.gauge("snapshot_age_seconds", max(
                 0.0, rt._clock() - snapshot.published_at))
             rt.stats.gauge("snapshot_tick", float(snapshot.tick))
-        return prom.metrics_response(rt.stats, None)
+        return prom.metrics_response(rt.stats, rt.alerts)
     return None
 
 
 def execute(cfg: EngineCfg, st: AggState, opts: QueryOptions,
-            names=None, dep=None, columns_fn=None, aux=None) -> dict:
+            names=None, dep=None, columns_fn=None, svcreg=None,
+            aux=None) -> dict:
     """Run one point-in-time query → {"recs": [...], "nrecs": N}.
 
     ``columns_fn(subsys) -> (cols, base_mask)`` overrides the column
@@ -828,7 +940,7 @@ def execute(cfg: EngineCfg, st: AggState, opts: QueryOptions,
         cols, base_mask = columns_fn(opts.subsys)
     else:
         cols, base_mask = columns_for(cfg, st, opts.subsys, names=names,
-                                      dep=dep, aux=aux)
+                                      dep=dep, svcreg=svcreg, aux=aux)
     tree = criteria.parse(opts.filter) if opts.filter else None
     mask = base_mask & criteria.evaluate(tree, cols, opts.subsys)
     idx = np.nonzero(mask)[0]
@@ -883,7 +995,7 @@ def execute(cfg: EngineCfg, st: AggState, opts: QueryOptions,
 
 
 def query_json(cfg: EngineCfg, st: AggState, req: dict,
-               names=None, dep=None, aux=None) -> dict:
+               names=None, dep=None, svcreg=None, aux=None) -> dict:
     """JSON-envelope entry point."""
     return execute(cfg, st, QueryOptions.from_json(req), names=names,
-                   dep=dep, aux=aux)
+                   dep=dep, svcreg=svcreg, aux=aux)

@@ -138,7 +138,9 @@ def _vol(cur, stats):
     from gyeeta_tpu_torch.ingest.decode import STAT_NQRYS
 
     nqrys = torch.maximum(loghist.counts_total(cur), stats[:, STAT_NQRYS])
-    return _host({"nqry5s": nqrys, "qps5s": nqrys / 5.0})
+    # the reference's compiled nqrys / 5.0 multiplies by the float32
+    # reciprocal (XLA's rewrite): the same rounding here
+    return _host({"nqry5s": nqrys, "qps5s": nqrys * 0.2})
 
 
 def svcstate_vol(cfg: EngineCfg, st: AggState):
@@ -207,7 +209,7 @@ def svcstate_snapshot(cfg: EngineCfg, st: AggState):
         "glob_id_lo": st.tbl.key_lo,
         "live": table.live_mask(st.tbl),
         "nqry5s": nqrys,
-        "qps5s": nqrys / 5.0,
+        "qps5s": nqrys * 0.2,          # as in _vol
         "resp5s_us": loghist.mean(h5, spec),
         "p95resp5s_us": q5[:, 1],
         "p99resp5s_us": q5[:, 2],

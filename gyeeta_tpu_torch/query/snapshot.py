@@ -14,9 +14,11 @@ tick.
 Snapshot state is never written after the publish, so device readbacks
 from any number of query threads are safe. Per-request and
 per-subsystem locks make concurrent identical misses on a fresh
-snapshot render once (single flight). Views of the tiers the port does
-not have (the registries, alerts, ``serverstatus``, ``shardlist``) are
-refused by name (``api.check_served``), as on the strong path.
+snapshot render once (single flight). Host-side registries stay shared
+with the live runtime: their renders run under the runtime's registry
+lock and are memoized per snapshot; a CRUD mutation clears this
+snapshot's caches (:meth:`EngineSnapshot.on_mutation`). ``shardlist``
+is refused by name (``api.check_served``), as on the strong path.
 """
 
 from __future__ import annotations
@@ -33,6 +35,26 @@ from gyeeta_tpu_torch.query.lazycols import rows_of
 from gyeeta_tpu_torch.query.normalize import request_key
 from gyeeta_tpu_torch.sketch import invertible
 from gyeeta_tpu_torch.utils.colcache import ColumnCache
+
+# registry-backed renders race host-side mutators the registry lock does
+# not cover (notification-log appends from the tick loop, alert
+# bookkeeping during a check): a concurrent structural mutation raises
+# RuntimeError("... changed size/mutated during iteration"), rare at
+# per-snapshot memo frequency, so a short retry is the remedy
+_AUX_RETRIES = 3
+
+# aux views served straight from host-side registries (no device state
+# in their providers): the runtime's live aux table, under its lock
+_REGISTRY_AUX = frozenset((
+    "hostinfo", "cgroupstate", "mountstate", "netif", "alerts",
+    "alertdef", "silences", "inhibits", "actions", "notifymsg",
+    "svcipclust", "tags", "tracedef", "tracestatus",
+))
+
+# ext views: the base subsystem ⋈ svcinfo, and the join's id column
+_EXT_BASE = {"extactiveconn": ("activeconn", "svcid"),
+             "extclientconn": ("clientconn", "cliid"),
+             "exttracereq": ("tracereq", "svcid")}
 
 
 def recover(cfg, state) -> dict:
@@ -122,9 +144,9 @@ class EngineSnapshot:
         return out
 
     def on_mutation(self) -> None:
-        """Invalidation hook for a mutation of host-side views between
-        publishes: drops both caches (device-backed columns recompute
-        from the frozen state)."""
+        """CRUD invalidation hook: a registry, alert or tracedef
+        mutation changes aux views mid-snapshot, so both caches drop
+        (device-backed columns recompute from the frozen state)."""
         with self._lock:
             self._results.clear()
         self._cols.bump()
@@ -137,7 +159,11 @@ class EngineSnapshot:
     def columns(self, subsys: str):
         """(cols, mask) for ``subsys`` over the frozen view, memoized per
         snapshot: queries differing only in filter, sort or projection
-        share one readback."""
+        share one readback. A ``subsys@window`` source (a windowed
+        alertdef) raises ValueError: it needs history shards."""
+        if "@" in subsys:
+            raise ValueError("windowed alertdef needs history shards "
+                             "(hist_shard_dir)")
         got = self._cols.peek(subsys)
         if got is not None:
             return got
@@ -145,15 +171,48 @@ class EngineSnapshot:
             return self._cols.get(subsys, lambda: self._columns(subsys))
 
     def _columns(self, subsys: str):
+        rt = self.rt
+        if subsys in _REGISTRY_AUX:
+            return self._retry_aux(rt._aux[subsys])
         if subsys == "topk":
             return self._topk_columns()
         if subsys == "hostlist":
             return self._hostlist_columns()
+        if subsys == "serverstatus":
+            return self._serverstatus_columns()
         if subsys == "traceuniq":
             tcols, tlive = self.columns("tracereq")
             return api.traceuniq_from_trace(tcols, tlive)
-        return api.columns_for(self.rt.cfg, self.state, subsys,
-                               names=self.rt.names, dep=self.dep)
+        if subsys == "traceconn":
+            return self._retry_aux(lambda: rt.traceconns.columns(
+                rt.names, svc_task_ids=self._svc_task_ids()))
+        if subsys in _EXT_BASE:
+            base, idcol = _EXT_BASE[subsys]
+            cols, live = self.columns(base)
+            info_cols, _ = self._retry_aux(
+                lambda: rt.svcreg.columns(rt.names))
+            return api.info_join(cols, live, info_cols, idcol=idcol)
+        out = api.columns_for(rt.cfg, self.state, subsys, names=rt.names,
+                              dep=self.dep, svcreg=rt.svcreg)
+        if subsys == "procinfo":
+            # tags mutate through CRUD, which clears this snapshot's
+            # caches: the join inside the memo stays consistent
+            out = rt.tags.with_tags(out)
+        return out
+
+    def _retry_aux(self, fn):
+        """Run a host-side registry render under the registry lock,
+        retrying the rare iteration-vs-mutation race."""
+        for attempt in range(_AUX_RETRIES):
+            try:
+                with self.rt._reg_lock:
+                    return fn()
+            except RuntimeError as e:
+                if attempt + 1 == _AUX_RETRIES or (
+                        "changed size" not in str(e)
+                        and "mutated" not in str(e)):
+                    raise
+        raise AssertionError("unreachable")
 
     # ------------------------------------------- state-backed aux views
     def _topk_columns(self):
@@ -171,10 +230,17 @@ class EngineSnapshot:
         return api.hostlist_columns(self._host_last_ticks(), self.tick,
                                     self.rt.names)
 
+    def _serverstatus_columns(self):
+        """serverstatus over this snapshot's tick and host reports."""
+        return self.rt.serverstatus_columns(
+            tick=self.tick,
+            nhosts=int((self._host_last_ticks() >= 0).sum()),
+            nsvc=float(self.state.tbl.n_live))
+
     def _svc_task_ids(self):
         """Hex process-group ids that serve a listener (taskstate rows
         with a nonzero relsvcid): the ``traceconn`` view's server-side
-        source, for the registries' port."""
+        source."""
         cols, live = self.columns("taskstate")
         zero = "0" * 16
         idx = np.nonzero(np.asarray(live, bool))[0]

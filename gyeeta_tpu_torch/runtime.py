@@ -4,33 +4,40 @@ Counterpart of ``gyeeta_tpu/runtime.py`` on its default fused-fold
 path: ``feed()`` takes byte streams (the reference's Python deframe),
 stages raw conn/resp records, sweep sections and edge pre-aggregated
 SKETCH_DELTA records on the host and folds them in one ``fold_all``
-dispatch per feed boundary; ``run_tick()`` closes a 5s window (digest
-drain, classification, snapshot publish, heavy-hitter recovery,
-dependency-graph ageing, health readback, window tick, ageing and
+dispatch per feed boundary, and keeps the announce-rate records
+(listener, host, cgroup, mount and interface inventories, traced
+connections, VIP clusters) in host-side registries; ``run_tick()``
+closes a 5s window (digest drain, classification, snapshot publish,
+heavy-hitter recovery, the alert check, dependency-graph and registry
+ageing, health readback and drop pressure, window tick, ageing and
 compaction cadences, checkpoints); ``query()`` answers the JSON query
 API on the strong path (staged events are folded first, the live state
 is read) or, with ``consistency="snapshot"``, from the last published
 :class:`~gyeeta_tpu_torch.query.snapshot.EngineSnapshot`; it also
-serves ``multiquery`` batches and the ``selfstats`` and ``metrics``
-subsystems.
+serves ``multiquery`` batches, the ``selfstats`` and ``metrics``
+subsystems and the CRUD channel (``"op"`` requests: alertdefs,
+silences, inhibits, actions, tags, tracedefs).
 
 The state lives on ``device`` — CUDA unless the caller asks for the
-CPU, and a GPU-less machine raises (``device.resolve``). Tiers not
-ported yet — the alert manager and CRUD, history and the journal, the
-host-side registries — refuse their records, options, subsystems and
-request forms with :class:`~gyeeta_tpu_torch.unported.NotPortedError`,
-naming the ROADMAP.md item that ports them.
+CPU, and a GPU-less machine raises (``device.resolve``). History and
+the journal are not ported yet: their request forms and options raise
+:class:`~gyeeta_tpu_torch.unported.NotPortedError`, naming the
+ROADMAP.md item that ports them.
 
-Host↔device crossings of a feed: the section and slab columns go to the
-device once per dispatch; the digest-stage pressure of the dispatch two
-back is read (``int()``, a sync) before each dispatch, exactly the
-reference's lag, because the timing of ``td_flush_partial`` changes the
-digest state; the tick number goes to ``fold_all`` as a host int, which
-it fills on the device.
+Host↔device crossings of a feed: the conn/resp slab is decoded into one
+of two pinned staging buffers, flipped each slab dispatch, and copied
+to the device without blocking; the buffer's copy event is waited on
+before the host decodes into it again, two dispatches later. The
+section columns go to the device once per dispatch; the digest-stage
+pressure of the dispatch two back is read (``int()``, a sync) before
+each dispatch, exactly the reference's lag, because the timing of
+``td_flush_partial`` changes the digest state; the tick number goes to
+``fold_all`` as a host int, which it fills on the device.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
 from typing import Optional
@@ -38,7 +45,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gyeeta_tpu_torch import unported
+from gyeeta_tpu_torch import unported, version as V
+from gyeeta_tpu_torch.alerts import AlertManager, columns as AC
 from gyeeta_tpu_torch.device import resolve
 from gyeeta_tpu_torch.engine import aggstate, compact, step
 from gyeeta_tpu_torch.engine.aggstate import EngineCfg
@@ -49,11 +57,20 @@ from gyeeta_tpu_torch.parallel import depgraph as dg
 from gyeeta_tpu_torch.query import api, crud
 from gyeeta_tpu_torch.query.snapshot import EngineSnapshot, recover
 from gyeeta_tpu_torch.semantic import derive
+from gyeeta_tpu_torch.trace.defs import TraceDefs
 from gyeeta_tpu_torch.utils import checkpoint as ckpt
+from gyeeta_tpu_torch.utils import dnsmap, droppressure
 from gyeeta_tpu_torch.utils.colcache import ColumnCache
 from gyeeta_tpu_torch.utils.config import RuntimeOpts, check_ported
+from gyeeta_tpu_torch.utils.hostreg import CgroupRegistry, \
+    HostInfoRegistry, MountRegistry, NetIfRegistry
 from gyeeta_tpu_torch.utils.intern import InternTable
+from gyeeta_tpu_torch.utils.natreg import NatClusterRegistry
+from gyeeta_tpu_torch.utils.notifylog import NotifyLog
 from gyeeta_tpu_torch.utils.selfstats import Stats
+from gyeeta_tpu_torch.utils.svcreg import SvcInfoRegistry
+from gyeeta_tpu_torch.utils.tagreg import TagRegistry
+from gyeeta_tpu_torch.utils.traceconnreg import TraceConnRegistry
 from gyeeta_tpu_torch.utils.tensor import tree_map
 
 # a native resp stream is "live" for bridge-suppression purposes if it
@@ -97,14 +114,13 @@ _SECTION_BUILDERS = {
     "cpumem": decode.cpumem_batch_fast, "trace": decode.trace_batch,
 }   # + "delta", bound per runtime to its stats and geometry
 
-# record kinds of unported tiers → the ROADMAP.md item that ports them
-_UNPORTED_KINDS = {
-    wire.NOTIFY_LISTENER_INFO: ("LISTENER_INFO records",
-                                unported.REGISTRIES),
-    wire.NOTIFY_HOST_INFO: ("HOST_INFO records", unported.REGISTRIES),
-    wire.NOTIFY_CGROUP_STATE: ("CGROUP_STATE records", unported.REGISTRIES),
-    wire.NOTIFY_MOUNT_STATE: ("MOUNT_STATE records", unported.REGISTRIES),
-    wire.NOTIFY_NETIF_STATE: ("NETIF_STATE records", unported.REGISTRIES),
+# announce-rate record kinds → (registry attribute, selfstats counter)
+_REGISTRY_KINDS = {
+    "listener_info": ("svcreg", "listener_infos"),
+    "host_info": ("hostinfo", "host_infos"),
+    "cgroup": ("cgroups", "cgroup_records"),
+    "mount": ("mounts", "mount_records"),
+    "netif": ("netifs", "netif_records"),
 }
 
 # agent delivery-continuity fields of AGENT_STATS → server counters
@@ -125,6 +141,7 @@ class Runtime:
         self.state = aggstate.init(self.cfg, self.device)
         self.stats = Stats()
         self.spans = SpanTracer()     # pipeline span ring (selfstats)
+        self.alerts = AlertManager(self.cfg, clock=clock)
         # wall clock of the snapshot tier's freshness gauges
         self._clock = clock or time.time
         # per-host sweep-seq high-water marks (NOTIFY_SWEEP_SEQ),
@@ -163,14 +180,65 @@ class Runtime:
         # dispatch (drained at the end of every ingest_records call)
         self._stage_recs = {k: [] for k in self._slab_lanes_cfg}
         self._stage_n = {k: 0 for k in self._slab_lanes_cfg}
-        self.names = InternTable()
-        self._aux = {
-            "topk": self._topk_columns,
-            "traceuniq": self._traceuniq_columns,
-            "hostlist": self._hostlist_columns,
-        }
+        # double-buffered conn/resp staging slabs (pinned on CUDA): the
+        # host decodes into the idle buffer while the copies out of the
+        # other may still be in flight; "copied" is that buffer's copy
+        # event, waited on before the next decode into it
+        K = self.cfg.fold_k
+        pin = self.device.type == "cuda"
+        self._slab_bufs = [
+            {"conn": decode.alloc_conn_cols(K * self.cfg.conn_batch, pin),
+             "resp": decode.alloc_resp_cols(K * self.cfg.resp_batch, pin),
+             "hw_conn": 0, "hw_resp": 0, "copied": None}
+            for _ in range(2)]
+        self._slab_active = 0
         self.snapshot = None          # last published EngineSnapshot
         self._snap_version = 0
+        # registry renders run on query threads in snapshot mode while
+        # updates run on the feed loop: the lock keeps dict iteration
+        # away from structural mutation
+        self._reg_lock = threading.RLock()
+        self.names = InternTable()
+        self.svcreg = SvcInfoRegistry()
+        self.hostinfo = HostInfoRegistry()
+        self.cgroups = CgroupRegistry()
+        self.mounts = MountRegistry()
+        self.netifs = NetIfRegistry()
+        self.natclusters = NatClusterRegistry()
+        self.traceconns = TraceConnRegistry()
+        self.tags = TagRegistry()
+        self.dns = dnsmap.DnsCache()
+        self.notifylog = NotifyLog(clock=clock)
+        self.tracedefs = TraceDefs(clock=clock)
+        self._last_drops: dict = {}   # drop-pressure counters, last tick
+        self._t_started = self._clock()
+        self._aux = {
+            "topk": self._topk_columns,
+            "tracedef": lambda: self.tracedefs.columns(),
+            "tracestatus": lambda: self.tracedefs.columns(),
+            "traceuniq": self._traceuniq_columns,
+            "traceconn": lambda: self.traceconns.columns(
+                self.names, svc_task_ids=self._svc_task_ids()),
+            "extactiveconn": lambda: self._ext_join("activeconn"),
+            "extclientconn": lambda: self._ext_join("clientconn",
+                                                    idcol="cliid"),
+            "exttracereq": lambda: self._ext_join("tracereq"),
+            "hostinfo": lambda: self.hostinfo.columns(self.names),
+            "cgroupstate": lambda: self.cgroups.columns(self.names),
+            "mountstate": lambda: self.mounts.columns(self.names),
+            "netif": lambda: self.netifs.columns(self.names),
+            "alerts": lambda: AC.alerts_columns(self.alerts),
+            "alertdef": lambda: AC.alertdef_columns(self.alerts),
+            "silences": lambda: AC.silences_columns(self.alerts),
+            "inhibits": lambda: AC.inhibits_columns(self.alerts),
+            "actions": lambda: AC.actions_columns(self.alerts),
+            "notifymsg": lambda: self.notifylog.columns(self.names),
+            "hostlist": self._hostlist_columns,
+            "serverstatus": self._serverstatus_columns,
+            "svcipclust": lambda: dnsmap.annotate_vip_cols(
+                self.natclusters.columns(self.names), self.dns),
+            "tags": lambda: self.tags.columns(),
+        }
 
     # ------------------------------------------------------------- ingest
     def feed(self, buf: bytes) -> int:
@@ -194,11 +262,7 @@ class Runtime:
         return self.ingest_records(recs)
 
     def ingest_records(self, recs: dict) -> int:
-        """Fold a drained {subtype: record array} dict. A record kind of
-        an unported tier is refused before anything is staged."""
-        for sub, (what, item) in _UNPORTED_KINDS.items():
-            if sub in recs:
-                raise unported.refuse(what, item)
+        """Fold a drained {subtype: record array} dict."""
         n = 0
         sw = recs.pop(wire.NOTIFY_SWEEP_SEQ, None)
         if sw is not None and len(sw):
@@ -209,6 +273,8 @@ class Runtime:
             n += len(sw)
         conn = recs.pop(wire.NOTIFY_TCP_CONN, None)
         if conn is not None and len(conn):
+            with self._reg_lock:
+                self.natclusters.observe_conns(conn)
             self._conn_raw.append(conn)
             self._n_conn_raw += len(conn)
             self.stats.bump("conn_events", len(conn))
@@ -227,6 +293,12 @@ class Runtime:
                 self.cfg.listener_batch):
             if kind in _SECTION_COUNTERS:
                 n += self._stage_section(kind, chunks[0])
+            elif kind in _REGISTRY_KINDS:
+                reg, ctr = _REGISTRY_KINDS[kind]
+                with self._reg_lock:
+                    self.stats.bump(ctr,
+                                    getattr(self, reg).update(chunks[0]))
+                n += len(chunks[0])
             elif kind == "agent_stats":
                 # agent delivery-continuity deltas → server counters
                 for fld, ctr in _AGENT_STATS_COUNTERS:
@@ -236,8 +308,9 @@ class Runtime:
             elif kind == "names":
                 # names are not telemetry events, but resolved names are
                 # part of every view
-                self.stats.bump("names_interned",
-                                self.names.update(chunks[0]))
+                with self._reg_lock:
+                    self.stats.bump("names_interned",
+                                    self.names.update(chunks[0]))
                 self._cols.bump()
         self._dispatch_fused_pending()
         if n:
@@ -245,9 +318,12 @@ class Runtime:
         return n
 
     def _observe_trace(self, recs) -> None:
-        """Host half of the trace fold: the trace→resp bridge, with
-        per-host native-stream precedence (hosts with a recent native
-        RESP_SAMPLE stream are not bridged)."""
+        """Host half of the trace fold: the traced-connection registry
+        and the trace→resp bridge, with per-host native-stream
+        precedence (hosts with a recent native RESP_SAMPLE stream are
+        not bridged)."""
+        with self._reg_lock:
+            self.traceconns.observe(recs)
         if self.opts.trace_resp_bridge:
             rs = decode.resp_from_trace(recs)
             hid = rs["host_id"]
@@ -287,18 +363,38 @@ class Runtime:
                                     or self._n_resp_raw >= nr)
                 else None)
 
-    def _take_connresp(self, k: int):
+    def _take_connresp(self, k: int, buf=None):
         """Decode up to ``k`` microbatches of the staged conn/resp
         records into one ``(k, B)`` slab → (conn slab, resp slab,
-        records taken)."""
+        records taken). ``buf``: a staging-slab buffer to decode into
+        (its previous copies to the device have landed)."""
         crecs, nc = decode.take_raw_chunks(self._conn_raw,
                                            k * self.cfg.conn_batch)
         rrecs, nr = decode.take_raw_chunks(self._resp_raw,
                                            k * self.cfg.resp_batch)
         self._n_conn_raw -= nc
         self._n_resp_raw -= nr
-        return (decode.conn_slab(crecs, k, self.cfg.conn_batch),
-                decode.resp_slab(rrecs, k, self.cfg.resp_batch), nc, nr)
+        if buf is None:
+            return (decode.conn_slab(crecs, k, self.cfg.conn_batch),
+                    decode.resp_slab(rrecs, k, self.cfg.resp_batch),
+                    nc, nr)
+        cbs = decode.conn_slab(crecs, k, self.cfg.conn_batch,
+                               out=buf["conn"], clear_to=buf["hw_conn"])
+        rbs = decode.resp_slab(rrecs, k, self.cfg.resp_batch,
+                               out=buf["resp"], clear_to=buf["hw_resp"])
+        buf["hw_conn"], buf["hw_resp"] = nc, nr
+        return cbs, rbs, nc, nr
+
+    def _flip_slab_buf(self) -> dict:
+        """The idle staging-slab buffer, made the active one; waits for
+        its copies of two dispatches back to leave it."""
+        buf = self._slab_bufs[self._slab_active]
+        self._slab_active ^= 1
+        self.stats.bump("stage_slab_flips")
+        if buf["copied"] is not None:
+            buf["copied"].synchronize()
+            buf["copied"] = None
+        return buf
 
     def _dispatch_fused(self, connresp=None) -> None:
         """One fused device dispatch: the staged sections, optionally
@@ -307,6 +403,7 @@ class Runtime:
         and the digest-stage pressure scalar."""
         sections = {}
         nc = nr = 0
+        buf = None
         with self.stats.timeit("decode"):
             for kind in self._slab_lanes_cfg:
                 if self._stage_n[kind]:
@@ -319,7 +416,8 @@ class Runtime:
                     self._stage_n[kind] = 0
             if connresp == "slab":
                 K = self.cfg.fold_k
-                cbs, rbs, nc, nr = self._take_connresp(K)
+                buf = self._flip_slab_buf()
+                cbs, rbs, nc, nr = self._take_connresp(K, buf)
                 # host-side staging gauges: slab fill at dispatch
                 self.stats.gauge("engine_stage_slab_conn_occupancy",
                                  round(nc / (K * self.cfg.conn_batch), 4))
@@ -343,11 +441,17 @@ class Runtime:
         names = tuple(k for k in step.FOLD_ALL_ORDER if k in sections)
         with self.stats.timeit("fold_dispatch"), \
                 self.spans.span("decode_fold", nrec=nc + nr, path="python"):
-            secs = {k: (decode.to_device(sections[k][0], self.device),
-                        decode.to_device(sections[k][1], self.device))
+            staged = buf is not None
+            secs = {k: (decode.to_device(sections[k][0], self.device,
+                                         staged=staged),
+                        decode.to_device(sections[k][1], self.device,
+                                         staged=staged))
                     if k == "connresp"
                     else decode.to_device(sections[k], self.device)
                     for k in names}
+            if staged and self.device.type == "cuda":
+                buf["copied"] = torch.cuda.Event()
+                buf["copied"].record()
             self.state, self.dep, pressure = step.fold_all(
                 self.cfg, self.state, self.dep, self._tick_no, **secs)
         self._pressures.append(pressure)
@@ -462,28 +566,39 @@ class Runtime:
 
     def _run_tick(self) -> dict:
         """Close one 5s window → the tick report (the reference's keys
-        but those of unported tiers: ``alerts_fired``,
-        ``history_rows``). The snapshot dashboards read for the next
-        window is published right after classification."""
+        but ``history_rows``: history is not ported). The snapshot
+        dashboards read for the next window is published right after
+        classification; the alert check reads its columns through it,
+        which pre-warms them for the queries of the window."""
         self.flush()
         if self._td_dirty:    # tick-cadence digest compression (bounded)
             self.td_drain(max_iters=self.opts.td_drain_iters_per_tick)
         report = {}
         self.state = derive.classify_pass(self.cfg, self.state)
         self._cols.bump()             # classify + tick mutate views
-        self.publish_snapshot()
+        snap = self.publish_snapshot()
         ev = self.opts.hh_recover_every_ticks
         if ev and self.cfg.hh_width > 0 \
                 and (self._tick_no + 1) % ev == 0:
             report["topk_recovered"] = self._cols.get(
                 "__hh_recover", self.heavy_recover)["recovered_keys"]
+        fired = self._alert_step(snap)
         tick = int(self.state.resp_win.tick) + 1
         report["tick"] = tick
         self._tick_no = tick
         self.stats.gauge("tick", tick)
         self.dep = dg.age(self.dep, tick, self.opts.dep_pair_ttl_ticks,
                           self.opts.dep_edge_ttl_ticks)
-        self.engine_health()
+        with self._reg_lock:      # ageing mutates what renders iterate
+            self.cgroups.age()
+            self.mounts.age()
+            self.netifs.age()
+            self.natclusters.age()
+            self.traceconns.age()
+        report["alerts_fired"] = len(fired)
+        for a in fired:
+            self.notifylog.add_alert(a)
+        self._drop_pressure_step()
         self.state = step.tick_5s(self.cfg, self.state)
         if tick % self.opts.task_age_every_ticks == 0:
             self.state = step.age_tasks(self.cfg, self.state,
@@ -514,19 +629,100 @@ class Runtime:
         self._cols.bump()
         return report
 
+    def _alert_step(self, snap) -> list:
+        """The tick's realtime alert check over ``snap``'s columns → the
+        alerts notified. Without an enabled realtime def no column is
+        rendered (counted ``alert_eval_skipped``); pending group-wait
+        batches still flush."""
+        if self.alerts.wants_realtime():
+            return self.alerts.check(self.state, columns_fn=snap.columns)
+        self.stats.bump("alert_eval_skipped")
+        return self.alerts.flush_groups()
+
+    def _drop_pressure_step(self) -> None:
+        """The tick's health readback, and the drop-pressure check on
+        the probe-failure and dependency-drop counters it carries
+        (growing drops → a notifymsg entry, counters and a gauge)."""
+        health = self.engine_health()
+        self._last_drops = droppressure.check(
+            obs_health.drops_for_pressure(health),
+            {"svc": self.cfg.svc_capacity,
+             "task": self.cfg.task_capacity,
+             "api": self.cfg.api_capacity,
+             "dep": self.opts.dep_pair_capacity},
+            self._last_drops, self.notifylog, self.stats)
+
     # ------------------------------------------------------- providers
     def _hostlist_columns(self):
         """hostlist (ref parthalist) over the live state."""
         return api.hostlist_columns(self.state.host_last_tick.cpu().numpy(),
                                     self._tick_no, self.names)
 
+    def serverstatus_columns(self, tick: int, nhosts: int, nsvc: float):
+        """serverstatus (one row of self status) at ``tick`` over
+        ``nhosts`` reporting hosts and ``nsvc`` live services, with the
+        live counters."""
+        c = self.stats.counters
+        num = lambda v: np.array([float(v)], np.float64)  # noqa: E731
+        cols = {
+            "uptime": num(self._clock() - self._t_started),
+            "tick": num(tick),
+            "nhosts": num(nhosts),
+            "nsvc": num(nsvc),
+            # exact host-side int counters
+            "connevents": num(c.get("conn_events", 0)),
+            "respevents": num(c.get("resp_events", 0)),
+            "queries": num(c.get("queries", 0)),
+            "alertsfired": num(self.alerts.stats.get("nfired", 0)),
+            "wirever": num(V.CURR_WIRE_VERSION),
+            "version": np.array([V.__version__], object),
+        }
+        return cols, np.ones(1, bool)
+
+    def _serverstatus_columns(self):
+        return self.serverstatus_columns(
+            tick=self._tick_no,
+            nhosts=int((self.state.host_last_tick >= 0).sum()),
+            nsvc=float(self.state.tbl.n_live))
+
+    def _alert_columns(self, subsys: str):
+        """Column source of realtime alertdefs and tracedefs: the same
+        dispatch as a query, so a def can target any served subsystem.
+        A ``subsys@window`` source (a windowed alertdef) needs history
+        shards, which the port does not have: ValueError."""
+        if "@" in subsys:
+            raise ValueError("windowed alertdef needs history shards "
+                             "(hist_shard_dir)")
+        return self._cached_columns(subsys)
+
     def _cached_columns(self, subsys: str):
         """Version-keyed column cache: readbacks recompute only after
-        the state changed (feed, tick, flush and restore bump it)."""
+        the state changed (feed, tick, flush and restore bump it).
+        Registry- and CRUD-backed views are never cached: they change
+        without a version bump."""
         if subsys in self._aux:
             return self._aux[subsys]()
-        return self._cols.get(subsys, lambda: api.columns_for(
-            self.cfg, self.state, subsys, names=self.names, dep=self.dep))
+        out = self._cols.get(subsys, lambda: api.columns_for(
+            self.cfg, self.state, subsys, names=self.names, dep=self.dep,
+            svcreg=self.svcreg, aux=self._aux))
+        if subsys == "procinfo":
+            # joined outside the cache: tags change through CRUD
+            out = self.tags.with_tags(out)
+        return out
+
+    def _ext_join(self, base_subsys: str, idcol: str = "svcid"):
+        """ext* subsystems: base columns ⋈ svcinfo metadata."""
+        cols, live = self._alert_columns(base_subsys)
+        info_cols, _ = self.svcreg.columns(self.names)
+        return api.info_join(cols, live, info_cols, idcol=idcol)
+
+    def _svc_task_ids(self):
+        """Hex process-group ids that serve a listener (taskstate rows
+        with a nonzero relsvcid): the traceconn ``csvc`` source."""
+        cols, live = self._cached_columns("taskstate")
+        zero = "0" * 16
+        return {t for t, r, ok in zip(cols["taskid"], cols["relsvcid"],
+                                      live) if ok and r != zero}
 
     def _traceuniq_columns(self):
         """traceuniq: distinct API signatures per service, grouped from
@@ -535,15 +731,36 @@ class Runtime:
                                          names=self.names)
         return api.traceuniq_from_trace(tcols, tlive)
 
+    # ------------------------------------------------------- trace control
+    def trace_control_diff(self, hosts=None):
+        """Evaluate tracedefs against the live svcinfo → per-host
+        enable/disable diffs for the network edge to push. ``hosts``
+        restricts them to reachable agents."""
+        targets = self.tracedefs.target_svcids(self._alert_columns)
+        return self.tracedefs.diff_for_hosts(targets, hosts=hosts)
+
+    # ---------------------------------------------------------------- CRUD
+    def crud(self, req: dict) -> dict:
+        """One CRUD request (``{"op": "add"|"delete", "objtype": ...}``)
+        under the registry lock; the published snapshot's caches drop,
+        so its next query re-renders the changed views."""
+        with self._reg_lock:
+            out = crud.crud(self, req)
+        snap = self.snapshot
+        if snap is not None:
+            snap.on_mutation()
+        return out
+
     # -------------------------------------------------------------- query
     def query(self, req: dict) -> dict:
         """Point-in-time JSON query. ``consistency``: ``"strong"`` (the
         default: staged events are folded first, then the live state is
         read) or ``"snapshot"`` (the last published snapshot; no fold).
-        A ``"multiquery"`` list runs up to 16 plain queries in one call.
-        The request forms of unported tiers raise."""
+        A request with ``"op"`` goes to the CRUD channel; a
+        ``"multiquery"`` list runs up to 16 plain queries in one call.
+        The historical request forms raise."""
         if req.get("op"):
-            raise unported.refuse("CRUD requests ('op')", unported.ALERTS)
+            return self.crud(req)
         if "multiquery" in req:
             return crud.multiquery(self.query, req)
         if req.get("consistency") == "snapshot":
@@ -581,6 +798,12 @@ class Runtime:
                            api.QueryOptions.from_json(req),
                            names=self.names,
                            columns_fn=self._cached_columns)
+
+    def close(self) -> None:
+        """Join the background threads: alert delivery and the DNS
+        resolver. Idempotent."""
+        self.alerts.close()
+        self.dns.close()
 
     def restore(self, path) -> dict:
         """Restore a checkpoint (from either package): staged records

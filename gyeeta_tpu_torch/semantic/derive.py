@@ -61,7 +61,9 @@ def signals(cfg: EngineCfg, st: AggState):
     # prefer live resp samples; fall back to the agent-reported gauge
     # when the resp stream is sampled out
     nqrys = torch.maximum(loghist.counts_total(h5), gauges[:, D.STAT_NQRYS])
-    curr_qps = nqrys / 5.0
+    # the reference's compiled nqrys / 5.0 multiplies by the float32
+    # reciprocal (XLA's rewrite): the same rounding here
+    curr_qps = nqrys * 0.2
 
     qps_q = loghist.quantiles(st.qps_hist, cfg.qps_spec, (0.95, 0.25))
     act_q = loghist.quantiles(st.active_hist, cfg.active_spec, (0.95, 0.25))

@@ -4,8 +4,10 @@ Counterpart of ``gyeeta_tpu/sim/partha.py`` for the TCP_CONN and
 RESP_SAMPLE streams (flows, service→service flows, split halves), the
 5s LISTENER_STATE / AGGR_TASK_STATE / HOST_STATE sweeps, the 2s
 CPU_MEM_STATE sweep, REQ_TRACE transactions, the NAME_INTERN
-announcements of every name the fleet uses, and the edge
-pre-aggregated form of a conn/resp sweep (:meth:`ParthaSim.delta_frames`). It draws from
+announcements of every name the fleet uses, the LISTENER_INFO,
+HOST_INFO and CGROUP_STATE inventories, rotating churn traffic, and the
+edge pre-aggregated form of a conn/resp sweep
+(:meth:`ParthaSim.delta_frames`). It draws from
 ``np.random.default_rng(seed)`` in the reference's order, so the same
 seed and the same sequence of calls give byte-identical records in both
 packages.
@@ -115,6 +117,32 @@ class ParthaSim:
         self.tusec += np.uint64(5_000_000)
         return out
 
+    def churn_records(self, phase: int, n_conn: int = 256,
+                      n_resp: int = 512, duty: int = 3):
+        """One tick of deterministically rotating traffic → (conn, resp)
+        record arrays: tick ``phase`` directs all traffic at services
+        where ``(svc + phase) % duty != 0``, so each service swings
+        between loaded and idle every ``duty`` ticks (a threshold
+        predicate's match set gains and loses rows every tick)."""
+        allowed = np.array([s for s in range(self.n_svcs)
+                            if (s + phase) % duty != 0], np.int64)
+        if not len(allowed):
+            allowed = np.arange(self.n_svcs, dtype=np.int64)
+        conn = self.conn_records(n_conn)
+        resp = self.resp_records(n_resp)
+        r = self.rng
+        for out, n in ((conn, n_conn), (resp, n_resp)):
+            host = r.integers(0, self.n_hosts, n)
+            svc = allowed[r.integers(0, len(allowed), n)]
+            out["host_id"] = (host + self.host_base).astype(np.uint32)
+            gid = self.glob_ids[host, svc]
+            if "ser_glob_id" in out.dtype.names:
+                out["ser_glob_id"] = gid
+                out["ser_related_listen_id"] = gid
+            else:
+                out["glob_id"] = gid
+        return conn, resp
+
     def svc_call_graph(self):
         """The fleet's deterministic service→service call topology: each
         service (h, j) calls one downstream service. Returns
@@ -125,6 +153,29 @@ class ParthaSim:
         cee_h = (h * 31 + j * 7 + 1) % self.n_hosts
         cee_j = (j + 1) % self.n_svcs
         return h, j, cee_h, cee_j
+
+    def listener_info_records(self) -> np.ndarray:
+        """Static metadata announcements (LISTENER_INFO) for every
+        listener (no draw from the rng)."""
+        n = self.n_hosts * self.n_svcs
+        host = np.repeat(np.arange(self.n_hosts, dtype=np.uint32),
+                         self.n_svcs)
+        svc = np.tile(np.arange(self.n_svcs, dtype=np.uint32),
+                      self.n_hosts)
+        out = np.zeros(n, wire.LISTENER_INFO_DT)
+        out["glob_id"] = self.glob_ids.reshape(-1)
+        ser_ip = (0xC0A80000
+                  | ((host + np.uint32(self.host_base)) & 0xFFFF))
+        _put_ipv4(out["addr"], ser_ip, (8000 + svc).astype(np.uint16))
+        out["tusec_start"] = self.tusec - np.uint64(3_600_000_000)
+        out["comm_id"] = self.comm_ids[svc % self.n_groups]
+        out["cmdline_id"] = self.comm_ids[svc % self.n_groups]
+        out["related_listen_id"] = out["glob_id"]
+        out["pid"] = (300 + svc).astype(np.int32)
+        out["is_any_ip"] = 1
+        out["is_http"] = (svc % 2 == 0)
+        out["host_id"] = host + self.host_base
+        return out
 
     def svc_conn_records(self, n: int, split_halves: bool = False,
                          nat: bool = False):
@@ -402,6 +453,68 @@ class ParthaSim:
                             InternTable.intern(s, wire.NAME_KIND_MISC), s))
         return InternTable.records(entries)
 
+    def host_info_records(self) -> np.ndarray:
+        """Static host inventory (HOST_INFO): deterministic per host id,
+        so a reconnect's resend is idempotent (no draw from the rng)."""
+        from gyeeta_tpu_torch.utils.intern import InternTable
+
+        def mid(s):
+            return InternTable.intern(s, wire.NAME_KIND_MISC)
+
+        n = self.n_hosts
+        hs = np.arange(n) + self.host_base
+        out = np.zeros(n, wire.HOST_INFO_DT)
+        out["host_id"] = hs
+        out["ncpus"] = 8 << (hs % 3)
+        out["nnuma"] = 1 + (hs % 2)
+        out["ram_mb"] = 32768 << (hs % 3)
+        out["swap_mb"] = 2048
+        out["boot_tusec"] = self.tusec - np.uint64(86_400_000_000)
+        out["kern_ver_id"] = [mid(self.KERNELS[h % 2]) for h in hs]
+        out["distro_id"] = [mid(self.DISTROS[h % 3]) for h in hs]
+        out["cputype_id"] = [mid(self.CPUTYPES[h % 2]) for h in hs]
+        out["instance_id"] = [mid(f"i-{h:016x}") for h in hs]
+        region = [self.REGIONS[h % 2] for h in hs]
+        out["region_id"] = [mid(r) for r in region]
+        out["zone_id"] = [mid(f"{r}-{'ab'[h % 2]}")
+                          for r, h in zip(region, hs)]
+        out["virt_type"] = 1
+        out["cloud_type"] = 1 + (hs % 3)
+        out["is_k8s"] = (hs % 4) == 0
+        return out
+
+    def cgroup_records(self) -> np.ndarray:
+        """One 5s CGROUP_STATE sweep: a few tracked cgroups per host
+        with utilization jitter; kubepods throttle under load."""
+        from gyeeta_tpu_torch.utils.intern import InternTable
+
+        r = self.rng
+        npaths = len(self.CGPATHS)
+        n = self.n_hosts * npaths
+        host = np.repeat(np.arange(self.n_hosts) + self.host_base, npaths)
+        path_i = np.tile(np.arange(npaths), self.n_hosts)
+        out = np.zeros(n, wire.CGROUP_DT)
+        dir_ids = np.array([InternTable.intern(p, wire.NAME_KIND_MISC)
+                            for p in self.CGPATHS], np.uint64)
+        out["dir_id"] = dir_ids[path_i]
+        out["cg_id"] = _splitmix64(
+            (host.astype(np.uint64) << np.uint64(8))
+            | path_i.astype(np.uint64))
+        out["host_id"] = host
+        out["is_v2"] = True
+        limited = path_i >= 2                 # kubepods have cpu limits
+        out["cpu_pct"] = r.random(n) * 40.0
+        out["cpu_limit_pct"] = np.where(limited, 50.0, -1.0)
+        throttled = limited & (r.random(n) < 0.1)
+        out["cpu_throttled_pct"] = np.where(throttled,
+                                            r.random(n) * 30.0, 0.0)
+        out["rss_mb"] = r.random(n) * 4096.0
+        out["memory_limit_mb"] = np.where(limited, 8192.0, -1.0)
+        out["pgmajfault_sec"] = r.random(n) * 2.0
+        out["nprocs"] = r.integers(1, 64, n)
+        out["state"] = np.where(throttled, 3, 1)   # Bad when throttled
+        return out
+
     def conn_frames(self, n_events: int) -> bytes:
         """n_events conn records framed into ≤2048-record messages."""
         return wire.encode_frames_chunked(
@@ -439,6 +552,14 @@ class ParthaSim:
     def name_frames(self) -> bytes:
         return wire.encode_frames_chunked(
             wire.NOTIFY_NAME_INTERN, self.name_records())
+
+    def host_info_frames(self) -> bytes:
+        return wire.encode_frames_chunked(
+            wire.NOTIFY_HOST_INFO, self.host_info_records())
+
+    def cgroup_frames(self) -> bytes:
+        return wire.encode_frames_chunked(
+            wire.NOTIFY_CGROUP_STATE, self.cgroup_records())
 
 
 def _splitmix64(x: np.ndarray) -> np.ndarray:

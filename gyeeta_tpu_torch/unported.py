@@ -8,8 +8,6 @@ dropped, no section skipped, no empty answer served in its place.
 from __future__ import annotations
 
 # ROADMAP.md, queue 1: the items that port what is still missing
-REGISTRIES = "item 1, the host-side registries and their subsystems"
-ALERTS = "item 2, the alert manager and CRUD"
 HISTORY = "item 3, history and the journal"
 SHARDED = "item 6, the sharded tier"
 

@@ -17,6 +17,10 @@ from gyeeta_tpu_torch.utils import hashing as H
 class InternTable:
     def __init__(self):
         self._names: dict[tuple[int, int], str] = {}
+        self.version = 0    # bumped per update; registry caches key on it
+
+    def __len__(self) -> int:
+        return len(self._names)
 
     def update(self, recs: np.ndarray) -> int:
         """Fold a NAME_INTERN record array; returns names added/refreshed."""
@@ -26,6 +30,8 @@ class InternTable:
             name = bytes(r["name"][:nlen]).decode("utf-8", "replace")
             self._names[(int(r["kind"]), int(r["name_id"]))] = name
             n += 1
+        if n:
+            self.version += 1
         return n
 
     def lookup(self, kind: int, name_id: int):

@@ -5,7 +5,10 @@ engine against its own raw-fed one.
 One seeded stream of four ticks goes through ``feed`` (each tick's
 buffer in two calls, cut inside the SKETCH_DELTA frames) and
 ``run_tick`` into the reference ``Runtime`` and the port's
-``Runtime(device="cpu")``: names (tick 0), the raw LISTENER_STATE and
+``Runtime(device="cpu")``, both on one clock of 5 s a tick, after the
+same CRUD requests (``test_torch_registries.runtime_ops``): the
+announce-rate records of ``test_torch_registries.registry_frames``,
+names (tick 0), the raw LISTENER_STATE and
 HOST_STATE sweeps, one agent's edge-folded conn/resp sweep as
 SKETCH_DELTA records (``hll_refresh_every=3``, a truncating
 ``flow_max``; tick 2 adds records of an unknown kind and with
@@ -13,7 +16,8 @@ out-of-range items), raw TCP_CONN and RESP_SAMPLE records beside them,
 and AGENT_STATS records. Every delta dispatch rides ``fold_all`` with
 the sections staged beside it.
 
-Held against the reference: each tick's report, the ``preagg_*``,
+Held against the reference: each tick's report (``alerts_fired``
+included), the ``preagg_*``,
 ``agent_*``/``spool_*`` and fold counters, all 85 ``AggState`` and 29
 ``DepGraph`` leaves after every tick (integer, bool, u32 and max-merged
 state exact; f32 sums rtol 1e-6; digests rtol 1e-5) and the strong-path
@@ -45,6 +49,7 @@ from gyeeta_tpu_torch.sketch import edgefold as t_ef
 from gyeeta_tpu_torch.utils.config import RuntimeOpts as TOpts
 from gyeeta_tpu_torch.utils.tensor import tree_paths
 from test_torch_edgefold import cfgs
+from test_torch_registries import prime_vips, registry_frames, runtime_ops
 from test_torch_runtime import SERVED, _leaf_check, assert_json_equal
 
 torch.set_num_threads(1)
@@ -88,6 +93,7 @@ def _odd_records(w):
 def tick_buffers(sim_cls, ef_mod, w, params):
     """The four ticks' byte streams of one package → [(buf, cut)]."""
     sim = sim_cls(**SIM_KW)
+    reg = sim_cls(**dict(SIM_KW, seed=9))   # the registry records' stream
     ef = ef_mod.EdgeFold(params, host_id=0, hll_refresh_every=3)
     out = []
     for tick in range(N_TICKS):
@@ -101,7 +107,8 @@ def tick_buffers(sim_cls, ef_mod, w, params):
         agent["spool_dropped_records"] = [10 * tick, 3]
         agent["spool_resent"] = [2, 0]
         agent["connect_timeouts"] = [0, tick]
-        head = ((sim.name_frames() if tick == 0 else b"")
+        head = (registry_frames(reg, w, tick)
+                + (sim.name_frames() if tick == 0 else b"")
                 + sim.listener_frames()
                 + w.encode_frames_chunked(w.NOTIFY_HOST_STATE,
                                           sim.host_state_records()))
@@ -114,37 +121,43 @@ def tick_buffers(sim_cls, ef_mod, w, params):
     return out
 
 
-def _feed_ticks(rt, bufs, per_tick):
-    """Feed each tick in two calls, run its tick, and record what
-    ``per_tick(rt)`` reads after it."""
+def _feed_ticks(rt, bufs, per_tick, now):
+    """Feed each tick in two calls, advance the clock, run its tick, and
+    record what ``per_tick(rt)`` reads after it."""
     reports, seen, partial = [], [], 0
     for buf, cut in bufs:
         rt.feed(buf[:cut])
         partial += bool(rt._pending)
         rt.feed(buf[cut:])
+        now[0] += 5.0
         reports.append(rt.run_tick())
         seen.append(per_tick(rt))
     return reports, seen, partial
 
 
 def _snapshot_json(rt):
+    prime_vips(rt)                    # svcipclust never waits on DNS
     return {s: rt.query({"subsys": s, "maxrecs": 10000,
                          "consistency": "snapshot"}) for s in SERVED}
 
 
 @functools.lru_cache(maxsize=None)
 def run_delta_both():
-    """Run the stream through both runtimes once per process → the
-    runtimes, reports, counters, per-tick leaves and per-tick
-    snapshot-served JSON."""
+    """Run the stream through both runtimes once per process, after the
+    same CRUD requests → the runtimes, reports, counters, per-tick
+    leaves and per-tick snapshot-served JSON."""
     jc, tc = j_cfg(), t_cfg()
     j_bufs = tick_buffers(JSim, j_ef, j_wire,
                           j_ef.params_of_cfg(jc, flow_max=FLOW_MAX, env={}))
     t_bufs = tick_buffers(TSim, t_ef, t_wire,
                           t_ef.params_of_cfg(tc, flow_max=FLOW_MAX))
     assert j_bufs == t_bufs
-    jr = JRuntime(jc, JOpts(**OPTS))
-    tr = TRuntime(tc, TOpts(**OPTS), device="cpu")
+    j_now, t_now = [1.7e9], [1.7e9]
+    jr = JRuntime(jc, JOpts(**OPTS), clock=lambda: j_now[0])
+    tr = TRuntime(tc, TOpts(**OPTS), clock=lambda: t_now[0], device="cpu")
+    ops = runtime_ops(TSim(**SIM_KW))
+    assert [jr.query(dict(o)) for o in ops] == \
+        [tr.query(dict(o)) for o in ops]
 
     def j_seen(rt):
         return {"state": [np.asarray(x) for x in jax.tree.leaves(rt.state)],
@@ -156,8 +169,8 @@ def run_delta_both():
                 "dep": t_dg.dep_to_numpy(rt.dep),
                 "snap": _snapshot_json(rt)}
 
-    j_rep, j_ticks, j_partial = _feed_ticks(jr, j_bufs, j_seen)
-    t_rep, t_ticks, t_partial = _feed_ticks(tr, t_bufs, t_seen)
+    j_rep, j_ticks, j_partial = _feed_ticks(jr, j_bufs, j_seen, j_now)
+    t_rep, t_ticks, t_partial = _feed_ticks(tr, t_bufs, t_seen, t_now)
     return {"jr": jr, "tr": tr, "j_rep": j_rep, "t_rep": t_rep,
             "j_ctr": dict(jr.stats.counters),
             "t_ctr": dict(tr.stats.counters),
@@ -174,8 +187,8 @@ def runs():
 @pytest.mark.parametrize("tick", range(N_TICKS))
 def test_tick_report_matches_reference(runs, tick):
     ref, got = runs["j_rep"][tick], runs["t_rep"][tick]
-    assert set(ref) - set(got) <= {"alerts_fired", "history_rows"}
-    assert got == {k: ref[k] for k in got}
+    assert set(ref) - set(got) <= {"history_rows"}
+    assert got == {k: ref[k] for k in got} and "alerts_fired" in got
     assert got["tick"] == tick + 1
 
 
@@ -188,7 +201,7 @@ def test_counter_matches_reference(runs, name):
 def test_counter_sets_match_reference(runs):
     j, t = runs["j_ctr"], runs["t_ctr"]
     assert set(t) <= set(j)
-    assert set(j) - set(t) <= {"alert_eval_skipped", "ref_native_decoded",
+    assert set(j) - set(t) <= {"ref_native_decoded",
                                "ref_fallback_decoded"}
     assert all(t[k] == j[k] for k in t)
 
@@ -206,6 +219,8 @@ def test_stream_reaches_every_path(runs):
     assert int((tr.state.glob_hll.regs > 0).sum()) > 0
     assert float(tr.dep.e_ctr[:, 0].sum()) > 0
     assert float(tr.state.inv.n_hot) > 0
+    assert sum(r["alerts_fired"] for r in runs["t_rep"]) > 0
+    assert tr.alerts.stats == runs["jr"].alerts.stats
 
 
 _STATE_PATHS = tree_paths(t_agg.init(t_cfg(), "meta"))

@@ -38,12 +38,20 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-# modules of the edge pre-aggregation and snapshot slice, each of which
-# the AST check above must cover
+# modules of the edge pre-aggregation and snapshot slice and of the
+# registries and alert slice, each of which the AST check above must
+# cover
 SLICE_MODULES = ("sketch/edgefold.py", "query/snapshot.py",
                  "query/normalize.py", "query/crud.py", "obs/prom.py",
                  "obs/spans.py", "utils/selfstats.py", "ingest/decode.py",
-                 "engine/step.py", "runtime.py")
+                 "engine/step.py", "runtime.py", "utils/svcreg.py",
+                 "utils/tagreg.py", "utils/hostreg.py", "utils/natreg.py",
+                 "utils/traceconnreg.py", "utils/dnsmap.py",
+                 "trace/defs.py", "version.py", "utils/notifylog.py",
+                 "utils/droppressure.py", "query/delta.py", "query/cq.py",
+                 "alerts/__init__.py", "alerts/defs.py",
+                 "alerts/columns.py", "alerts/manager.py",
+                 "alerts/deliver.py")
 
 
 @pytest.mark.parametrize("mod", SLICE_MODULES)
@@ -124,15 +132,36 @@ def _frame(subtype):
     r = np.zeros(2, wire.DTYPE_OF_SUBTYPE[subtype])
     if subtype == wire.NOTIFY_AGENT_STATS:
         r["spool_resent"] = [3, 4]
-    else:
+    elif subtype == wire.NOTIFY_SKETCH_DELTA:
         r["kind"] = wire.DK_SVC_CTR
         r["key_hi"] = [1, 2]
+    else:                             # inventory records of hosts 1, 2
+        r["host_id"] = [1, 2]
     return wire.encode_frame(subtype, r)
 
 
-# paths of the edge pre-aggregation and snapshot tiers that used to be
-# refused and are served now: each runs on the CPU when asked for
+# announce-rate record kinds → (registry attribute, selfstats counter)
+_REGISTRY_KINDS = {
+    "listener_info_records": (wire.NOTIFY_LISTENER_INFO, "svcreg",
+                              "listener_infos"),
+    "host_info_records": (wire.NOTIFY_HOST_INFO, "hostinfo", "host_infos"),
+    "cgroup_state_records": (wire.NOTIFY_CGROUP_STATE, "cgroups",
+                             "cgroup_records"),
+    "mount_state_records": (wire.NOTIFY_MOUNT_STATE, "mounts",
+                            "mount_records"),
+    "netif_state_records": (wire.NOTIFY_NETIF_STATE, "netifs",
+                            "netif_records"),
+}
+
+
+# paths of the edge pre-aggregation, snapshot, registry and alert tiers
+# that used to be refused and are served now: each runs on the CPU when
+# asked for
 NOW_SERVED = {
+    **{k: (lambda rt, sub=sub: rt.feed(_frame(sub)))
+       for k, (sub, _, _) in _REGISTRY_KINDS.items()},
+    "op": lambda rt: rt.query({"op": "add", "objtype": "tag",
+                               "taskid": "00000000000000ab", "tag": "t"}),
     "sketch_delta_records": lambda rt: rt.feed(
         _frame(wire.NOTIFY_SKETCH_DELTA)),
     "agent_stats_records": lambda rt: rt.feed(
@@ -156,3 +185,9 @@ def test_slice_path_no_longer_refused(path):
         assert int(rt.state.tbl.n_live) == 2
     if path == "agent_stats_records":
         assert rt.stats.counters["spool_resent"] == 7
+    if path in _REGISTRY_KINDS:
+        _, reg, ctr = _REGISTRY_KINDS[path]
+        assert rt.stats.counters[ctr] == 2
+        assert len(getattr(rt, reg)) >= 1
+    if path == "op":
+        assert out["ok"] and len(rt.tags) == 1

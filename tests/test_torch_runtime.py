@@ -1,6 +1,9 @@
 """The port's ``Runtime`` against the reference's, fed the same bytes.
 
-One seeded stream of four ticks — NAME_INTERN (tick 0), SWEEP_SEQ,
+One seeded stream of four ticks — the announce-rate records of
+``test_torch_registries.registry_frames`` (LISTENER_INFO and HOST_INFO
+on ticks 0 and 2, CGROUP_STATE, MOUNT_STATE and NETIF_STATE sweeps,
+VIP-dialled service flows), NAME_INTERN (tick 0), SWEEP_SEQ,
 LISTENER_STATE, AGGR_TASK_STATE (a partial sweep at tick 3), HOST_STATE,
 CPU_MEM_STATE, REQ_TRACE, then TCP_CONN (plain flows, service→service
 flows and split halves, each server half held for the next tick, those
@@ -8,23 +11,29 @@ of tick 0 never sent) and
 RESP_SAMPLE — goes through ``feed`` in uneven byte cuts (frames split
 across calls resume from the partial-frame buffer), with ``run_tick``
 after each tick, into the reference ``Runtime`` and the port's
-``Runtime(device="cpu")``. The ticks age tasks and APIs every second
-tick and checkpoint every second tick.
+``Runtime(device="cpu")``, both on one clock of 5 s a tick, after the
+same CRUD requests (``"op"``: alertdefs, silences, an inhibit, a
+tracedef, a tag). The ticks age tasks and APIs every second tick and
+checkpoint every second tick.
 
-Held against the reference: each tick's report on the shared keys, the
-fold path's selfstats counters, all 85 ``AggState`` and 29 ``DepGraph``
-leaves after the last tick (integer, bool, u32 and max-merged state
-exact; f32 sums rtol 1e-6; digests rtol 1e-5), the ``heavy_recover``
-dict (floats rtol 1e-6), checkpoints both ways (each restored runtime
-answering every served subsystem with equal JSON), the staging
-builders' columns, and the refusal of every unported record kind,
-request form and option with its ROADMAP item. The query JSON of the
-live runtimes is in ``tests/test_torch_query.py``, which shares this
-run (:func:`run_both`).
+Held against the reference: each tick's report (``alerts_fired``
+included; only ``history_rows`` is the reference's alone), the CRUD
+replies, each tick's ``trace_control_diff``, the selfstats counters
+(``stage_slab_flips`` of the double-buffered staging slabs among them),
+the alert manager's stats and log, the five record kinds' registries,
+all 85 ``AggState`` and 29 ``DepGraph`` leaves after the last tick
+(integer, bool, u32 and max-merged state exact; f32 sums rtol 1e-6;
+digests rtol 1e-5), the ``heavy_recover`` dict (floats rtol 1e-6),
+checkpoints both ways (each restored runtime answering every served
+subsystem with equal JSON), the staging builders' columns, and the
+refusal of the history request forms and options with their ROADMAP
+item. The query JSON of the live runtimes is in
+``tests/test_torch_query.py``, which shares this run (:func:`run_both`).
 """
 
 import functools
 import pathlib
+import socket
 import tempfile
 
 import jax
@@ -48,6 +57,7 @@ from gyeeta_tpu_torch.sim import ParthaSim as TSim
 from gyeeta_tpu_torch.sketch import loghist as t_lh
 from gyeeta_tpu_torch.utils.config import RuntimeOpts as TOpts
 from gyeeta_tpu_torch.utils.tensor import tree_paths
+from test_torch_registries import prime_vips, registry_frames, runtime_ops
 
 torch.set_num_threads(1)
 
@@ -61,22 +71,30 @@ OPTS = dict(dep_pair_capacity=64, dep_edge_capacity=256,
 # its end (inside the conn/resp frames: the sweep sections of a tick
 # fold in one dispatch, conn/resp stage until the tick's flush)
 CUTS_FROM_END = (9001, 5000, 333)
-# the 20 subsystems the port serves
+# the 43 subsystems the port serves: 20 of the engine's state and
+# dependency graph, and 23 of the host-side registries and the alert tier
 SERVED = ("svcstate", "hoststate", "clusterstate", "flowstate", "taskstate",
           "topcpu", "toppgcpu", "toprss", "topdelay", "topfork", "cpumem",
           "tracereq", "traceuniq", "svcsumm", "hostlist", "topk",
           "svcdependency", "svcmesh", "activeconn", "clientconn")
-# reference counters of tiers or paths the port does not have: the
-# alert manager, the native decoder and its double-buffered staging
-# slabs
-REF_ONLY_COUNTERS = {"alert_eval_skipped", "ref_native_decoded",
-                     "ref_fallback_decoded", "stage_slab_flips"}
+NEW_SERVED = ("svcinfo", "procinfo", "hostinfo", "extsvcstate",
+              "svcprocmap", "tracedef", "tracestatus", "traceconn", "tags",
+              "mountstate", "netif", "extactiveconn", "extclientconn",
+              "exttracereq", "cgroupstate", "svcipclust", "serverstatus",
+              "notifymsg", "alerts", "alertdef", "silences", "inhibits",
+              "actions")
+SERVED = SERVED + NEW_SERVED
+# reference counters of the native decoder, which the port does not have
+REF_ONLY_COUNTERS = {"ref_native_decoded", "ref_fallback_decoded"}
 FOLD_COUNTERS = ("conn_events", "resp_events", "listener_records",
                  "host_records", "task_records", "cpumem_records",
                  "trace_records", "resp_from_trace", "sweep_marks",
                  "names_interned", "fold_dispatches", "slab_dispatches",
-                 "td_partial_flushes", "topk_recover_readbacks",
-                 "topk_hot_promotions", "checkpoints")
+                 "stage_slab_flips", "td_partial_flushes",
+                 "topk_recover_readbacks", "topk_hot_promotions",
+                 "checkpoints", "listener_infos", "host_infos",
+                 "cgroup_records", "mount_records", "netif_records")
+TICK_SECONDS = 5.0
 _EXACT_F32 = (".inv.prio", ".svc_td.vmin", ".svc_td.vmax", ".h_bytes")
 
 
@@ -97,6 +115,7 @@ def t_cfg():
 def tick_buffers(sim_cls, w):
     """The four ticks' byte streams of one package's sim and wire."""
     sim = sim_cls(**SIM_KW)
+    reg = sim_cls(**SIM_KW, seed=9)   # the registry records' own stream
     out, late = [], None
     for tick in range(N_TICKS):
         seq = np.zeros(SIM_KW["n_hosts"], w.SWEEP_SEQ_DT)
@@ -113,7 +132,8 @@ def tick_buffers(sim_cls, w):
             + ([late] if late is not None and tick != 1 else []))
         late = ser
         out.append(
-            (sim.name_frames() if tick == 0 else b"")
+            registry_frames(reg, w, tick)
+            + (sim.name_frames() if tick == 0 else b"")
             + w.encode_frames_chunked(w.NOTIFY_SWEEP_SEQ, seq)
             + sim.listener_frames()
             + w.encode_frames_chunked(w.NOTIFY_AGGR_TASK_STATE, tasks)
@@ -129,34 +149,49 @@ def tick_buffers(sim_cls, w):
     return out
 
 
-def _feed_ticks(rt, bufs):
-    reports, partial = [], 0
+def _feed_ticks(rt, bufs, now):
+    """Feed each tick in uneven cuts, advance the clock, run the tick
+    and take the tracedefs' diff → (reports, diffs, partial feeds)."""
+    reports, diffs, partial = [], [], 0
     for buf in bufs:
         cuts = [0] + [len(buf) - c for c in CUTS_FROM_END] + [len(buf)]
         for a, b in zip(cuts, cuts[1:]):
             rt.feed(buf[a:b])
             partial += bool(rt._pending)
+        now[0] += TICK_SECONDS
         reports.append(rt.run_tick())
-    return reports, partial
+        diffs.append(rt.trace_control_diff(
+            hosts=None if len(diffs) != 1 else range(4)))
+    return reports, diffs, partial
 
 
 @functools.lru_cache(maxsize=None)
 def run_both():
-    """Run the stream through both runtimes once per process →
-    dict of the runtimes, their reports and counters (copied right
-    after the run: later recoveries and queries bump them)."""
+    """Run the stream through both runtimes once per process, after the
+    same CRUD requests → dict of the runtimes, their CRUD replies,
+    reports, tracedef diffs and counters (copied right after the run:
+    later recoveries and queries bump them). Both runtimes' DNS caches
+    are primed with the same name for every VIP."""
     j_bufs = tick_buffers(JSim, j_wire)
     t_bufs = tick_buffers(TSim, t_wire)
     assert j_bufs == t_bufs
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="gyt_torch_rt_"))
-    jr = JRuntime(j_cfg(), JOpts(**OPTS, checkpoint_dir=str(tmp / "ref")))
+    j_now, t_now = [1.7e9], [1.7e9]
+    jr = JRuntime(j_cfg(), JOpts(**OPTS, checkpoint_dir=str(tmp / "ref")),
+                  clock=lambda: j_now[0])
     tr = TRuntime(t_cfg(), TOpts(**OPTS, checkpoint_dir=str(tmp / "port")),
-                  device="cpu")
-    j_rep, j_partial = _feed_ticks(jr, j_bufs)
-    t_rep, t_partial = _feed_ticks(tr, t_bufs)
+                  clock=lambda: t_now[0], device="cpu")
+    ops = runtime_ops(TSim(**SIM_KW))
+    j_crud = [jr.query(dict(o)) for o in ops]
+    t_crud = [tr.query(dict(o)) for o in ops]
+    j_rep, j_diff, j_partial = _feed_ticks(jr, j_bufs, j_now)
+    t_rep, t_diff, t_partial = _feed_ticks(tr, t_bufs, t_now)
+    ctr = (dict(jr.stats.counters), dict(tr.stats.counters))
+    prime_vips(tr, prime_vips(jr))
     return {"jr": jr, "tr": tr, "j_rep": j_rep, "t_rep": t_rep,
-            "j_ctr": dict(jr.stats.counters),
-            "t_ctr": dict(tr.stats.counters),
+            "j_crud": j_crud, "t_crud": t_crud,
+            "j_diff": j_diff, "t_diff": t_diff,
+            "j_ctr": ctr[0], "t_ctr": ctr[1],
             "partial": (j_partial, t_partial), "tmp": tmp}
 
 
@@ -197,8 +232,8 @@ def _leaf_check(path, a, b):
 @pytest.mark.parametrize("tick", range(N_TICKS))
 def test_tick_report_matches_reference(runs, tick):
     ref, got = runs["j_rep"][tick], runs["t_rep"][tick]
-    assert set(ref) - set(got) <= {"alerts_fired", "history_rows"}
-    assert set(got) <= set(ref)
+    assert set(ref) - set(got) <= {"history_rows"}
+    assert set(got) <= set(ref) and "alerts_fired" in got
     for k in got:
         if k == "checkpoint":
             assert pathlib.Path(got[k]).name == pathlib.Path(ref[k]).name
@@ -228,6 +263,8 @@ def test_stream_reaches_every_path(runs):
     for k in FOLD_COUNTERS:
         assert ctr.get(k, 0) > 0, k
     assert tr._sweep_last_seq == {h: 30 + h for h in range(8)}
+    assert sum(r["alerts_fired"] for r in runs["t_rep"]) > 0
+    assert any(runs["t_diff"]) and len(tr.natclusters) > 0
     assert float(tr.dep.n_paired) > 0 and float(tr.dep.n_expired) > 0
     assert int(tr.state.task_tbl.n_live) < 64
     assert len(np.unique(tr.state.svc_state.numpy())) >= 3
@@ -283,8 +320,9 @@ def test_checkpoint_restores_across_packages(runs, writer):
     leaf, and the two restored runtimes answer every served subsystem
     with equal JSON."""
     path = _ckpt(runs, writer)
-    jr2 = JRuntime(j_cfg(), JOpts(**OPTS))
-    tr2 = TRuntime(t_cfg(), TOpts(**OPTS), device="cpu")
+    clock = lambda: 1.7e9  # noqa: E731  (serverstatus reads uptime)
+    jr2 = JRuntime(j_cfg(), JOpts(**OPTS), clock=clock)
+    tr2 = TRuntime(t_cfg(), TOpts(**OPTS), clock=clock, device="cpu")
     j_extra, t_extra = jr2.restore(path), tr2.restore(path)
     assert t_extra == j_extra
     assert t_extra["tick"] == N_TICKS
@@ -404,38 +442,103 @@ def test_name_frames_byte_identical():
     assert TSim(**kw).name_frames() == JSim(**kw).name_frames()
 
 
-# ----------------------------------------------------- unported tiers
-_KINDS = {
-    t_wire.NOTIFY_LISTENER_INFO: unported.REGISTRIES,
-    t_wire.NOTIFY_HOST_INFO: unported.REGISTRIES,
-    t_wire.NOTIFY_CGROUP_STATE: unported.REGISTRIES,
-    t_wire.NOTIFY_MOUNT_STATE: unported.REGISTRIES,
-    t_wire.NOTIFY_NETIF_STATE: unported.REGISTRIES,
+# ------------------------------------------- registries, alerts, CRUD
+# record kind → (registry attribute, selfstats counter)
+_REGISTRY_KINDS = {
+    "LISTENER_INFO": ("svcreg", "listener_infos"),
+    "HOST_INFO": ("hostinfo", "host_infos"),
+    "CGROUP_STATE": ("cgroups", "cgroup_records"),
+    "MOUNT_STATE": ("mounts", "mount_records"),
+    "NETIF_STATE": ("netifs", "netif_records"),
 }
 
 
+def _cols_equal(ref, got, what):
+    (rc, rm), (gc, gm) = ref, got
+    np.testing.assert_array_equal(gm, rm, err_msg=what)
+    assert list(gc) == list(rc), what
+    for k in rc:
+        a, b = np.asarray(rc[k]), np.asarray(gc[k])
+        assert a.dtype == b.dtype, (what, k)
+        np.testing.assert_array_equal(b, a, err_msg=f"{what}.{k}")
+
+
+@pytest.mark.parametrize("kind", sorted(_REGISTRY_KINDS))
+def test_record_kind_matches_reference(runs, kind):
+    """Each announce-rate record kind lands in its registry as in the
+    reference: the same count, the same columns (names resolved), the
+    same ageing clock."""
+    reg, ctr = _REGISTRY_KINDS[kind]
+    jreg, treg = getattr(runs["jr"], reg), getattr(runs["tr"], reg)
+    assert runs["t_ctr"][ctr] == runs["j_ctr"][ctr] > 0
+    assert len(treg) == len(jreg) > 0
+    _cols_equal(jreg.columns(runs["jr"].names),
+                treg.columns(runs["tr"].names), kind)
+    assert getattr(treg, "_sweep", None) == getattr(jreg, "_sweep", None)
+
+
+def test_crud_replies_match_reference(runs):
+    assert runs["t_crud"] == runs["j_crud"]
+    assert all(r["ok"] for r in runs["t_crud"])
+
+
+@pytest.mark.parametrize("req", [
+    {"op": "add", "subsys": "alertdef"},
+    {"op": "add", "objtype": "alertdef", "alertname": "x",
+     "subsys": "svcstate", "filter": "{ hoststate.nprocissue > 1 }"},
+    {"op": "delete", "objtype": "silence"},
+    {"op": "rename", "objtype": "tag"},
+], ids=["no objtype", "foreign filter", "no name", "bad op"])
+def test_op_request_errors_match_reference(req):
+    """An ``"op"`` request is the CRUD channel's: a bad one fails with
+    the reference's error."""
+    with pytest.raises(Exception) as ref:
+        JRuntime(j_cfg(), JOpts(**OPTS)).query(dict(req))
+    with pytest.raises(Exception) as got:
+        _fresh().query(dict(req))
+    assert type(got.value).__name__ == type(ref.value).__name__
+    assert str(got.value) == str(ref.value)
+
+
+def test_trace_control_diff_matches_reference(runs):
+    assert runs["t_diff"] == runs["j_diff"]
+    assert runs["tr"].trace_control_diff() == \
+        runs["jr"].trace_control_diff()
+
+
+def test_alert_manager_matches_reference(runs):
+    jm, tm = runs["jr"].alerts, runs["tr"].alerts
+    assert tm.stats == jm.stats
+    assert tm.stats["nfired"] > 0 and tm.stats["nwindow_skipped"] > 0
+    assert [tuple(a) for a in tm.alert_log] == \
+        [tuple(a) for a in jm.alert_log]
+    assert sorted(tm.firing()) == sorted(jm.firing())
+    _cols_equal(runs["jr"].notifylog.columns(),
+                runs["tr"].notifylog.columns(), "notifymsg")
+
+
+def test_close_joins_background_threads(monkeypatch):
+    """``close`` joins the resolver and the delivery worker; a second
+    call is a no-op. (No lookup leaves the process: the resolver's
+    ``getnameinfo`` fails here, as for an unresolvable address.)"""
+    def refuse(*a, **kw):
+        raise OSError("no lookups in tests")
+
+    monkeypatch.setattr(socket, "getnameinfo", refuse)
+    rt = _fresh()
+    rt.dns.get("10.0.0.1")            # a miss starts the resolver
+    assert rt.dns._thread is not None
+    rt.close()
+    rt.close()
+    assert rt.dns._thread is None and rt.alerts._dispatcher is None
+
+
+# ----------------------------------------------------- unported tiers
 def _fresh():
     return TRuntime(t_cfg(), TOpts(**OPTS), device="cpu")
 
 
-@pytest.mark.parametrize("subtype", sorted(_KINDS))
-def test_unported_record_kind_raises(subtype):
-    """A frame of an unported tier is refused, naming its ROADMAP item,
-    before anything of the feed is staged."""
-    rt = _fresh()
-    frame = t_wire.encode_frame(
-        subtype, np.zeros(2, t_wire.DTYPE_OF_SUBTYPE[subtype]))
-    conn = TSim(**SIM_KW).conn_frames(5)
-    with pytest.raises(unported.NotPortedError, match=_KINDS[subtype]) \
-            as e:
-        rt.feed(conn + frame)
-    assert "ROADMAP.md" in str(e.value)
-    assert isinstance(e.value, NotImplementedError)
-    assert rt._n_conn_raw == 0 and "conn_events" not in rt.stats.counters
-
-
 _REQUESTS = {
-    "op": ({"op": "add", "subsys": "alertdef"}, unported.ALERTS),
     "tstart": ({"subsys": "svcstate", "tstart": 0}, unported.HISTORY),
     "tend": ({"subsys": "svcstate", "tend": 5}, unported.HISTORY),
     "at": ({"subsys": "svcstate", "at": 5}, unported.HISTORY),

@@ -8,8 +8,9 @@ the snapshot-served JSON of every served subsystem after every tick,
 the ``selfstats`` and ``metrics`` payloads. ``selfstats_response`` and
 ``prom.render`` are held equal on equal ``Stats`` (the clock pinned);
 at the runtime level the payloads compare on everything but what only
-the reference has — its alert manager's section and counters, and
-stage times, which are wall-clock readings.
+the reference has (its native decoder's counters and gauge) and stage
+times, which are wall-clock readings: the alert manager's section and
+``gyt_alerts_*`` lines and the drop-pressure counters included.
 
 Port only: a published snapshot does not change under later feeds; it
 is republished on ``restore``; its result cache, bootstrap publish,
@@ -22,11 +23,13 @@ import numpy as np
 import pytest
 import torch
 
+from gyeeta_tpu.alerts import AlertManager as JAlerts
 from gyeeta_tpu.obs import prom as j_prom
 from gyeeta_tpu.obs.spans import SpanTracer as JSpans
 from gyeeta_tpu.query import crud as j_crud, normalize as j_norm
 from gyeeta_tpu.utils import selfstats as j_ss
 from gyeeta_tpu_torch import unported
+from gyeeta_tpu_torch.alerts import AlertManager as TAlerts
 from gyeeta_tpu_torch.engine import aggstate as t_agg
 from gyeeta_tpu_torch.ingest import wire as t_wire
 from gyeeta_tpu_torch.obs import prom as t_prom
@@ -44,17 +47,13 @@ from test_torch_delta_fold import N_TICKS, OPTS, SIM_KW, run_delta_both, \
     t_cfg
 from test_torch_runtime import SERVED, assert_json_equal
 
-# counters and gauges only the reference keeps: its alert manager and
-# drop-pressure notifications (utils/droppressure.py, the alert tier's,
-# not ported) and its native decoder
-REF_ONLY_COUNTERS = {"alert_eval_skipped", "ref_native_decoded",
-                     "ref_fallback_decoded", "engine_drop_pressure",
+# counters and gauges only the reference keeps: its native decoder's
+REF_ONLY_COUNTERS = {"ref_native_decoded", "ref_fallback_decoded",
                      "native_decode_available"}
-REF_ONLY_PREFIXES = ("drop_pressure_", "drops_", "dropped_records_")
 
 
 def _ref_only(name: str) -> bool:
-    return name in REF_ONLY_COUNTERS or name.startswith(REF_ONLY_PREFIXES)
+    return name in REF_ONLY_COUNTERS
 
 
 @pytest.fixture(scope="module")
@@ -160,11 +159,17 @@ def test_selfstats_response_matches_reference_on_equal_stats(pinned):
     ts.t_start = js.t_start = 1.7e9
     tsp, jsp = TSpans(capacity=4), JSpans(capacity=4)
     _fill(ts, tsp), _fill(js, jsp)
-    got = t_ss.selfstats_response(ts, None, spans=tsp)
-    ref = j_ss.selfstats_response(js, None, spans=jsp)
+    tm, jm = TAlerts(None), JAlerts(None)
+    for m in (tm, jm):
+        m.stats["nfired"], m.stats["ncq_group_evals"] = 3, 7
+    got = t_ss.selfstats_response(ts, tm, spans=tsp)
+    ref = j_ss.selfstats_response(js, jm, spans=jsp)
     assert got == ref
     assert got["counters"]["uptime_sec"] == 42.0
-    assert len(got["spans"]) == 4 and got["alerts"] == {}
+    assert len(got["spans"]) == 4 and got["alerts"] == ref["alerts"]
+    assert got["alerts"]["nfired"] == 3
+    assert t_ss.selfstats_response(ts, None)["alerts"] == \
+        j_ss.selfstats_response(js, None)["alerts"] == {}
     assert ts.delta() == js.delta() and ts.delta() == js.delta() == {}
 
 
@@ -185,6 +190,11 @@ def test_prom_render_matches_reference_on_equal_stats(pinned):
     _fill(ts), _fill(js)
     got, ref = t_prom.render(ts), j_prom.render(js)
     assert got == ref
+    tm, jm = TAlerts(None), JAlerts(None)
+    for m in (tm, jm):
+        m.stats["nsilenced"] = 4
+    assert t_prom.render(ts, tm) == j_prom.render(js, jm)
+    assert "gyt_alerts_nsilenced_total 4" in t_prom.render(ts, tm)
     assert 'gyt_nm_queries_total{verb="svcstate"} 4' in got
     assert 'gyt_stage_duration_seconds_count{stage="decode_fold"} 104' \
         in got
@@ -206,13 +216,13 @@ def _prom_samples(text: str, families: set) -> dict:
 def test_runtime_selfstats_matches_reference(runs, pinned):
     """Counters equal but for the reference-only ones; the same timed
     stages (the port also times its host decode) and the same spans by
-    name and record count. The alert section is the reference's alert
-    manager, which the port does not have: the port's is empty."""
+    name and record count; the alert managers' sections equal."""
     jr, tr = runs["jr"], runs["tr"]
     jr.stats.t_start = tr.stats.t_start = 1.7e9
     ref = jr.query({"subsys": "selfstats"})
     got = tr.query({"subsys": "selfstats", "consistency": "snapshot"})
-    assert got["alerts"] == {}
+    assert got["alerts"] == ref["alerts"]
+    assert got["alerts"]["nchecks"] == N_TICKS
     rc = {k: v for k, v in ref["counters"].items() if not _ref_only(k)}
     assert got["counters"] == rc
     assert {r["stage"] for r in got["timings"]} - {"decode"} == \
@@ -226,8 +236,8 @@ def test_runtime_selfstats_matches_reference(runs, pinned):
 @pytest.mark.parametrize("consistency", ["strong", "snapshot"])
 def test_runtime_metrics_match_reference(runs, consistency):
     """Every counter and gauge sample of the port's exposition equals
-    the reference's (stage histograms are wall-clock readings); the
-    reference adds its alert manager's lines."""
+    the reference's, the alert manager's ``gyt_alerts_*`` lines too
+    (stage histograms are wall-clock readings)."""
     jr, tr = runs["jr"], runs["tr"]
     req = {"subsys": "metrics", "consistency": consistency}
     ref, got = jr.query(req), tr.query(req)
@@ -235,9 +245,11 @@ def test_runtime_metrics_match_reference(runs, consistency):
     fam = {f"gyt_{k}_total" for k in tr.stats.counters} | \
         {f"gyt_{k}" for k in tr.stats.gauges if k != "snapshot_age_seconds"}
     fam = {f.split("|")[0] for f in fam}
-    g, r = _prom_samples(got["text"], fam), _prom_samples(ref["text"], fam)
+    alert_fam = {f"gyt_alerts_{k}_total" for k in jr.alerts.stats}
+    g, r = _prom_samples(got["text"], fam | alert_fam), \
+        _prom_samples(ref["text"], fam | alert_fam)
     assert g and g == r
-    assert "gyt_alerts_" not in got["text"]
+    assert alert_fam <= set(g) and len(alert_fam) == 9
     assert f"gyt_snapshot_tick {N_TICKS - 1}" in got["text"]
 
 
