@@ -108,9 +108,32 @@ checkout of the repository. Phases:
    ``multiquery``, the snapshot's isolation from a later feed, and the
    tiny delta stream of ``tests/test_torch_delta_fold.py`` card vs CPU
    (tick reports, 85 + 29 leaves, counters, snapshot JSON).
+10. History and the journal through the ``Runtime`` at ns geometry:
+   phase 8's frames into a runtime with a write-ahead journal, snapshot
+   shards (two ticks a window), a sqlite history store and the history
+   sweep every tick: a warm-up tick and four ticks of 8 feed buffers
+   (ms a buffer beside phase 8's, the journal's gauges, ``run_tick``
+   with the sweep's render synchronised, ``history_rows``); a db-mode
+   and a windowed alertdef through ``"op"``; a ``Compactor`` whose
+   replay runtime re-folds the whole WAL on the card, with the launch
+   counters zeroed before it (each replayed conn/resp slab launches the
+   fused kernels 2/1/1), ``compact_replay_ev_per_sec``, ``compact_emit``
+   ms and shard bytes, and deflate at levels 6 and 1 over a sample of a
+   shard's leaves. Checks: the newest shard's 85 + 29 leaves against
+   the live state at its tick, on the card (integer and max-merged
+   leaves exact, float sums rtol 1e-6); ``at=tick:4`` JSON of svcstate,
+   topk, flowstate and svcdependency against the live JSON then (values
+   read off float sums counted); ``window=`` and ``at=`` queries timed
+   from a cold snapshot cache and again; ``tstart`` against sqlite's
+   own count; the two alertdefs firing; peak memory with the replay
+   runtime and two materialised snapshots. Then the stream of
+   ``tests/test_torch_history.py`` card vs CPU: tick reports with
+   ``history_rows``, shard leaves, the JSON of every ``at=``,
+   ``window=`` and ``tstart`` request, and a checkpoint → ``restore``
+   → ``replay_journal`` recovery against the uninterrupted run.
 6. Fold rate and device ops a dispatch, memory, the card's name and
    power limit, the JSON lines (fold, fold_all, runtime, delta,
-   kernels), and last the result line.
+   history, kernels), and last the result line.
 """
 
 from __future__ import annotations
@@ -2158,7 +2181,7 @@ def runtime_phase(torch, scatter):
           f"alert manager stats equal: {c_rt.alerts.stats}")
     g_rt.close()
     c_rt.close()
-    return perf, launches
+    return perf, launches, (names, sweeps, bufs, n_svcs)
 
 
 # ----------------------------------------------------------- phase 9
@@ -2730,6 +2753,646 @@ def delta_phase(torch, scatter):
     return perf, launches, sites
 
 
+# ----------------------------------------------------------- phase 10
+HIST_TICKS = 4              # measured ticks
+HIST_BUFFERS = 8            # feed buffers a measured tick
+HIST_WINDOW = 2             # hist_window_ticks: shards at ticks 2 and 4
+HIST_ALERT_OPS = (
+    {"op": "add", "objtype": "alertdef", "alertname": "host_issue_db",
+     "subsys": "hoststate", "mode": "db", "querysec": 60.0,
+     "filter": "{ hoststate.nprocissue > 0 }"},
+    {"op": "add", "objtype": "alertdef", "alertname": "svc_busy_1h",
+     "subsys": "svcstate", "window": "1h",
+     "filter": "{ svcstate.qps5s > 45 }"},
+)
+# at=tick:4 against the live JSON at tick 4, rows matched by these keys
+HIST_AT_REQS = {
+    "svcstate": ({"subsys": "svcstate", "maxrecs": 5000}, ("svcid",)),
+    "topk": ({"subsys": "topk", "maxrecs": 200}, ("metric", "id")),
+    "flowstate": ({"subsys": "flowstate", "maxrecs": 500}, ("flowid",)),
+    "svcdependency": ({"subsys": "svcdependency", "maxrecs": 5000},
+                      ("cliid", "serid")),
+}
+HIST_WINDOW_REQS = {
+    "svcstate": {"subsys": "svcstate", "window": "1h", "maxrecs": 1000},
+    "topk": {"subsys": "topk", "window": "1h", "maxrecs": 100},
+    "svcstate p99resp5s": {"subsys": "svcstate", "window": "1h",
+                           "maxrecs": 100, "sortcol": "p99resp5s",
+                           "columns": ["svcid", "svcname", "p99resp5s"]},
+}
+# the stream of tests/test_torch_history.py (card vs CPU)
+TINY_HIST_CFG = dict(n_hosts=8, svc_capacity=64, task_capacity=64,
+                     conn_batch=128, resp_batch=256, fold_k=2)
+TINY_HIST_OPTS = dict(hist_window_ticks=2, history_every_ticks=1,
+                      dep_pair_capacity=1024, dep_edge_capacity=512)
+TINY_HIST_AT = ("svcstate", "topk", "flowstate", "svcdependency",
+                "taskstate", "tracereq", "hoststate", "cpumem",
+                "clusterstate", "svcsumm", "activeconn", "clientconn")
+TINY_HIST_WINDOW = ("svcstate", "tracereq", "taskstate", "topk",
+                    "hoststate", "clusterstate", "cpumem")
+
+
+def _keyed(recs, keys):
+    """Rows sorted by their key fields: card and replay may order rows
+    whose float values are one ulp apart differently."""
+    return sorted(recs, key=lambda r: tuple(str(r.get(k)) for k in keys))
+
+
+def _device_leaf_check(torch, name, live, shard, mass) -> str:
+    """A shard leaf against the live leaf on the card → "exact", "close"
+    or what differs. Integer, bool and the max-merged sample leaves must
+    be exact; float sums (atomics in no fixed order) within rtol 1e-6,
+    digest centroids rtol 1e-5. ``inv.prio`` is a max of CMS estimates,
+    float sums themselves: rtol 1e-6 too. The top-K's evicted mass goes
+    by the reference's mass rule (rtol 1e-5 of the top-K mass: it is a
+    difference of two float sums)."""
+    if live.shape != shard.shape or live.dtype != shard.dtype:
+        return (f"{tuple(live.shape)}/{live.dtype} vs "
+                f"{tuple(shard.shape)}/{shard.dtype}")
+    if torch.equal(live, shard):
+        return "exact"
+    n = int((live != shard).sum())
+    if not live.is_floating_point() or name in (
+            "svc_td.vmin", "svc_td.vmax", "h_bytes"):
+        return f"{n} of {live.numel()} elements differ"
+    if name == "flow_topk.evicted":
+        ok = abs(float(live) - float(shard)) <= 1e-5 * mass
+    else:
+        rtol = 1e-5 if name.startswith("svc_td.") else 1e-6
+        ok = torch.allclose(shard, live, rtol=rtol, atol=0.0)
+    return "close" if ok else f"{n} elements beyond the tolerance"
+
+
+def _sum_field_apart(k, ref_row, got_row, mass) -> bool:
+    """``errbound`` (a row's ``value`` − its exact count) and
+    ``evictedbytes`` (the top-K's evicted mass) are differences of float
+    sums, so their rounding scales with the operands: True when
+    ``got_row[k]`` is within 1e-6 of the row's ``value``, or for
+    ``evictedbytes`` within 1e-5 of the top-K mass ``mass`` (the
+    reference's mass rule), of ``ref_row[k]``; raises otherwise."""
+    a, b = ref_row[k], got_row[k]
+    tol = 1e-5 * mass if k == "evictedbytes" else \
+        1e-6 * max(abs(ref_row["value"]), abs(got_row["value"]))
+    if abs(a - b) > tol:
+        raise AssertionError(f"{k}: {a} vs {b}")
+    return True
+
+
+def _sum_json_diff(ref, got, path, n_apart, mass) -> None:
+    """Shard JSON against live JSON on the card: strings and bools
+    exact; a number equal, or else counted in ``n_apart``: within rtol
+    1e-6 (``[0]``: a value read off CMS counts or other float sums that
+    atomics added in another order, integers such as topk's ``value``
+    included; ``errbound`` and ``evictedbytes`` by
+    :func:`_sum_field_apart`), or 0.001 apart where both are rounded to
+    the JSON's three decimals (``[1]``)."""
+    if isinstance(ref, dict):
+        if set(ref) != set(got):
+            raise AssertionError(f"{path}: keys {set(ref) ^ set(got)}")
+        for k in ref:
+            if k in ("errbound", "evictedbytes") and ref[k] != got[k]:
+                n_apart[0] += _sum_field_apart(k, ref, got, mass)
+            else:
+                _sum_json_diff(ref[k], got[k], f"{path}.{k}", n_apart, mass)
+    elif isinstance(ref, list):
+        if len(ref) != len(got):
+            raise AssertionError(f"{path}: {len(ref)} vs {len(got)} rows")
+        for i, (a, b) in enumerate(zip(ref, got)):
+            _sum_json_diff(a, b, f"{path}[{i}]", n_apart, mass)
+    elif ref == got and type(ref) is type(got):
+        return
+    elif (isinstance(ref, (int, float)) and isinstance(got, (int, float))
+          and not isinstance(ref, bool) and not isinstance(got, bool)):
+        if math.isclose(ref, got, rel_tol=1e-6, abs_tol=0.0):
+            n_apart[0] += 1
+        elif (round(ref, 3) == ref and round(got, 3) == got
+              and abs(ref - got) <= 0.0010001):
+            n_apart[1] += 1
+        else:
+            raise AssertionError(f"{path}: {ref} vs {got}")
+    else:
+        raise AssertionError(f"{path}: {ref!r} vs {got!r}")
+
+
+def _settle_sum_fields(ref, got, mass, n_apart):
+    """A copy of ``got`` whose ``errbound`` / ``evictedbytes`` values
+    that differ from ``ref``'s within :func:`_sum_field_apart`'s rules
+    are ``ref``'s (counted in ``n_apart``), for :func:`_json_diff` to
+    compare the rest."""
+    if isinstance(ref, dict) and isinstance(got, dict):
+        out = {}
+        for k, v in got.items():
+            if (k in ("errbound", "evictedbytes") and k in ref
+                    and ref[k] != v):
+                n_apart[0] += _sum_field_apart(k, ref, got, mass)
+                out[k] = ref[k]
+            else:
+                out[k] = _settle_sum_fields(ref.get(k), v, mass, n_apart)
+        return out
+    if isinstance(ref, list) and isinstance(got, list):
+        return [_settle_sum_fields(a, b, mass, n_apart)
+                for a, b in zip(ref, got)] + got[len(ref):]
+    return got
+
+
+def deflate_rates(leaves, stride: int = 16, block: int = 1 << 20) -> dict:
+    """zlib's deflate at level 6 (``np.savez_compressed``'s, the
+    reference's shard writer) and level 1 (the port's) over a sample of
+    a shard's leaves: every ``stride``-th ``block`` bytes of each leaf →
+    {level: {"mb_per_s", "ratio"}} and the sample's MB."""
+    import zlib
+
+    blocks = []
+    for leaf in leaves:
+        raw = memoryview(np.ascontiguousarray(leaf)).cast("B")
+        blocks += [raw[i:i + block] for i in range(0, len(raw),
+                                                   stride * block)]
+    n = sum(len(b) for b in blocks)
+    out = {"sample_mb": n / 1e6}
+    for level in (6, 1):
+        t0 = time.perf_counter()
+        z = sum(len(zlib.compress(b, level)) for b in blocks)
+        dt = time.perf_counter() - t0
+        out[level] = {"mb_per_s": n / 1e6 / dt, "ratio": n / max(z, 1)}
+    return out
+
+
+def tiny_hist_stream(sim, wire):
+    """Names, then the four ticks of tests/test_torch_history.py."""
+    return sim.name_frames(), [
+        sim.conn_frames(256) + sim.resp_frames(512)
+        + sim.listener_frames() + sim.task_frames()
+        + wire.encode_frames_chunked(wire.NOTIFY_HOST_STATE,
+                                     sim.host_state_records())
+        + wire.encode_frames_chunked(wire.NOTIFY_CPU_MEM_STATE,
+                                     sim.cpu_mem_records(hot_cpu=[t % 8]))
+        + sim.trace_frames(128) for t in range(4)]
+
+
+def tiny_hist_run(device, tmp):
+    """The history tests' stream through ``Runtime(device=...)`` with the
+    journal, shards, sqlite history and a checkpoint every second tick,
+    on a clock of 5 s a tick; a compaction; every at=, window= and
+    tstart request; then a checkpoint → restore → replay_journal
+    recovery beside a runtime that restored and was fed directly →
+    dict of what card and CPU must agree on."""
+    from gyeeta_tpu_torch.engine import aggstate
+    from gyeeta_tpu_torch.history.compactor import Compactor
+    from gyeeta_tpu_torch.ingest import decode, wire
+    from gyeeta_tpu_torch.parallel import depgraph
+    from gyeeta_tpu_torch.runtime import Runtime
+    from gyeeta_tpu_torch.sim import ParthaSim
+    from gyeeta_tpu_torch.utils.config import RuntimeOpts
+
+    cfg = aggstate.EngineCfg(**TINY_HIST_CFG)
+    now = [1.7e9]
+    tmp.mkdir(parents=True)
+    opts = RuntimeOpts(**TINY_HIST_OPTS, journal_dir=str(tmp / "wal"),
+                       hist_shard_dir=str(tmp / "shards"),
+                       history_db=str(tmp / "h.db"),
+                       checkpoint_dir=str(tmp / "ck"),
+                       checkpoint_every_ticks=2)
+    rt = Runtime(cfg, opts, clock=lambda: now[0], device=device)
+    out = {"reports": []}
+    try:
+        names, bufs = tiny_hist_stream(ParthaSim(n_hosts=8, n_svcs=4,
+                                                 seed=7), wire)
+        # the loghist inputs, whose buckets CUDA's logf may move
+        fed = {"resp_spec": [], "apiresp_spec": [], "taskcpu_spec": [],
+               "qps_spec": [], "active_spec": []}
+        for buf in bufs:
+            recs, _, _ = wire.drain2(buf)
+            tr = recs[wire.NOTIFY_REQ_TRACE]
+            fed["resp_spec"] += [recs[wire.NOTIFY_RESP_SAMPLE]["resp_usec"],
+                                 tr["resp_usec"]]
+            fed["apiresp_spec"].append(tr["resp_usec"])
+            tb = decode.task_batch(recs[wire.NOTIFY_AGGR_TASK_STATE], 4096)
+            fed["taskcpu_spec"].append(
+                tb.stats[tb.valid, decode.TASK_CPU_PCT])
+            lb = decode.listener_batch(recs[wire.NOTIFY_LISTENER_STATE],
+                                       4096)
+            fed["qps_spec"].append(
+                lb.stats[lb.valid, decode.STAT_NQRYS] / 5.0)
+            fed["active_spec"].append(
+                lb.stats[lb.valid, decode.STAT_NCONNS_ACTIVE])
+        out["fed"] = {k: np.concatenate(v).astype(np.float32)
+                      for k, v in fed.items()}
+        rt.feed(names)
+        for buf in bufs:
+            rt.feed(buf, hid=3, conn_id=11)
+            now[0] += 5.0
+            rep = rt.run_tick()
+            if "checkpoint" in rep:       # the file's name, not its dir
+                rep["checkpoint"] = Path(rep["checkpoint"]).name
+            out["reports"].append(rep)
+        post = bufs[0]                    # after the last checkpoint
+        rt.feed(post, hid=4)
+        rt.flush()
+        out["live"] = (aggstate.state_to_numpy(rt.state),
+                       depgraph.dep_to_numpy(rt.dep))
+        rt.journal.fsync()
+        c = Compactor(cfg, opts, journal=rt.journal, stats=rt.stats,
+                      clock=lambda: now[0], device=device)
+        try:
+            out["compact"] = c.compact_once(seal=True, upto_tick=4)
+            ent = [e for e in c.store.shards("raw") if e["tick1"] == 4][0]
+            data = c.store.load(ent)
+            out["shard"] = (data["state"], data["dep"])
+            out["shards"] = c.store.shards()
+        finally:
+            c.close()
+        reqs = {f"at {s}": {"subsys": s, "at": "tick:4", "maxrecs": 10000}
+                for s in TINY_HIST_AT}
+        reqs |= {f"window {s}": {"subsys": s, "window": "1h",
+                                 "maxrecs": 10000}
+                 for s in TINY_HIST_WINDOW}
+        reqs |= {"tstart svcstate": {"subsys": "svcstate", "tstart": 0},
+                 "tstart hoststate aggr": {
+                     "subsys": "hoststate", "tstart": 0, "tend": 4e9,
+                     "aggr": ["count(*) as n", "max(nprocissue)"],
+                     "groupby": ["hostid"]}}
+        out["json"] = {k: rt.query(dict(r)) for k, r in reqs.items()}
+    finally:
+        rt.close()
+    ck = tmp / "ck" / "gyt_ckpt_00000004.npz"
+    rt2 = Runtime(cfg, opts._replace(checkpoint_dir=None,
+                                     hist_shard_dir=None, history_db=None),
+                  clock=lambda: now[0], device=device)
+    rt3 = Runtime(cfg, RuntimeOpts(**TINY_HIST_OPTS), clock=lambda: now[0],
+                  device=device)
+    try:
+        ext = rt2.restore(ck)
+        out["replay"] = rt2.replay_journal(ext["wal"])
+        rt3.restore(ck)
+        rt3.feed(post, hid=4)
+        rt3.flush()
+        out["recovered"] = (aggstate.state_to_numpy(rt2.state),
+                            depgraph.dep_to_numpy(rt2.dep))
+        out["direct"] = depgraph.dep_to_numpy(rt3.dep)
+    finally:
+        rt2.close()
+        rt3.close()
+    return out
+
+
+def history_phase(torch, scatter, frames, rt_perf):
+    """History and the journal at ns geometry through the Runtime's entry
+    points: feed with the WAL on, ticks with the history sweep into
+    sqlite, a compaction whose replay runtime re-folds the WAL on the
+    card, the shard against the live state, at=/window=/tstart queries,
+    db-mode and windowed alertdefs; then the history tests' stream card
+    vs CPU, recovery included."""
+    import shutil
+    import sqlite3
+    import tempfile
+
+    from gyeeta_tpu_torch.engine import aggstate, step
+    from gyeeta_tpu_torch.history.compactor import Compactor
+    from gyeeta_tpu_torch.parallel import depgraph
+    from gyeeta_tpu_torch.runtime import Runtime
+    from gyeeta_tpu_torch.sketch import loghist
+    from gyeeta_tpu_torch.utils.config import RuntimeOpts
+    from gyeeta_tpu_torch.utils.tensor import tree_leaves, tree_map, \
+        tree_paths
+
+    t_phase = time.perf_counter()
+    cfg = aggstate.EngineCfg(**NS_CFG)
+    names, sweeps, bufs, n_svcs = frames
+    tmp = Path(tempfile.mkdtemp(prefix="gyt_smoke_hist_"))
+    perf = {}
+    log(f"phase 10: history and the journal at north-star geometry: "
+        f"journal, shards (hist_window_ticks={HIST_WINDOW}) and sqlite "
+        f"history (history_every_ticks=1) under {tmp}")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        opts = RuntimeOpts(**RT_OPTS, journal_dir=str(tmp / "wal"),
+                           hist_shard_dir=str(tmp / "shards"),
+                           history_db=str(tmp / "history.db"),
+                           hist_window_ticks=HIST_WINDOW,
+                           history_every_ticks=1)
+        rt = Runtime(cfg, opts, device=DEV)
+        t0 = time.perf_counter()
+        rt.feed(names)
+        rt.feed(sweeps[0])
+        for i in range(RT_WARM_BUFFERS):
+            rt.feed(bufs[i % RT_DISTINCT][0])
+        rt.run_tick()
+        torch.cuda.synchronize()
+        log(f"  warm-up tick: {time.perf_counter() - t0:.2f}s")
+        tick_parts = SyncTimer(torch, (
+            (rt, "_history_sweep", "history_sweep"),
+            (rt, "publish_snapshot", "publish_snapshot"),
+            (rt, "_alert_step", "alert_step"),
+            (rt, "heavy_recover", "heavy_recover")))
+        perf.update(buffer_ms=[], sweep_s=[], tick_ms=[], tick_parts_ms=[],
+                    history_rows=[])
+        live4 = live4_json = None
+        j = RT_WARM_BUFFERS
+        for tick in range(HIST_TICKS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rt.feed(sweeps[1 + tick % (len(sweeps) - 1)])
+            torch.cuda.synchronize()
+            perf["sweep_s"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for _ in range(HIST_BUFFERS):
+                rt.feed(bufs[j % RT_DISTINCT][0])
+                j += 1
+            torch.cuda.synchronize()
+            perf["buffer_ms"].append((time.perf_counter() - t0)
+                                     / HIST_BUFFERS * 1e3)
+            t0 = time.perf_counter()
+            with tick_parts:
+                rep = rt.run_tick()
+            torch.cuda.synchronize()
+            perf["tick_ms"].append((time.perf_counter() - t0) * 1e3)
+            perf["tick_parts_ms"].append(dict(tick_parts.ms))
+            tick_parts.ms = {}
+            perf["history_rows"].append(rep["history_rows"])
+            if rep["tick"] == 2 * HIST_WINDOW:
+                # the live state and JSON at the newest window's end
+                live4 = (tree_map(torch.clone, rt.state),
+                         tree_map(torch.clone, rt.dep))
+                live4_json = {k: rt.query(dict(r))
+                              for k, (r, _) in HIST_AT_REQS.items()}
+        check(live4 is not None, f"ticks ran to {rt._tick_no}, past the "
+              f"window end at tick {2 * HIST_WINDOW}")
+        log(f"  ms per feed buffer with the journal on, by tick: "
+            f"{', '.join(f'{m:.3f}' for m in perf['buffer_ms'])} (phase 8, "
+            f"no journal: {', '.join(f'{m:.3f}' for m in rt_perf)})")
+        log(f"  sweep feed (s): "
+            f"{', '.join(f'{s:.3f}' for s in perf['sweep_s'])}")
+        log(f"  ms per run_tick: "
+            f"{', '.join(f'{m:.2f}' for m in perf['tick_ms'])}; parts "
+            "(synchronised): " + " | ".join(
+                ", ".join(f"{k} {v:.2f}" for k, v in p.items())
+                for p in perf["tick_parts_ms"])
+            + f"; history_rows {perf['history_rows']}")
+        check(all(r > n_svcs for r in perf["history_rows"]),
+              f"each tick's history sweep wrote svcstate, taskstate and "
+              f"the rest: {perf['history_rows']} rows")
+        rt.journal.fsync()
+        g = rt.journal.gauges()
+        c = rt.stats.counters
+        perf["journal"] = g | {k: c.get(k, 0) for k in (
+            "wal_appended_chunks", "wal_appended_bytes", "wal_fsyncs",
+            "wal_rotations", "wal_backlog_dropped")}
+        log(f"  journal: {perf['journal']}")
+        check(perf["journal"]["wal_backlog_dropped"] == 0
+              and g["journal_segments"] >= 1,
+              "no WAL chunk dropped from the writer's backlog")
+        replies = [rt.query(dict(o)) for o in HIST_ALERT_OPS]
+        check(all(r.get("ok") for r in replies),
+              "a db-mode and a windowed alertdef installed through \"op\"")
+
+        # ---- compaction: the replay runtime re-folds the WAL, counted
+        mods = sketch_modules()
+        connresp = [0]
+        fold_all = step.fold_all
+
+        def counting_fold_all(*a, **kw):
+            connresp[0] += kw.get("connresp") is not None
+            return fold_all(*a, **kw)
+
+        comp = Compactor(cfg, opts, journal=rt.journal, stats=rt.stats,
+                         device=DEV)
+        emit0 = rt.stats.timing_totals().get("compact_emit", (0, 0.0))
+        reset_launches(scatter, mods)
+        step.fold_all = counting_fold_all
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            crep = comp.compact_once(seal=True, upto_tick=rt._tick_no)
+            torch.cuda.synchronize()
+            perf["compact_s"] = time.perf_counter() - t0
+        finally:
+            step.fold_all = fold_all
+        launches = read_launches(scatter, mods)
+        n_emit, emit_ms = rt.stats.timing_totals()["compact_emit"]
+        shards = comp.store.shards("raw")
+        perf["compact"] = crep
+        perf["compact_replay_ev_per_sec"] = \
+            rt.stats.gauges["compact_replay_ev_per_sec"]
+        perf["compact_emit_ms"] = (emit_ms - emit0[1]) / max(
+            n_emit - emit0[0], 1)
+        perf["shard_bytes"] = [e["bytes"] for e in shards]
+        perf["launches"] = launches
+        perf["replay_connresp_dispatches"] = connresp[0]
+        log(f"  compaction: {crep}; {perf['compact_s']:.2f}s, "
+            f"compact_replay_ev_per_sec "
+            f"{perf['compact_replay_ev_per_sec']}, compact_emit "
+            f"{perf['compact_emit_ms']:.1f} ms a window, shard bytes "
+            f"{perf['shard_bytes']}")
+        log(f"  kernel launches during the compaction: {launches}")
+        check(crep["windows"] == 2 and len(shards) == 2,
+              f"two raw shards emitted (ticks {[e['tick1'] for e in shards]})")
+        check(launches == {"hll_update": 2 * connresp[0],
+                           "cms_update": connresp[0],
+                           "inv_update": connresp[0],
+                           "scatter_max": 0, "scatter_add": 0}
+              and connresp[0] > 0,
+              f"each of the replay's {connresp[0]} conn/resp dispatches "
+              "launched hll_update 2x, cms_update 1x and inv_update 1x")
+
+        # ---- the newest raw shard against the live state, on the card
+        ent = [e for e in shards if e["tick1"] == 2 * HIST_WINDOW][0]
+        data = comp.store.load(ent)
+        perf["deflate"] = deflate_rates(data["state"] + data["dep"])
+        log(f"  deflate over a 1/16 block sample of the shard's leaves "
+            f"({perf['deflate']['sample_mb']:.0f} MB): level 6 (the "
+            f"reference's savez_compressed) "
+            f"{perf['deflate'][6]['mb_per_s']:.0f} MB/s, ratio "
+            f"{perf['deflate'][6]['ratio']:.0f}; level 1 (the port's "
+            f"shards) {perf['deflate'][1]['mb_per_s']:.0f} MB/s, ratio "
+            f"{perf['deflate'][1]['ratio']:.0f}")
+        s_state = aggstate.state_from_numpy(data["state"], DEV)
+        s_dep = depgraph.dep_from_numpy(data["dep"], DEV)
+        snames = tree_paths(aggstate.init(cfg, "meta"))
+        dnames = tree_paths(depgraph.init(1, 1, "meta"))
+        mass = float(live4[0].flow_topk.counts.sum()
+                     + live4[0].flow_topk.evicted)
+        kinds = {n: _device_leaf_check(torch, n, a, b, mass) for n, a, b in
+                 zip(snames + dnames,
+                     tree_leaves(live4[0]) + tree_leaves(live4[1]),
+                     tree_leaves(s_state) + tree_leaves(s_dep))}
+        close = sorted(n for n, k in kinds.items() if k == "close")
+        bad = {n: k for n, k in kinds.items() if k not in ("exact",
+                                                           "close")}
+        perf["shard_leaves_exact"] = len(kinds) - len(close) - len(bad)
+        perf["shard_leaves_close"] = close
+        log(f"  shard vs live, leaves within the float-sum rule: {close}")
+        check(len(kinds) == 85 + 29 and not bad,
+              f"shard at tick {ent['tick1']} = the live state then: "
+              f"{perf['shard_leaves_exact']} of 114 leaves exact, "
+              f"{len(close)} within the float-sum rule; differing: {bad}")
+        del s_state, s_dep, data, live4
+
+        # ---- historical queries, each group from a cold snapshot LRU
+        # (its first request loads the shards from disk)
+        rt.timeview._snaps.clear()
+        perf["window_ms"] = {}
+        for name, req in HIST_WINDOW_REQS.items():
+            t0 = time.perf_counter()
+            first = rt.query(dict(req))
+            t1 = time.perf_counter()
+            again = rt.query(dict(req))
+            t2 = time.perf_counter()
+            check(again == first and first["nrecs"] > 0
+                  and first["shards"] == 2,
+                  f"window= {name}: {first['nrecs']} rows over 2 shards, "
+                  f"first {(t1 - t0) * 1e3:.1f} ms, cached "
+                  f"{(t2 - t1) * 1e3:.1f} ms")
+            perf["window_ms"][name] = {"first": (t1 - t0) * 1e3,
+                                       "cached": (t2 - t1) * 1e3}
+        rt.timeview._snaps.clear()
+        n_q = [0, 0]
+        perf["at_ms"] = {}
+        for name, (req, keys) in HIST_AT_REQS.items():
+            req = dict(req, at=f"tick:{2 * HIST_WINDOW}")
+            t0 = time.perf_counter()
+            got = rt.query(dict(req))
+            t1 = time.perf_counter()
+            again = rt.query(dict(req))
+            perf["at_ms"][name] = {
+                "first": (t1 - t0) * 1e3,
+                "cached": (time.perf_counter() - t1) * 1e3}
+            check(again == got, f"at= {name}: the cached answer equal")
+            ref = live4_json[name]
+            check(got["nrecs"] == ref["nrecs"] > 0,
+                  f"at=tick:4 {name}: {got['nrecs']} rows, as live")
+            _sum_json_diff(_keyed(ref["recs"], keys),
+                           _keyed(got["recs"], keys), f"at {name}", n_q,
+                           mass)
+        perf["at_json_sum_apart"], perf["at_json_rounding_apart"] = n_q
+        # a second materialised snapshot: the state at the first window
+        t0 = time.perf_counter()
+        got = rt.query({"subsys": "topk", "at": f"tick:{HIST_WINDOW}"})
+        perf["at_ms"]["topk tick 2"] = {
+            "first": (time.perf_counter() - t0) * 1e3}
+        check(got["nrecs"] > 0 and got["tick"] == HIST_WINDOW,
+              f"at=tick:{HIST_WINDOW} topk: {got['nrecs']} rows")
+        log(f"  at= ms: {perf['at_ms']}; JSON equal to the live JSON at "
+            f"tick 4 but {n_q[0]} values within rtol 1e-6 (float sums) "
+            f"and {n_q[1]} one unit apart in the third decimal")
+        perf["peak_gib_two_snapshots"] = \
+            torch.cuda.max_memory_allocated() / 2**30
+        perf["allocated_gib_two_snapshots"] = \
+            torch.cuda.memory_allocated() / 2**30
+        log(f"  device memory with the compactor's replay runtime and two "
+            f"materialised snapshots alive: "
+            f"{perf['allocated_gib_two_snapshots']:.3f} GiB allocated, "
+            f"peak {perf['peak_gib_two_snapshots']:.3f} GiB")
+        perf["tstart_ms"] = {}
+        for name, req in {
+                "hoststate": {"subsys": "hoststate", "tstart": 0,
+                              "maxrecs": 100000},
+                "svcstate filter": {"subsys": "svcstate", "tstart": 0,
+                                    "filter": "{ svcstate.qps5s > 40 }",
+                                    "maxrecs": 1000000}}.items():
+            t0 = time.perf_counter()
+            got = rt.query(dict(req))
+            perf["tstart_ms"][name] = (time.perf_counter() - t0) * 1e3
+            subsys = req["subsys"]
+            where = "WHERE qps5s > 40" if "filter" in req else ""
+            with sqlite3.connect(tmp / "history.db") as db:
+                tabs = [r[0] for r in db.execute(
+                    "SELECT name FROM sqlite_master WHERE type='table' "
+                    "AND name LIKE ?", (f"{subsys}tbl_%",))]
+                want = sum(db.execute(f"SELECT COUNT(*) FROM {t} {where}")
+                           .fetchone()[0] for t in tabs)
+            check(len(got["recs"]) == want > 0,
+                  f"tstart {name}: {len(got['recs'])} rows = sqlite's "
+                  f"count, {perf['tstart_ms'][name]:.1f} ms")
+
+        # ---- the db-mode and windowed alertdefs fire at the next tick
+        rt.feed(sweeps[1])
+        t0 = time.perf_counter()
+        rep = rt.run_tick()
+        perf["alert_tick_ms"] = (time.perf_counter() - t0) * 1e3
+        fired = {a.alertname for a in rt.alerts.alert_log}
+        perf["alerts"] = dict(rt.alerts.stats)
+        check({"host_issue_db", "svc_busy_1h"} <= fired
+              and rt.alerts.stats["ndbchecks"] >= 1
+              and rt.alerts.stats["nwindow_skipped"] == 0,
+              f"the db-mode and the windowed alertdef fired "
+              f"({rep['alerts_fired']} alerts at tick {rep['tick']}, "
+              f"{perf['alert_tick_ms']:.1f} ms)")
+        comp.close()
+        rt.close()
+        del rt, comp
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- card vs CPU, the history tests' stream
+    log("  tiny history stream, card vs CPU")
+    tmp = Path(tempfile.mkdtemp(prefix="gyt_smoke_tiny_hist_"))
+    try:
+        g = tiny_hist_run(DEV, tmp / "card")
+        c = tiny_hist_run("cpu", tmp / "cpu")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tcfg = aggstate.EngineCfg(**TINY_HIST_CFG)
+    check(g["reports"] == c["reports"]
+          and all(r["history_rows"] > 0 for r in c["reports"]),
+          f"tick reports equal, history_rows included: {c['reports']}")
+    check(g["compact"]["records"] == c["compact"]["records"]
+          and [e["tick1"] for e in g["shards"]]
+          == [e["tick1"] for e in c["shards"]] == [2, 4],
+          f"compactions equal: {c['compact']['records']} records, shards "
+          "at ticks 2 and 4")
+    snames = tree_paths(aggstate.init(tcfg, "meta"))
+    dnames = tree_paths(depgraph.init(1, 1, "meta"))
+    moved = {k: _moved(torch, loghist, getattr(tcfg, k), v)
+             for k, v in c["fed"].items()}
+    log(f"  loghist inputs whose bucket CUDA's logf moves: {moved}")
+    ev = snames.index("flow_topk.evicted")
+    counts = snames.index("flow_topk.counts")
+    for what, (cs, cd), (gs, gd) in (
+            ("shard", c["shard"], g["shard"]),
+            ("recovered", c["recovered"], g["recovered"])):
+        # the top-K's evicted mass by the reference's mass rule (a
+        # difference of two float sums, whose order CUDA and the CPU
+        # choose differently); every other leaf by _compare_leaves
+        mass = float(cs[ev]) + float(cs[counts].sum())
+        check(abs(float(gs[ev]) - float(cs[ev])) <= 1e-5 * mass,
+              f"{what} flow_topk.evicted card {float(gs[ev])} vs CPU "
+              f"{float(cs[ev])}: within 1e-5 of the top-K mass {mass}")
+        keep = [i for i in range(len(snames)) if i != ev]
+        n_exact, n_close = _compare_leaves(
+            [snames[i] for i in keep] + dnames,
+            [cs[i] for i in keep] + cd, [gs[i] for i in keep] + gd, moved)
+        n_close += 1
+        check(n_exact + n_close == 114, f"{what} leaves card vs CPU: 114 "
+              f"agree ({n_exact} exactly, {n_close} within tolerance)")
+    for side, out in (("card", g), ("CPU", c)):
+        for name, a, b in zip(snames, out["live"][0], out["recovered"][0]):
+            np.testing.assert_array_equal(b, a, err_msg=f"{side} {name}")
+        for name, a, b in zip(dnames, out["direct"], out["recovered"][1]):
+            np.testing.assert_array_equal(b, a, err_msg=f"{side} {name}")
+    check(g["replay"] == c["replay"] and c["replay"]["chunks"] > 0,
+          f"checkpoint → restore → replay_journal ({c['replay']}) lands on "
+          "the uninterrupted run's 85 state leaves, and on the 29 dependency "
+          "leaves of a restore fed the same bytes directly, card and CPU")
+    n_q, n_sum = [0, 0], [0]
+    mass = float(c["shard"][0][ev]) + float(c["shard"][0][counts].sum())
+    for name in c["json"]:
+        got = _settle_sum_fields(c["json"][name], g["json"][name], mass,
+                                 n_sum)
+        _json_diff(torch, loghist, tcfg, c["json"][name], got, moved, name,
+                   n_q)
+    check(True, f"JSON of {len(c['json'])} at=, window= and tstart requests "
+          f"agrees card vs CPU ({n_q[0]} quantiles one loghist bucket "
+          f"apart, {n_q[1]} values one unit apart in the third decimal, "
+          f"{n_sum[0]} errbound/evictedbytes values within their rules)")
+    perf["tiny_json_bucket_apart"], perf["tiny_json_rounding_apart"] = n_q
+    perf["tiny_json_sum_fields_apart"] = n_sum[0]
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 10: {perf['phase_s']:.1f}s")
+    return perf, launches
+
+
 def _no_lookup(*a, **kw):
     raise OSError("chip_smoke resolves no names")
 
@@ -2771,14 +3434,20 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     fa = fold_all_phase(torch, scatter)
     torch.cuda.empty_cache()
-    rtp, rt_launches = runtime_phase(torch, scatter)
+    rtp, rt_launches, frames = runtime_phase(torch, scatter)
     gc.collect()              # a published snapshot refers to its runtime
     torch.cuda.empty_cache()
     dp, d_launches, d_sites = delta_phase(torch, scatter)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hp, h_launches = history_phase(torch, scatter, frames,
+                                   rtp["buffer_ms"])
+    del frames
     for k in kernels:
         k["launches_fold_all"] = fa["launches"][k["name"]]
         k["launches_runtime"] = rt_launches[k["name"]]
         k["launches_delta"] = d_launches[k["name"]]
+        k["launches_history"] = h_launches[k["name"]]
         cs = d_sites.get(k["name"])
         if cs:
             k["delta"] = {f: sum(c[f] for c in cs) for f in (
@@ -2804,6 +3473,7 @@ def main(argv) -> int:
     log(json.dumps({"fold_all": fa}))
     log(json.dumps({"runtime": rtp}))
     log(json.dumps({"delta": dp}, default=float))
+    log(json.dumps({"history": hp}, default=float))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -6,31 +6,18 @@ parse; shyama CRUD ``CRUD_ALERT_JSON`` path): ``alertname``, ``subsys``,
 5s checks before firing), ``repeataftersec`` (re-notification holdoff),
 ``action`` names, ``annotations``/``labels`` templates.
 
-A copy of ``gyeeta_tpu/alerts/defs.py`` (no JAX), with its own copy of
-``parse_dur`` (the reference imports it from ``history/timeview.py``,
-which imports JAX).
+A copy of ``gyeeta_tpu/alerts/defs.py``; ``parse_dur`` comes from
+``history/timeview.py``, as in the reference.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+from gyeeta_tpu_torch.history.timeview import parse_dur
 from gyeeta_tpu_torch.query import criteria, fieldmaps
 
 SEVERITIES = ("info", "warning", "critical")
-
-_DUR_UNIT = {"s": 1.0, "m": 60.0, "h": 3600.0, "d": 86400.0}
-
-
-def parse_dur(v) -> float:
-    """Duration → seconds: 900, "900", "15m", "2h", "1d"."""
-    if isinstance(v, (int, float)):
-        return float(v)
-    s = str(v).strip().lower()
-    if s and s[-1] in _DUR_UNIT:
-        return float(s[:-1]) * _DUR_UNIT[s[-1]]
-    return float(s)
-
 
 ALERT_MODES = ("realtime", "db")
 

@@ -40,10 +40,6 @@ PAGERDUTY/WEBHOOK of ``gy_alertmgr.h:50`` register the same way;
 network egress is deployment-specific).
 
 A copy of ``gyeeta_tpu/alerts/manager.py`` over the port's query engine.
-Windowed defs (``window=``) are accepted and skip each check, counted
-``nwindow_skipped`` (the runtime has no history shards); db-mode defs are
-accepted and never evaluated (:meth:`AlertManager.check_db` raises
-``NotPortedError`` naming ROADMAP.md's history item).
 """
 
 from __future__ import annotations
@@ -54,7 +50,6 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 
-from gyeeta_tpu_torch import unported
 from gyeeta_tpu_torch.alerts.defs import AlertDef, Inhibit, Silence
 from gyeeta_tpu_torch.query import api, cq, criteria
 from gyeeta_tpu_torch.query.normalize import canonical_filter
@@ -96,6 +91,16 @@ def _entity_key_of(subsys: str, cols: dict, i: int) -> str:
     return ",".join(parts) if parts else f"row={i}"
 
 
+def _entity_key_of_row(row: dict) -> str:
+    parts = [f"{k}={row[k]}" for k in _ENTITY_KEYS
+             if k in row and row[k] is not None]
+    if parts:
+        return ",".join(parts)
+    # id-less subsystems (clusterstate): the whole subsystem is one
+    # entity — per-row keys would defeat dedup/numcheckfor entirely
+    return "all"
+
+
 class AlertManager:
     MAX_LOG = 10_000     # bounded notification history (oldest dropped)
 
@@ -121,6 +126,8 @@ class AlertManager:
         # (defs sharing it share one predicate pass per check)
         self._canon: dict[str, str] = {}
         self._groups: dict[str, list] = {}      # name → [deadline, alerts]
+        self._next_db: dict[str, float] = {}    # db-def → next eval time
+        self._last_db: dict[str, float] = {}    # db-def → last eval time
         self._clock = clock or time.time
         self.stats = {"nchecks": 0, "nfired": 0, "nsilenced": 0,
                       "ninhibited": 0, "nresolved": 0, "ndbchecks": 0,
@@ -399,8 +406,76 @@ class AlertManager:
 
     # ---------------------------------------------------- db-mode check
     def check_db(self, history, now: Optional[float] = None) -> list:
-        """db-mode defs evaluate as criteria-SQL over the history store,
-        which the port does not have yet: a db-mode def is accepted and
-        never evaluated, as the reference does without ``history_db``."""
-        raise unported.refuse("db-mode alertdef evaluation",
-                              unported.HISTORY)
+        """Evaluate due db-mode defs as criteria-SQL over the history
+        store (the MDB_ALERTDEF periodic path, ``server/gy_malerts.cc``):
+        each def runs every ``querysec`` over its own lookback window;
+        matched rows advance the same entity lifecycle as realtime defs.
+        """
+        now = self._clock() if now is None else now
+        notified: list = []
+        for ad in self.defs.values():
+            if not ad.enabled or ad.mode != "db":
+                continue
+            due = self._next_db.get(ad.name, 0.0)
+            if now < due:
+                continue
+            # window starts at the PREVIOUS eval time, not now-querysec:
+            # tick-grain scheduling slip would otherwise leave a sliver
+            # of history no eval ever covers
+            tstart = self._last_db.get(ad.name, now - ad.querysec)
+            self._next_db[ad.name] = now + ad.querysec
+            self._last_db[ad.name] = now
+            self.stats["ndbchecks"] += 1
+            rows = history.query(ad.subsys, tstart, now, ad.filter)
+            inhibited = self._inhibited(ad)
+            group: list = []
+            seen_keys = set()
+            seen_entities = set()
+            for row in rows:
+                ent = _entity_key_of_row(row)
+                if ent in seen_entities:
+                    continue           # one alert per entity per eval
+                seen_entities.add(ent)
+                key = (ad.name, ent)
+                seen_keys.add(key)
+                es = self._state.get(key, _EntityState())
+                nhits = es.nhits + 1
+                firing = nhits >= ad.numcheckfor
+                notify = (firing
+                          and now - es.tlast_notify >= ad.repeataftersec)
+                if notify and self._silenced_db(ad, now):
+                    self.stats["nsilenced"] += 1
+                    notify = False
+                if notify and inhibited:
+                    self.stats["ninhibited"] += 1
+                    notify = False
+                if notify:
+                    group.append(Alert(
+                        alertname=ad.name, severity=ad.severity,
+                        subsys=ad.subsys, entity=ent, tfired=now,
+                        labels=dict(ad.labels),
+                        annotations=dict(ad.annotations),
+                        row=dict(row)))
+                    es = es._replace(tlast_notify=now)
+                self._state[key] = es._replace(nhits=nhits, firing=firing)
+            for key in [k for k in self._state
+                        if k[0] == ad.name and k not in seen_keys]:
+                if self._state[key].firing:
+                    self.stats["nresolved"] += 1
+                del self._state[key]
+            self._emit(ad, group, now, notified)
+        notified.extend(self.flush_groups(now))
+        return notified
+
+    def _silenced_db(self, ad: AlertDef, now: float) -> bool:
+        """db-row silencing: alertname + time window only (history rows
+        are presentation-domain; filter silences apply to realtime)."""
+        for s in self.silences.values():
+            if not (s.tstart <= now <= s.tend):
+                continue
+            if s.alertnames and ad.name not in s.alertnames:
+                continue
+            if s.filter:
+                continue
+            return True
+        return False

@@ -24,6 +24,7 @@ it does not know.
 
 from __future__ import annotations
 
+import struct as _struct
 from typing import Optional
 
 import numpy as np
@@ -600,6 +601,33 @@ def drain2(buf: bytes) -> tuple[dict, int, int]:
         rs[0].dtype) for sub, rs in parts.items()}
     return out, consumed, cnt.get("unknown_records", 0)
 
+
+
+_HDR_PREFIX_UNPACK = _struct.Struct("<II").unpack_from
+
+
+def complete_prefix(buf: bytes) -> int:
+    """Length of the longest prefix of COMPLETE frames: a header walk,
+    no payload touched (the capture replay's reassembly before a
+    host-id remap). Raises FrameError on a corrupt header."""
+    off = 0
+    n = len(buf)
+    hsz = HEADER_DT.itemsize
+    esz = EVENT_NOTIFY_DT.itemsize
+    magics = (MAGIC_PM, MAGIC_MS, MAGIC_NQ)
+    while off + hsz <= n:
+        magic, total = _HDR_PREFIX_UNPACK(buf, off)
+        if magic not in magics:
+            raise FrameError(f"bad magic {magic:#x} at {off}",
+                             reason="bad_magic")
+        # the bound decode_frames holds a header to
+        if total < hsz + esz or total >= MAX_COMM_DATA_SZ:
+            raise FrameError(f"bad total_sz {total} at {off}",
+                             reason="bad_size")
+        if off + total > n:
+            break
+        off += total
+    return off
 
 # --------------------------------------------------- pre-aggregation advert
 # The REGISTER_RESP v5 tail: the server's sketch geometry, which an

@@ -240,9 +240,15 @@ def host_columns(cfg: EngineCfg, st: AggState, names=None) -> dict:
     return cols, reported
 
 
-def task_columns(cfg: EngineCfg, st: AggState, names=None) -> dict:
-    """taskstate columns (ref MAGGR_TASK / aggrtaskstate)."""
-    snap = _live_rows(readback.task_snapshot(cfg, st), "live")
+def task_columns(cfg: EngineCfg, st: AggState, names=None,
+                 live_only: bool = True) -> dict:
+    """taskstate columns (ref MAGGR_TASK / aggrtaskstate): the live rows,
+    or with ``live_only=False`` every slab row, as the reference renders
+    them (a history shard's panel, which the ``task_cpu`` delta panel
+    aligns with row for row)."""
+    snap = readback.task_snapshot(cfg, st)
+    if live_only:
+        snap = _live_rows(snap, "live")
     g = snap["stats"]
     cols = _task_identity_cols(snap, names)
     cols |= {

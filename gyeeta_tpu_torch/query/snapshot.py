@@ -160,10 +160,15 @@ class EngineSnapshot:
         """(cols, mask) for ``subsys`` over the frozen view, memoized per
         snapshot: queries differing only in filter, sort or projection
         share one readback. A ``subsys@window`` source (a windowed
-        alertdef) raises ValueError: it needs history shards."""
+        alertdef) reads the time-travel tier's windowed aggregate (shard
+        files, not live state: safe from any thread)."""
         if "@" in subsys:
-            raise ValueError("windowed alertdef needs history shards "
-                             "(hist_shard_dir)")
+            base, _, win = subsys.partition("@")
+            tv = getattr(self.rt, "timeview", None)
+            if tv is None:
+                raise ValueError("windowed alertdef needs history "
+                                 "shards (hist_shard_dir)")
+            return tv.window_columns_for(base, win)
         got = self._cols.peek(subsys)
         if got is not None:
             return got

@@ -9,20 +9,27 @@ dispatch per feed boundary, and keeps the announce-rate records
 connections, VIP clusters) in host-side registries; ``run_tick()``
 closes a 5s window (digest drain, classification, snapshot publish,
 heavy-hitter recovery, the alert check, dependency-graph and registry
-ageing, health readback and drop pressure, window tick, ageing and
-compaction cadences, checkpoints); ``query()`` answers the JSON query
-API on the strong path (staged events are folded first, the live state
-is read) or, with ``consistency="snapshot"``, from the last published
+ageing, the history sweep and db-mode alertdefs, health readback and
+drop pressure, window tick, ageing and compaction cadences, the
+journal's poll, checkpoints); ``query()`` answers the JSON query API on
+the strong path (staged events are folded first, the live state is
+read) or, with ``consistency="snapshot"``, from the last published
 :class:`~gyeeta_tpu_torch.query.snapshot.EngineSnapshot`; it also
 serves ``multiquery`` batches, the ``selfstats`` and ``metrics``
 subsystems and the CRUD channel (``"op"`` requests: alertdefs,
 silences, inhibits, actions, tags, tracedefs).
 
+History (``history/``): with ``journal_dir`` every accepted byte run
+appends to the write-ahead journal before its fold
+(:meth:`Runtime.replay_journal` re-folds it after a ``restore``); with
+``history_db`` the tick renders its history sweep and a writer thread
+stores it; with ``hist_shard_dir`` the ``at=``/``window=`` request
+forms (and ``tstart``/``tend`` without a ``history_db``) are served
+from the shards a :class:`~gyeeta_tpu_torch.history.compactor.Compactor`
+writes.
+
 The state lives on ``device`` — CUDA unless the caller asks for the
-CPU, and a GPU-less machine raises (``device.resolve``). History and
-the journal are not ported yet: their request forms and options raise
-:class:`~gyeeta_tpu_torch.unported.NotPortedError`, naming the
-ROADMAP.md item that ports them.
+CPU, and a GPU-less machine raises (``device.resolve``).
 
 Host↔device crossings of a feed: the conn/resp slab is decoded into one
 of two pinned staging buffers, flipped each slab dispatch, and copied
@@ -45,11 +52,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gyeeta_tpu_torch import unported, version as V
+from gyeeta_tpu_torch import version as V
 from gyeeta_tpu_torch.alerts import AlertManager, columns as AC
 from gyeeta_tpu_torch.device import resolve
 from gyeeta_tpu_torch.engine import aggstate, compact, step
 from gyeeta_tpu_torch.engine.aggstate import EngineCfg
+from gyeeta_tpu_torch.history import open_store
+from gyeeta_tpu_torch.history.histwriter import HistoryWriter
+from gyeeta_tpu_torch.history.shards import open_shard_store
+from gyeeta_tpu_torch.history.timeview import TimeView, route_historical
 from gyeeta_tpu_torch.ingest import decode, wire
 from gyeeta_tpu_torch.obs import health as obs_health
 from gyeeta_tpu_torch.obs.spans import SpanTracer
@@ -60,8 +71,9 @@ from gyeeta_tpu_torch.semantic import derive
 from gyeeta_tpu_torch.trace.defs import TraceDefs
 from gyeeta_tpu_torch.utils import checkpoint as ckpt
 from gyeeta_tpu_torch.utils import dnsmap, droppressure
+from gyeeta_tpu_torch.utils import journal as J
 from gyeeta_tpu_torch.utils.colcache import ColumnCache
-from gyeeta_tpu_torch.utils.config import RuntimeOpts, check_ported
+from gyeeta_tpu_torch.utils.config import RuntimeOpts
 from gyeeta_tpu_torch.utils.hostreg import CgroupRegistry, \
     HostInfoRegistry, MountRegistry, NetIfRegistry
 from gyeeta_tpu_torch.utils.intern import InternTable
@@ -137,13 +149,47 @@ class Runtime:
                  device=None):
         self.device = resolve(device)
         self.cfg = cfg or EngineCfg()
-        self.opts = check_ported(opts or RuntimeOpts())
+        self.opts = opts or RuntimeOpts()
         self.state = aggstate.init(self.cfg, self.device)
         self.stats = Stats()
         self.spans = SpanTracer()     # pipeline span ring (selfstats)
         self.alerts = AlertManager(self.cfg, clock=clock)
+        # relational history: run_tick renders the sweep on this thread
+        # and a single writer thread stores it (reads that need their
+        # writes, db-mode alertdefs and tstart/tend queries, barrier())
+        self.history = (open_store(self.opts.history_db)
+                        if self.opts.history_db else None)
+        self._histwriter = (HistoryWriter(
+            self.history, stats=self.stats,
+            max_queue=self.opts.history_queue_max)
+            if self.history is not None else None)
         # wall clock of the snapshot tier's freshness gauges
         self._clock = clock or time.time
+        # write-ahead event journal: every accepted byte run appends
+        # after validation, before the fold
+        self.journal = None
+        if self.opts.journal_dir:
+            self.journal = J.Journal(
+                self.opts.journal_dir,
+                segment_max_bytes=self.opts.journal_segment_mb << 20,
+                fsync_bytes=self.opts.journal_fsync_kb << 10,
+                fsync_ms=self.opts.journal_fsync_ms,
+                backlog_max_bytes=self.opts.journal_backlog_mb << 20,
+                stats=self.stats, clock=clock)
+        self._journal_replaying = False
+        # time-travel tier: at=/window= requests materialize compaction
+        # shards. The journal's truncate floor starts at the compactor's
+        # durable position, so checkpoints never delete unconsumed
+        # segments.
+        self.timeview = None
+        if self.opts.hist_shard_dir:
+            store = open_shard_store(self.opts.hist_shard_dir,
+                                     stats=self.stats)
+            self.timeview = TimeView(self, store, clock=clock)
+            if self.journal is not None:
+                pos = store.position()
+                self.journal.set_truncate_floor(
+                    J.floors_of(pos) if pos else 0)
         # per-host sweep-seq high-water marks (NOTIFY_SWEEP_SEQ),
         # checkpointed
         self._sweep_last_seq: dict[int, int] = {}
@@ -241,10 +287,11 @@ class Runtime:
         }
 
     # ------------------------------------------------------------- ingest
-    def feed(self, buf: bytes) -> int:
+    def feed(self, buf: bytes, hid: int = 0, conn_id: int = 0) -> int:
         """Ingest a byte stream (any number of frames, any mix of types)
         → records accepted. A trailing partial frame is kept for the
-        next call."""
+        next call. ``hid`` / ``conn_id`` attribute the bytes in the
+        write-ahead journal (direct feeds default to 0)."""
         data = (self._pending + buf) if self._pending else buf
         try:
             with self.stats.timeit("deframe"), \
@@ -256,6 +303,13 @@ class Runtime:
             self._pending = b""       # poison frame: drop buffer, resync
             raise
         self._pending = data[consumed:]
+        # WAL append after validation, before the fold: exactly the
+        # bytes drain2 accepted (a pending partial frame journals in the
+        # call that completes it). Replay suppresses the append.
+        if (consumed and self.journal is not None
+                and not self._journal_replaying):
+            self.journal.append(data[:consumed], hid=hid,
+                                conn_id=conn_id, tick=self._tick_no)
         if unknown:
             # skipped unknown-subtype frames: accounted loss
             self.stats.bump("records_unknown_subtype", unknown)
@@ -502,6 +556,9 @@ class Runtime:
         vec = step.engine_health_vec(self.cfg, self.state, self.dep)
         gauges = obs_health.gauges_from_vec(
             vec.cpu().numpy(), obs_health.capacities(self.cfg, self.opts))
+        # WAL health: fsync lag (the RPO bound), pending bytes, segments
+        if self.journal is not None:
+            gauges.update(self.journal.gauges())
         for k, v in gauges.items():
             self.stats.gauge(k, v)
         return gauges
@@ -565,11 +622,11 @@ class Runtime:
             return self._run_tick()
 
     def _run_tick(self) -> dict:
-        """Close one 5s window → the tick report (the reference's keys
-        but ``history_rows``: history is not ported). The snapshot
+        """Close one 5s window → the tick report. The snapshot
         dashboards read for the next window is published right after
-        classification; the alert check reads its columns through it,
-        which pre-warms them for the queries of the window."""
+        classification; the alert check and the history sweep read
+        their columns through it, which pre-warms them for the queries
+        of the window."""
         self.flush()
         if self._td_dirty:    # tick-cadence digest compression (bounded)
             self.td_drain(max_iters=self.opts.td_drain_iters_per_tick)
@@ -595,6 +652,14 @@ class Runtime:
             self.netifs.age()
             self.natclusters.age()
             self.traceconns.age()
+        if (self.history is not None
+                and tick % self.opts.history_every_ticks == 0):
+            report["history_rows"] = self._history_sweep(snap)
+        # db-mode alertdefs run after the history write, so a due def
+        # sees this very tick's sweep
+        if self.history is not None and self.alerts.wants_db():
+            self._histwriter.barrier()
+            fired += self.alerts.check_db(self.history)
         report["alerts_fired"] = len(fired)
         for a in fired:
             self.notifylog.add_alert(a)
@@ -615,19 +680,46 @@ class Runtime:
             self.state = step.compact_tasks(self.cfg, self.state)
             self.stats.bump("task_compactions")
             report["task_compacted"] = True
+        # fsync cadence backstop: a quiet wire must not hold journal
+        # bytes unsynced past a tick
+        if self.journal is not None:
+            self.journal.poll()
         if (self.opts.checkpoint_dir
                 and tick % self.opts.checkpoint_every_ticks == 0):
-            extra: dict = {"tick": tick}
-            if self._sweep_last_seq:
-                extra["sweep_seq"] = {str(k): int(v) for k, v in
-                                      self._sweep_last_seq.items()}
+            extra = J.checkpoint_extra(self, tick)
             path = ckpt.save(
                 f"{self.opts.checkpoint_dir}/gyt_ckpt_{tick:08d}.npz",
                 self.cfg, self.state, extra=extra)
+            # the checkpoint supersedes older WAL segments: drop them
+            J.post_checkpoint_truncate(self, extra)
             report["checkpoint"] = str(path)
             self.stats.bump("checkpoints")
         self._cols.bump()
         return report
+
+    def _history_sweep(self, snap) -> int:
+        """Render the relational history sweep through ``snap``'s
+        columns on this thread and hand it to the writer thread → rows
+        written (the clusterstate row included)."""
+        now = self._clock()
+        limits = (("svcstate", self.cfg.svc_capacity),
+                  ("hoststate", self.cfg.n_hosts), ("clusterstate", None),
+                  ("taskstate", self.cfg.task_capacity),
+                  ("cpumem", self.cfg.n_hosts),
+                  ("tracereq", self.cfg.api_capacity))
+        if len(self.cgroups):
+            limits += (("cgroupstate", 100_000),)
+        sweep, nrows = [], 0
+        for subsys, maxrecs in limits:
+            qo = api.QueryOptions(subsys=subsys) if maxrecs is None \
+                else api.QueryOptions(subsys=subsys, maxrecs=maxrecs)
+            out = api.execute(self.cfg, None, qo, names=self.names,
+                              columns_fn=snap.columns)
+            sweep.append((subsys, now, out["recs"]))
+            # the reference counts the clusterstate sweep as one row
+            nrows += 1 if maxrecs is None else out["nrecs"]
+        self._histwriter.write_sweep(sweep)
+        return nrows
 
     def _alert_step(self, snap) -> list:
         """The tick's realtime alert check over ``snap``'s columns → the
@@ -688,11 +780,14 @@ class Runtime:
     def _alert_columns(self, subsys: str):
         """Column source of realtime alertdefs and tracedefs: the same
         dispatch as a query, so a def can target any served subsystem.
-        A ``subsys@window`` source (a windowed alertdef) needs history
-        shards, which the port does not have: ValueError."""
+        A ``subsys@window`` source (a windowed alertdef) reads the
+        time-travel tier's windowed aggregate."""
         if "@" in subsys:
-            raise ValueError("windowed alertdef needs history shards "
-                             "(hist_shard_dir)")
+            base, _, win = subsys.partition("@")
+            if self.timeview is None:
+                raise ValueError("windowed alertdef needs history shards "
+                                 "(hist_shard_dir)")
+            return self.timeview.window_columns_for(base, win)
         return self._cached_columns(subsys)
 
     def _cached_columns(self, subsys: str):
@@ -758,7 +853,9 @@ class Runtime:
         read) or ``"snapshot"`` (the last published snapshot; no fold).
         A request with ``"op"`` goes to the CRUD channel; a
         ``"multiquery"`` list runs up to 16 plain queries in one call.
-        The historical request forms raise."""
+        ``at``/``window`` requests (and ``tstart``/``tend`` without a
+        ``history_db``) are served from the history shards,
+        ``tstart``/``tend`` with one from the relational store."""
         if req.get("op"):
             return self.crud(req)
         if "multiquery" in req:
@@ -778,20 +875,32 @@ class Runtime:
 
     def query_snapshot(self, req: dict) -> dict:
         """Serve a live query from the last published snapshot: no
-        ``flush()``, no fold. Publishes one first if none exists yet."""
+        ``flush()``, no fold. Publishes one first if none exists yet.
+        ``at``/``window`` requests go to the shard tier (also fold-free);
+        relational ``tstart``/``tend`` needs ``consistency="strong"``."""
         req = {k: v for k, v in req.items() if k != "consistency"}
         snap = self.snapshot
         if snap is None:
             snap = self.publish_snapshot()
         if req.get("subsys") in api.LOCAL_SUBSYS:
             return api.local_response(self, req, snapshot=snap)
-        _refuse_historical(req)
+        if ("tstart" in req or "tend" in req) and "at" not in req \
+                and "window" not in req and self.history is not None:
+            raise ValueError(
+                "relational history queries need consistency=strong")
+        out = route_historical(self, req)
+        if out is not None:
+            return out
         self.stats.bump("queries")
         with self.stats.timeit("query"):
             return snap.query(req)
 
     def _query(self, req: dict) -> dict:
-        _refuse_historical(req)
+        out = route_historical(self, req)
+        if out is not None:
+            return out
+        if "tstart" in req or "tend" in req:
+            return self._history_query(req)
         self.flush()                  # live queries see all staged events
         self.stats.bump("queries")
         return api.execute(self.cfg, self.state,
@@ -799,11 +908,38 @@ class Runtime:
                            names=self.names,
                            columns_fn=self._cached_columns)
 
+    def _history_query(self, req: dict) -> dict:
+        """``tstart``/``tend`` over the relational history store (which
+        ``route_historical`` left to it), after the writer's queue has
+        drained (read-your-writes)."""
+        self._histwriter.barrier()
+        now = self._clock()
+        tstart = float(req.get("tstart", 0))
+        tend = float(req.get("tend", now))
+        if req.get("aggr"):
+            recs = self.history.aggr_query(
+                req["subsys"], tstart, tend, req["aggr"],
+                groupby=req.get("groupby"), filter=req.get("filter"),
+                step=float(req["step"]) if req.get("step") else None,
+                maxrecs=int(req.get("maxrecs", 10000)))
+            return {"recs": recs, "nrecs": len(recs)}
+        return {"recs": self.history.query(
+            req["subsys"], tstart, tend, req.get("filter"),
+            int(req.get("maxrecs", 10000)))}
+
     def close(self) -> None:
-        """Join the background threads: alert delivery and the DNS
-        resolver. Idempotent."""
+        """Join the background threads — alert delivery, the DNS
+        resolver, the journal's writer (after an fsync) and the history
+        writer (after it drains) — and close the history store.
+        Idempotent."""
         self.alerts.close()
         self.dns.close()
+        if self.journal is not None:
+            self.journal.close()
+        if self._histwriter is not None:
+            self._histwriter.close()
+        if self.history is not None:
+            self.history.db.close()       # a second close is a no-op
 
     def restore(self, path) -> dict:
         """Restore a checkpoint (from either package): staged records
@@ -833,9 +969,8 @@ class Runtime:
             self.publish_snapshot()
         return extra
 
-
-def _refuse_historical(req: dict) -> None:
-    for k in ("tstart", "tend", "at", "window"):
-        if k in req:
-            raise unported.refuse(f"historical queries ({k!r})",
-                                  unported.HISTORY)
+    def replay_journal(self, pos=None) -> dict:
+        """Re-fold WAL chunks from ``pos`` (a checkpoint's recorded
+        ``extra["wal"]``; None = the journal's start) through the normal
+        decode/fold path: the recovery after :meth:`restore`."""
+        return J.replay_journal(self, pos)

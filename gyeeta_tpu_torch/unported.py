@@ -8,7 +8,6 @@ dropped, no section skipped, no empty answer served in its place.
 from __future__ import annotations
 
 # ROADMAP.md, queue 1: the items that port what is still missing
-HISTORY = "item 3, history and the journal"
 SHARDED = "item 6, the sharded tier"
 
 

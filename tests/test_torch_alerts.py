@@ -8,8 +8,8 @@ the continuous-query engine alertdefs evaluate through.
   group-wait batches, an alertname silence with a time window and a
   filter silence, an inhibit, two defs sharing one canonical filter
   (one predicate pass), a disabled def, a windowed def (skipped and
-  counted without history shards) and a db-mode def (accepted, never
-  evaluated; the port's ``check_db`` names ROADMAP.md's history item).
+  counted without history shards) and a db-mode def (never evaluated by
+  ``check``; ``check_db`` over both packages' history stores).
   Each tick's notified alerts, stats, firing set and the five alert
   subsystems' columns match exactly.
 - Definition parsing and its errors, ``parse_dur``.
@@ -35,15 +35,16 @@ import pytest
 from gyeeta_tpu.alerts import columns as j_ac, defs as j_defs
 from gyeeta_tpu.alerts import deliver as j_dl
 from gyeeta_tpu.alerts.manager import AlertManager as JMgr
+from gyeeta_tpu.history.store import HistoryStore as JStore
 from gyeeta_tpu.history.timeview import parse_dur as j_parse_dur
 from gyeeta_tpu.query import cq as j_cq, crud as j_crud, delta as j_delta
 from gyeeta_tpu.trace.defs import TraceDefs as JTraceDefs
 from gyeeta_tpu.utils.notifylog import NotifyLog as JNotifyLog
 from gyeeta_tpu.utils.tagreg import TagRegistry as JTags
-from gyeeta_tpu_torch import unported
 from gyeeta_tpu_torch.alerts import columns as t_ac, defs as t_defs
 from gyeeta_tpu_torch.alerts import deliver as t_dl
 from gyeeta_tpu_torch.alerts.manager import AlertManager as TMgr
+from gyeeta_tpu_torch.history.store import HistoryStore as TStore
 from gyeeta_tpu_torch.query import cq as t_cq, crud as t_crud, \
     delta as t_delta
 from gyeeta_tpu_torch.trace.defs import TraceDefs as TTraceDefs
@@ -196,15 +197,33 @@ def test_alert_lifecycle_reaches_every_path(lifecycle):
     assert s["nwindow_skipped"] == N_TICKS
 
 
-def test_db_mode_def_accepted_never_evaluated():
-    now = [5.0]
-    m = TMgr(None, clock=lambda: now[0])
-    m.add_def(dict(DEFS[-1]))
-    assert m.wants_db() and not m.wants_realtime()
-    assert m.check(None, columns_fn=_columns_fn(_columns(0))) == []
-    assert m.stats["ncq_group_evals"] == 0
-    with pytest.raises(unported.NotPortedError, match=unported.HISTORY):
-        m.check_db(None)
+def test_db_mode_def_check_db_matches_reference():
+    """A db-mode def is never evaluated by ``check``; ``check_db``
+    evaluates it over a history store's rows every ``querysec``, as the
+    reference's does: the same alerts, firing set and stats."""
+    seen = {}
+    for side, mgr_cls, store_cls in (("ref", JMgr, JStore),
+                                     ("port", TMgr, TStore)):
+        now = [1000.0]
+        m = mgr_cls(None, clock=lambda: now[0])
+        m.add_def(dict(DEFS[-1]))
+        assert m.wants_db() and not m.wants_realtime()
+        assert m.check(None, columns_fn=_columns_fn(_columns(0))) == []
+        assert m.stats["ncq_group_evals"] == 0
+        hs = store_cls(":memory:")
+        out = []
+        for tick in range(4):
+            cols, live = _columns(tick)["svcstate"]
+            hs.write("svcstate", now[0] - 1.0, [
+                {"svcid": cols["svcid"][i], "qps5s": cols["qps5s"][i],
+                 "hostid": cols["hostid"][i]}
+                for i in np.nonzero(live)[0]])
+            out.append([tuple(a) for a in m.check_db(hs)])
+            now[0] += 40.0
+        seen[side] = (out, dict(m.stats), sorted(m.firing()))
+        hs.db.close()
+    assert seen["port"] == seen["ref"]
+    assert seen["port"][1]["ndbchecks"] == 2 and any(seen["port"][0])
 
 
 @pytest.mark.parametrize("v", [900, "900", "15m", "2h", "1d", " 30S "])

@@ -5,6 +5,7 @@ entry points refuse to run without a GPU unless the CPU is asked for."""
 import ast
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -38,9 +39,9 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-# modules of the edge pre-aggregation and snapshot slice and of the
-# registries and alert slice, each of which the AST check above must
-# cover
+# modules of the edge pre-aggregation and snapshot slice, of the
+# registries and alert slice and of the history and journal slice, each
+# of which the AST check above must cover
 SLICE_MODULES = ("sketch/edgefold.py", "query/snapshot.py",
                  "query/normalize.py", "query/crud.py", "obs/prom.py",
                  "obs/spans.py", "utils/selfstats.py", "ingest/decode.py",
@@ -51,7 +52,12 @@ SLICE_MODULES = ("sketch/edgefold.py", "query/snapshot.py",
                  "utils/droppressure.py", "query/delta.py", "query/cq.py",
                  "alerts/__init__.py", "alerts/defs.py",
                  "alerts/columns.py", "alerts/manager.py",
-                 "alerts/deliver.py")
+                 "alerts/deliver.py", "utils/journal.py",
+                 "utils/replay.py", "history/__init__.py",
+                 "history/store.py", "history/pgstore.py",
+                 "history/histwriter.py", "history/shards.py",
+                 "history/winquant.py", "history/timeview.py",
+                 "history/compactor.py")
 
 
 @pytest.mark.parametrize("mod", SLICE_MODULES)
@@ -101,6 +107,23 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     rt = Runtime(cfg, opts, device="cpu")
     assert rt.state.n_conn.device.type == rt.dep.n_paired.device.type \
         == "cpu"
+    # the compactor's replay runtime: the serving runtime's device, which
+    # is CUDA unless the caller asks for the CPU
+    from gyeeta_tpu_torch.history.compactor import Compactor
+    with tempfile.TemporaryDirectory() as d:
+        hopts = opts._replace(journal_dir=f"{d}/wal",
+                              hist_shard_dir=f"{d}/shards")
+        for dev, raises in ((None, True), ("cuda", True), ("cpu", False)):
+            c = Compactor(cfg, hopts, device=dev)
+            try:
+                if raises:
+                    with pytest.raises(RuntimeError, match="device='cpu'"):
+                        c.compact_once()
+                else:
+                    assert c.compact_once()["windows"] == 0
+                    assert c._rt.state.n_conn.device.type == "cpu"
+            finally:
+                c.close()
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):

@@ -17,7 +17,8 @@ tracedef, a tag). The ticks age tasks and APIs every second tick and
 checkpoint every second tick.
 
 Held against the reference: each tick's report (``alerts_fired``
-included; only ``history_rows`` is the reference's alone), the CRUD
+included; ``history_rows`` with a ``history_db`` is held in
+``tests/test_torch_history.py``), the CRUD
 replies, each tick's ``trace_control_diff``, the selfstats counters
 (``stage_slab_flips`` of the double-buffered staging slabs among them),
 the alert manager's stats and log, the five record kinds' registries,
@@ -25,9 +26,8 @@ all 85 ``AggState`` and 29 ``DepGraph`` leaves after the last tick
 (integer, bool, u32 and max-merged state exact; f32 sums rtol 1e-6;
 digests rtol 1e-5), the ``heavy_recover`` dict (floats rtol 1e-6),
 checkpoints both ways (each restored runtime answering every served
-subsystem with equal JSON), the staging builders' columns, and the
-refusal of the history request forms and options with their ROADMAP
-item. The query JSON of the live runtimes is in
+subsystem with equal JSON) and the staging builders' columns. The
+query JSON of the live runtimes is in
 ``tests/test_torch_query.py``, which shares this run (:func:`run_both`).
 """
 
@@ -48,7 +48,6 @@ from gyeeta_tpu.runtime import Runtime as JRuntime
 from gyeeta_tpu.sim.partha import ParthaSim as JSim
 from gyeeta_tpu.utils import checkpoint as j_ckpt
 from gyeeta_tpu.utils.config import RuntimeOpts as JOpts
-from gyeeta_tpu_torch import unported
 from gyeeta_tpu_torch.engine import aggstate as t_agg
 from gyeeta_tpu_torch.ingest import decode as t_dec, wire as t_wire
 from gyeeta_tpu_torch.parallel import depgraph as t_dg
@@ -232,8 +231,7 @@ def _leaf_check(path, a, b):
 @pytest.mark.parametrize("tick", range(N_TICKS))
 def test_tick_report_matches_reference(runs, tick):
     ref, got = runs["j_rep"][tick], runs["t_rep"][tick]
-    assert set(ref) - set(got) <= {"history_rows"}
-    assert set(got) <= set(ref) and "alerts_fired" in got
+    assert set(got) == set(ref) and "alerts_fired" in got
     for k in got:
         if k == "checkpoint":
             assert pathlib.Path(got[k]).name == pathlib.Path(ref[k]).name
@@ -533,31 +531,9 @@ def test_close_joins_background_threads(monkeypatch):
     assert rt.dns._thread is None and rt.alerts._dispatcher is None
 
 
-# ----------------------------------------------------- unported tiers
+# ------------------------------------------------------------ fresh
 def _fresh():
     return TRuntime(t_cfg(), TOpts(**OPTS), device="cpu")
-
-
-_REQUESTS = {
-    "tstart": ({"subsys": "svcstate", "tstart": 0}, unported.HISTORY),
-    "tend": ({"subsys": "svcstate", "tend": 5}, unported.HISTORY),
-    "at": ({"subsys": "svcstate", "at": 5}, unported.HISTORY),
-    "window": ({"subsys": "svcstate", "window": "5m"}, unported.HISTORY),
-}
-
-
-@pytest.mark.parametrize("form", sorted(_REQUESTS))
-def test_unported_request_form_raises(form):
-    req, item = _REQUESTS[form]
-    with pytest.raises(unported.NotPortedError, match=item):
-        _fresh().query(req)
-
-
-@pytest.mark.parametrize("field", ["history_db", "journal_dir",
-                                   "hist_shard_dir"])
-def test_unported_option_raises(field, tmp_path):
-    with pytest.raises(unported.NotPortedError, match=unported.HISTORY):
-        TRuntime(t_cfg(), TOpts(**{field: str(tmp_path)}), device="cpu")
 
 
 def test_bad_frame_drops_pending_and_counts():
