@@ -131,15 +131,35 @@ checkout of the repository. Phases:
    ``history_rows``, shard leaves, the JSON of every ``at=``,
    ``window=`` and ``tstart`` request, and a checkpoint → ``restore``
    → ``replay_journal`` recovery against the uninterrupted run.
+11. The serving edge at ns geometry: native against Python deframe
+   plus conn/resp slab decode on phase 8's buffers (ms a buffer, outputs
+   bit-equal); a ``GytServer`` on 127.0.0.1 over ``Runtime(ns cfg,
+   device="cuda")`` with manual ticks: 8 registered GYT event conns send
+   names, a sweep and two buffers (warm-up tick), then two ticks of a
+   sweep and phase 8's 16 feed buffers (ms a buffer and events/s
+   wire→fold, synchronised, beside phase 8's direct feed); the launch
+   counters are zeroed before these ticks and read after the tick-loop
+   stretch below (``launches_serving``: 2/1/1 a conn/resp dispatch); a
+   ``svcstate`` subscription pushed after each tick; a stock partha
+   (PS_REGISTER → PM_CONNECT → NOTIFY frames built from the port's
+   ``REF_*_DT``: ``ref_native_decoded`` > 0, ``ref_fallback_decoded``
+   0); the 43 served subsystems over ``QueryClient`` and 8 each over NM
+   and ``WebGateway`` HTTP, each answer equal to ``rt.query`` on the
+   same snapshot and across edges (p50/p99 ms per edge, first call and
+   cached); 3.5 s under the server's own tick loop at 1 s (``run_tick``
+   ms); peak memory; a ``feed_pipeline=True`` server over 16 buffers;
+   the tiny stream over TCP into a card server and a CPU server (equal
+   reports, JSON under the third-decimal rule).
 6. Fold rate and device ops a dispatch, memory, the card's name and
    power limit, the JSON lines (fold, fold_all, runtime, delta,
-   history, kernels), and last the result line.
+   history, serving, kernels), and last the result line.
 """
 
 from __future__ import annotations
 
 import gc
 import json
+import logging
 import math
 import os
 import socket
@@ -1739,32 +1759,20 @@ def tiny_runtime_buffers(sim, wire):
     return out
 
 
-def tiny_runtime_run(device):
-    """The tiny stream, each tick with its registry records, through
-    ``Runtime(device=...)`` in uneven byte cuts, a run_tick after each
-    tick, with RT_ALERT_OPS installed through "op" requests first and a
-    clock of 5 s a tick → (runtime, tick reports, loghist inputs
-    fed)."""
-    from gyeeta_tpu_torch.engine import aggstate
+def tiny_runtime_stream():
+    """The tiny stream's four tick buffers, each with its registry
+    records → (buffers, the loghist inputs they feed, by spec)."""
     from gyeeta_tpu_torch.ingest import decode, wire
-    from gyeeta_tpu_torch.runtime import Runtime
     from gyeeta_tpu_torch.sim import ParthaSim
-    from gyeeta_tpu_torch.sketch import loghist
-    from gyeeta_tpu_torch.utils.config import RuntimeOpts
 
-    cfg = tiny_cfg(aggstate, loghist)._replace(
-        n_hosts=8, task_capacity=128, api_capacity=256)
-    now = [1.7e9]
-    rt = Runtime(cfg, RuntimeOpts(**TINY_RT_OPTS), clock=lambda: now[0],
-                 device=device)
-    install_alert_ops(rt)
     fed = {"resp_spec": [], "apiresp_spec": [], "taskcpu_spec": [],
            "qps_spec": [], "active_spec": []}
     sim = ParthaSim(n_hosts=8, n_svcs=4, n_clients=256)
     reg_sim = ParthaSim(n_hosts=8, n_svcs=4, n_clients=256, seed=9)
-    reports = []
+    bufs = []
     for tick, buf in enumerate(tiny_runtime_buffers(sim, wire)):
         buf = registry_frames(reg_sim, wire, tick, 6) + buf
+        bufs.append(buf)
         recs, _, _ = wire.drain2(buf)
         tr = recs[wire.NOTIFY_REQ_TRACE]
         fed["resp_spec"] += [recs[wire.NOTIFY_RESP_SAMPLE]["resp_usec"],
@@ -1776,14 +1784,40 @@ def tiny_runtime_run(device):
         fed["qps_spec"].append(lb.stats[lb.valid, decode.STAT_NQRYS] / 5.0)
         fed["active_spec"].append(
             lb.stats[lb.valid, decode.STAT_NCONNS_ACTIVE])
+    return bufs, {k: np.concatenate(v).astype(np.float32)
+                  for k, v in fed.items()}
+
+
+def tiny_rt_cfg():
+    from gyeeta_tpu_torch.engine import aggstate
+    from gyeeta_tpu_torch.sketch import loghist
+    return tiny_cfg(aggstate, loghist)._replace(
+        n_hosts=8, task_capacity=128, api_capacity=256)
+
+
+def tiny_runtime_run(device):
+    """The tiny stream, each tick with its registry records, through
+    ``Runtime(device=...)`` in uneven byte cuts, a run_tick after each
+    tick, with RT_ALERT_OPS installed through "op" requests first and a
+    clock of 5 s a tick → (runtime, tick reports, loghist inputs
+    fed)."""
+    from gyeeta_tpu_torch.runtime import Runtime
+    from gyeeta_tpu_torch.utils.config import RuntimeOpts
+
+    now = [1.7e9]
+    rt = Runtime(tiny_rt_cfg(), RuntimeOpts(**TINY_RT_OPTS),
+                 clock=lambda: now[0], device=device)
+    install_alert_ops(rt)
+    bufs, fed = tiny_runtime_stream()
+    reports = []
+    for buf in bufs:
         cuts = [0] + [len(buf) - c for c in TINY_CUTS] + [len(buf)]
         for a, b in zip(cuts, cuts[1:]):
             rt.feed(buf[a:b])
         now[0] += 5.0
         reports.append(rt.run_tick())
     prime_vips(rt)
-    return rt, reports, {k: np.concatenate(v).astype(np.float32)
-                         for k, v in fed.items()}
+    return rt, reports, fed
 
 
 def _json_diff(torch, loghist, cfg, ref, got, moved, path, n_moved):
@@ -3393,6 +3427,677 @@ def history_phase(torch, scatter, frames, rt_perf):
     return perf, launches
 
 
+# ----------------------------------------------------------- phase 11
+SRV_AGENTS = 8              # registered GYT event conns
+SRV_TICKS = 2               # measured manual ticks
+SRV_BUFFERS = 16            # phase 8's feed buffers a measured tick
+SRV_LOOP_S = 6.0            # the stretch under the server's own tick loop
+SRV_LOOP_TICK_S = 1.0       # ... at this tick_interval
+SRV_IDLE_S = 3.0            # ... with this idle deadline on every conn
+SRV_CACHED_MIN = 100        # cached query samples an edge (for its p99)
+SRV_NM = ("svcstate", "hoststate", "taskstate", "flowstate", "svcinfo",
+          "alertdef", "serverstatus", "topk")
+SRV_REST = ("svcstate", "hoststate", "clusterstate", "flowstate",
+            "hostinfo", "svcsumm", "cpumem", "topk")
+SRV_REF_CONNS = 4096        # the stock partha's TCP_CONN records
+SRV_DECODE_REPS = 3         # native vs Python decode timing passes
+SRV_TIMEOUT = 120.0         # every socket wait, seconds
+
+
+def _w(coro, timeout=SRV_TIMEOUT):
+    import asyncio
+    return asyncio.wait_for(coro, timeout)
+
+
+async def _until(pred, what, timeout=SRV_TIMEOUT):
+    """Poll ``pred`` (the server folds on this thread's loop) until it
+    holds; fails the phase on the deadline."""
+    import asyncio
+    t0 = time.monotonic()
+    while not pred():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"timed out waiting for {what}")
+        await asyncio.sleep(0.002)
+
+
+def _pcts(ms) -> dict:
+    """p50 and max of ``ms`` with their count; p99 only from at least
+    ``SRV_CACHED_MIN`` samples (below that it is the max)."""
+    out = {"p50": float(np.percentile(ms, 50)), "max": float(max(ms)),
+           "n": len(ms)}
+    if len(ms) >= SRV_CACHED_MIN:
+        out["p99"] = float(np.percentile(ms, 99))
+    return out
+
+
+def _fmt_pcts(d) -> str:
+    return (f"p50 {d['p50']:.1f}" + (f" p99 {d['p99']:.1f}" if "p99" in d
+                                     else "")
+            + f" max {d['max']:.1f} (n={d['n']})")
+
+
+class _TickFailures(logging.Handler):
+    """Collects the records the server's tick loop logs when a tick
+    raises (it logs and carries on)."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.records: list = []
+
+    def emit(self, record):
+        self.records.append(self.format(record))
+
+
+class NMClient:
+    """A stock node-webserver conn built from the port's own codecs
+    (``ingest/refquery.py``): NM_CONNECT handshake, QUERY_WEB_JSON
+    requests, chunked responses joined."""
+
+    def __init__(self, RP, RQ):
+        self.RP, self.RQ, self.seq = RP, RQ, 0
+
+    async def connect(self, host, port) -> dict:
+        import asyncio
+        self.r, self.w = await _w(asyncio.open_connection(host, port))
+        self.w.write(self.RQ.encode_nm_connect_cmd("chip-smoke-nm"))
+        await _w(self.w.drain())
+        resp = self.RQ.parse_nm_connect_resp(await _w(self.r.readexactly(
+            self.RP.REF_HEADER_DT.itemsize
+            + self.RQ.REF_NM_CONNECT_RESP_DT.itemsize)))
+        check(resp["error_code"] == 0, "NM_CONNECT handshake accepted "
+              f"(madhava {resp['madhava_name']})")
+        return resp
+
+    async def query(self, subsys: str) -> dict:
+        RP, RQ = self.RP, self.RQ
+        self.seq += 1
+        # the qtype is the node's code or the subsystem's name
+        self.w.write(RQ.encode_query_cmd(self.seq, RQ.REF_QUERY_WEB_JSON,
+                                         {"qtype": subsys}))
+        await _w(self.w.drain())
+        chunks, hsz = [], RP.REF_HEADER_DT.itemsize
+        while True:
+            hdr = np.frombuffer(await _w(self.r.readexactly(hsz)),
+                                RP.REF_HEADER_DT, count=1)[0]
+            body = await _w(self.r.readexactly(int(hdr["total_sz"]) - hsz))
+            body = body[: len(body) - int(hdr["padding_sz"])]
+            sid, rtype, done, chunk = RQ.parse_response_chunk(body)
+            if sid != self.seq or rtype == RQ.REF_RESP_ERROR:
+                raise AssertionError(f"NM {subsys}: seqid {sid} of "
+                                     f"{self.seq}, resptype {rtype}")
+            chunks.append(chunk)
+            if done:
+                return json.loads(b"".join(chunks))
+
+    def close(self) -> None:
+        self.w.close()
+
+
+async def _http_query(host, port, req) -> dict:
+    import asyncio
+    r, w = await _w(asyncio.open_connection(host, port))
+    try:
+        body = json.dumps(req).encode()
+        w.write(b"POST /query HTTP/1.1\r\nHost: gyt\r\nConnection: close"
+                b"\r\n" + f"Content-Length: {len(body)}\r\n\r\n".encode()
+                + body)
+        await _w(w.drain())
+        raw = await _w(r.read(-1))
+    finally:
+        w.close()
+    head, _, rbody = raw.partition(b"\r\n\r\n")
+    if b" 200 " not in head.split(b"\r\n")[0]:
+        raise AssertionError(f"REST {req}: {head[:80]}")
+    return json.loads(rbody)
+
+
+def ref_partha_frames(RP, glob_ids, n_conn: int) -> bytes:
+    """A stock partha's NOTIFY stream built from the port's ``REF_*_DT``
+    dtypes: NEW_LISTENER and LISTENER_STATE for a few services,
+    ``n_conn`` TCP_CONN records to them (accepted, closed)."""
+    def frame(subtype, recs):
+        body = recs.tobytes()
+        hsz, esz = RP.REF_HEADER_DT.itemsize, RP.REF_EVENT_NOTIFY_DT.itemsize
+        total = (hsz + esz + len(body) + 7) & ~7
+        hdr = np.zeros((), RP.REF_HEADER_DT)
+        hdr["magic"], hdr["total_sz"] = RP.REF_MAGIC_PM, total
+        hdr["data_type"] = RP.REF_COMM_EVENT_NOTIFY
+        hdr["padding_sz"] = total - hsz - esz - len(body)
+        ev = np.zeros((), RP.REF_EVENT_NOTIFY_DT)
+        ev["subtype"], ev["nevents"] = subtype, len(recs)
+        return hdr.tobytes() + ev.tobytes() + body \
+            + b"\x00" * int(hdr["padding_sz"])
+
+    for dt in (RP.REF_TCP_CONN_DT, RP.REF_NEW_LISTENER_DT,
+               RP.REF_LISTENER_STATE_DT):
+        if dt.itemsize % 8:           # records carry no padding here
+            raise AssertionError(f"a REF record of {dt.itemsize} bytes")
+    gids = np.asarray(glob_ids, np.uint64)
+    nl = np.zeros(len(gids), RP.REF_NEW_LISTENER_DT)
+    nl["ns_ip_port"]["aftype"] = RP.AF_INET
+    nl["ns_ip_port"]["ip32_be"] = np.arange(len(gids)) + 0x0A0000C8
+    nl["ns_ip_port"]["port"] = 8080
+    nl["glob_id"] = nl["related_listen_id"] = gids
+    nl["comm"] = b"stock-svc"
+    ls = np.zeros(len(gids), RP.REF_LISTENER_STATE_DT)
+    ls["glob_id"], ls["nqrys_5s"], ls["nconns"] = gids, 50, 4
+    ls["curr_state"] = 2
+    rng = np.random.default_rng(17)
+    cn = np.zeros(n_conn, RP.REF_TCP_CONN_DT)
+    for side, base in (("cli", 0x0A010000), ("ser", 0x0A0000C8)):
+        cn[side]["aftype"] = RP.AF_INET
+        cn[side]["ip32_be"] = base + rng.integers(0, 200, n_conn)
+    cn["cli"]["port"] = rng.integers(20000, 60000, n_conn)
+    cn["ser"]["port"] = 8080
+    cn["tusec_start"] = 1_700_000_000_000_000
+    cn["tusec_close"] = cn["tusec_start"] + rng.integers(100, 10 ** 6,
+                                                         n_conn)
+    cn["ser_glob_id"] = gids[rng.integers(0, len(gids), n_conn)]
+    cn["ser_related_listen_id"] = cn["ser_glob_id"]
+    cn["bytes_sent"] = rng.integers(100, 10 ** 6, n_conn)
+    cn["bytes_rcvd"] = rng.integers(100, 10 ** 5, n_conn)
+    cn["is_accept"] = True
+    out = frame(RP.REF_NOTIFY_NEW_LISTENER, nl) \
+        + frame(RP.REF_NOTIFY_LISTENER_STATE, ls)
+    step_ = 2048
+    for i in range(0, n_conn, step_):
+        out += frame(RP.REF_NOTIFY_TCP_CONN, cn[i:i + step_])
+    return out
+
+
+def decode_paths(torch, bufs, cfg) -> dict:
+    """ms per feed buffer of the native and the Python deframe plus the
+    conn/resp slab decode into pinned staging columns, on phase 8's
+    buffers; the two outputs held bit-equal."""
+    from gyeeta_tpu_torch.ingest import decode, native, wire
+    K = cfg.fold_k
+    pin = DEV == "cuda"
+    cols = {p: (decode.alloc_conn_cols(K * cfg.conn_batch, pin),
+                decode.alloc_resp_cols(K * cfg.resp_batch, pin))
+            for p in ("native", "python")}
+    ms = {"native": [], "python": []}
+    for rep in range(SRV_DECODE_REPS):
+        for buf, _, _ in bufs:
+            outs = {}
+            for path, drain in (("native", native.drain2),
+                                ("python", wire.drain2)):
+                cc, rc = cols[path]
+                t0 = time.perf_counter()
+                recs, consumed, _ = drain(buf)
+                cb = decode.conn_slab(recs[wire.NOTIFY_TCP_CONN], K,
+                                      cfg.conn_batch, out=cc,
+                                      clear_to=len(cc["valid"]),
+                                      native=path == "native")
+                rb = decode.resp_slab(recs[wire.NOTIFY_RESP_SAMPLE], K,
+                                      cfg.resp_batch, out=rc,
+                                      clear_to=len(rc["valid"]),
+                                      native=path == "native")
+                ms[path].append((time.perf_counter() - t0) * 1e3)
+                outs[path] = ({k: v.tobytes() for k, v in recs.items()},
+                              consumed, [c.tobytes() for c in cb + rb])
+            if outs["native"] != outs["python"]:
+                raise AssertionError("native and Python deframe+decode "
+                                     "disagree on a feed buffer")
+    check(True, f"native and Python deframe + slab decode bit-equal on "
+          f"{len(bufs)} feed buffers x {SRV_DECODE_REPS}")
+    return {p: float(np.median(v)) for p, v in ms.items()}
+
+
+async def _register_agents(register, wire, host, port, n):
+    conns = []
+    for i in range(n):
+        r, w, status, hid = await _w(register(
+            host, port, 0x5E0000 + i, wire.CONN_EVENT))
+        if status != wire.REG_OK:
+            raise AssertionError(f"agent {i} registration status {status}")
+        conns.append((r, w, hid))
+    return conns
+
+
+async def _send(w, buf) -> None:
+    w.write(buf)
+    await _w(w.drain())
+
+
+async def serving_run(torch, scatter, frames, rt_perf) -> tuple:
+    """The port's GytServer over an ns-geometry Runtime on the card, fed
+    over loopback TCP (see serving_phase)."""
+    import asyncio
+
+    from gyeeta_tpu_torch.engine import aggstate
+    from gyeeta_tpu_torch.ingest import refproto as RP
+    from gyeeta_tpu_torch.ingest import refquery as RQ
+    from gyeeta_tpu_torch.ingest import wire
+    from gyeeta_tpu_torch.net.agent import QueryClient, register
+    from gyeeta_tpu_torch.net.server import GytServer
+    from gyeeta_tpu_torch.net.subs import SubscribeClient
+    from gyeeta_tpu_torch.net.webgw import WebGateway
+    from gyeeta_tpu_torch.runtime import Runtime
+    from gyeeta_tpu_torch.utils.config import RuntimeOpts
+
+    names, sweeps, bufs, n_svcs = frames
+    cfg = aggstate.EngineCfg(**NS_CFG)
+    perf = {"decode_ms_per_buffer": decode_paths(torch, bufs, cfg)}
+    log("  deframe + slab decode ms per feed buffer: native "
+        f"{perf['decode_ms_per_buffer']['native']:.2f}, Python "
+        f"{perf['decode_ms_per_buffer']['python']:.2f}")
+    ev_buf = cfg.fold_k * (cfg.conn_batch + cfg.resp_batch)
+    mods = sketch_modules()
+    torch.cuda.reset_peak_memory_stats()
+    rt = Runtime(cfg, RuntimeOpts(**RT_OPTS), device=DEV)
+    # idle_timeout 0 until the tick-loop stretch: the agents wait
+    # through the manual ticks' measurements and the queries
+    srv = GytServer(rt, host="127.0.0.1", port=0, tick_interval=None,
+                    idle_timeout=0)
+    ctr = rt.stats.counters
+    conns, qc, nm, sc, gw = [], None, None, None, None
+    tick_log = _TickFailures()
+    logging.getLogger("gyeeta_tpu_torch.net").addHandler(tick_log)
+    try:
+        host, port = await _w(srv.start())
+        conns = await _register_agents(register, wire, host, port,
+                                       SRV_AGENTS)
+        check(sorted(h for _, _, h in conns) == list(range(SRV_AGENTS)),
+              f"{SRV_AGENTS} agents registered with host ids 0..7")
+        fed = {"conn": 0, "resp": 0}
+
+        async def feed_buffers(n, j0):
+            """n feed buffers, round robin over the agents' conns, each
+            conn's writes in order; → once all are folded."""
+            tgt_c, tgt_r = fed["conn"], fed["resp"]
+            sends = [[] for _ in conns]
+            for i in range(n):
+                buf, nc, nr = bufs[(j0 + i) % len(bufs)]
+                sends[i % len(conns)].append(buf)
+                tgt_c += nc
+                tgt_r += nr
+
+            async def one(w, bl):
+                for b in bl:
+                    await _send(w, b)
+            await asyncio.gather(*(one(w, bl) for (_, w, _), bl
+                                   in zip(conns, sends)))
+            await _until(lambda: ctr.get("conn_events", 0) >= tgt_c
+                         and ctr.get("resp_events", 0) >= tgt_r,
+                         f"{n} feed buffers folded")
+            fed["conn"], fed["resp"] = tgt_c, tgt_r
+
+        # warm-up tick: names, a sweep, two buffers (counted events
+        # include the sweep's VIP flows)
+        t0 = time.perf_counter()
+        w0 = conns[0][1]
+        await _send(w0, names)
+        c0 = ctr.get("conn_events", 0)
+        await _send(w0, sweeps[0])
+        await _until(lambda: ctr.get("conn_events", 0) >= c0 + RT_NAT_FLOWS,
+                     "the warm-up sweep")
+        fed["conn"], fed["resp"] = ctr["conn_events"], ctr.get(
+            "resp_events", 0)
+        await feed_buffers(RT_WARM_BUFFERS, 0)
+        srv._feed_barrier()
+        rt.run_tick()
+        torch.cuda.synchronize()
+        log(f"  warm-up tick over TCP: {time.perf_counter() - t0:.2f}s, "
+            f"{int(rt.state.tbl.n_live)} services live")
+        install_alert_ops(rt)
+        sc = SubscribeClient()
+        await _w(sc.connect(host, port))
+        await _w(sc.subscribe({"subsys": "svcstate", "maxrecs": 100}))
+        events = sc.events(stall_timeout=SRV_TIMEOUT)
+        first = await _w(events.__anext__())
+        perf["sub_events"] = [first.get("t")]
+
+        # ---- the measured ticks, counted
+        reset_launches(scatter, mods)
+        slabs0 = ctr.get("slab_dispatches", 0)
+        perf["buffer_ms"], perf["events_per_s"] = [], []
+        perf["tick_ms"], perf["sweep_s"] = [], []
+        j = RT_WARM_BUFFERS
+        for tick in range(SRV_TICKS):
+            c0 = ctr["conn_events"]
+            t0 = time.perf_counter()
+            await _send(w0, sweeps[tick + 1])
+            await _until(lambda: ctr["conn_events"] >= c0 + RT_NAT_FLOWS,
+                         "a sweep")
+            torch.cuda.synchronize()
+            perf["sweep_s"].append(time.perf_counter() - t0)
+            fed["conn"] = ctr["conn_events"]
+            t0 = time.perf_counter()
+            await feed_buffers(SRV_BUFFERS, j)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            j += SRV_BUFFERS
+            perf["buffer_ms"].append(dt / SRV_BUFFERS * 1e3)
+            perf["events_per_s"].append(SRV_BUFFERS * ev_buf / dt)
+            t0 = time.perf_counter()
+            srv._feed_barrier()
+            rt.run_tick()
+            torch.cuda.synchronize()
+            perf["tick_ms"].append((time.perf_counter() - t0) * 1e3)
+            await srv.push_subscriptions()
+            ev = await _w(events.__anext__())
+            perf["sub_events"].append(ev.get("t"))
+        check(perf["sub_events"][0] == "full"
+              and all(t in ("delta", "full", "ack")
+                      for t in perf["sub_events"][1:])
+              and len(perf["sub_events"]) == SRV_TICKS + 1,
+              f"svcstate subscription pushed after each tick: "
+              f"{perf['sub_events']}")
+        log(f"  wire→fold over {SRV_AGENTS} conns: ms per buffer "
+            f"{', '.join(f'{m:.2f}' for m in perf['buffer_ms'])} "
+            f"({', '.join(f'{e:.0f}' for e in perf['events_per_s'])} "
+            "events/s; phase 8's direct feed in this run: "
+            f"{', '.join(f'{e:.0f}' for e in rt_perf['events_per_s'])})")
+        log(f"  sweep over TCP (s): "
+            f"{', '.join(f'{s:.3f}' for s in perf['sweep_s'])}; manual "
+            f"run_tick ms: {', '.join(f'{m:.1f}' for m in perf['tick_ms'])}")
+
+        # ---- a stock partha: PS_REGISTER → PM_CONNECT → NOTIFY frames
+        mid = (0x57AC, 0x0CC1)
+        r1, w1 = await _w(asyncio.open_connection(host, port))
+        w1.write(RP.encode_ps_register_req(*mid, hostname="stock-partha"))
+        await _w(w1.drain())
+        ps = RP.parse_ps_register_resp(await _w(r1.readexactly(
+            RP.REF_HEADER_DT.itemsize + RP.REF_PS_REGISTER_RESP_DT.itemsize)))
+        w1.close()
+        r2, w2 = await _w(asyncio.open_connection(host, port))
+        w2.write(RP.encode_pm_connect_cmd(*mid, ps["partha_ident_key"],
+                                          ps["madhava_id"]))
+        await _w(w2.drain())
+        pm = RP.parse_pm_connect_resp(await _w(r2.readexactly(
+            RP.REF_HEADER_DT.itemsize + RP.REF_PM_CONNECT_RESP_DT.itemsize)))
+        check(ps["error_code"] == pm["error_code"] == 0,
+              "stock partha registered: PS_REGISTER and PM_CONNECT "
+              f"accepted {ps['error_string']!r} {pm['error_string']!r}")
+        gids = [int(r["svcid"], 16) for r in rt.query(
+            {"subsys": "svcstate", "maxrecs": 16})["recs"]]
+        c0 = ctr["conn_events"]
+        t0 = time.perf_counter()
+        await _send(w2, ref_partha_frames(RP, gids, SRV_REF_CONNS))
+        await _until(lambda: ctr["conn_events"] >= c0 + SRV_REF_CONNS,
+                     "the stock partha's conns")
+        perf["ref_session_s"] = time.perf_counter() - t0
+        w2.close()
+        nat_, fb = ctr.get("ref_native_decoded", 0), \
+            ctr.get("ref_fallback_decoded", 0)
+        check(ctr.get("ref_pm_connected") == 1
+              and ctr.get("conns_ref_adapted", 0) >= 1
+              and ctr.get(f"ref_evt_0x{RP.REF_NOTIFY_TCP_CONN:x}")
+              == SRV_REF_CONNS and nat_ > 0 and fb == 0,
+              f"stock partha session adapted ({SRV_REF_CONNS} conns in "
+              f"{perf['ref_session_s']:.3f}s); ref_native_decoded {nat_}, "
+              f"ref_fallback_decoded {fb}")
+        srv._feed_barrier()
+        rt.run_tick()
+        await srv.push_subscriptions()
+        prime_vips(rt)
+
+        # ---- queries over the three edges, each against rt.query on
+        # the same snapshot
+        qc = QueryClient(request_timeout=SRV_TIMEOUT)
+        await _w(qc.connect(host, port))
+        served = RT_SERVED + RT_NEW
+        lat = {"gyt": {"first": [], "cached": []},
+               "nm": {"first": [], "cached": []},
+               "rest": {"first": [], "cached": []}}
+        gyt = {}
+
+        async def timed(edge, names, ask, want):
+            """Each name's first call, then cached calls in rounds over
+            the names until the edge has ``SRV_CACHED_MIN`` of them;
+            every answer is held against ``want(name)``."""
+            rounds = -(-SRV_CACHED_MIN // len(names))
+            for rnd in range(1 + rounds):
+                kind = "first" if rnd == 0 else "cached"
+                for name in names:
+                    t0 = time.perf_counter()
+                    out = await ask(name)
+                    lat[edge][kind].append(
+                        (time.perf_counter() - t0) * 1e3)
+                    if out != want(name, out):
+                        raise AssertionError(
+                            f"{edge} {name}: the JSON differs from "
+                            + ("rt.query on the same snapshot"
+                               if edge == "gyt" else "GYT's"))
+
+        def direct(name, out):
+            if name not in gyt:
+                gyt[name] = json.loads(json.dumps(rt.query(
+                    {"subsys": name, "consistency": "snapshot"})))
+            return gyt[name]
+        await timed("gyt", served,
+                    lambda name: _w(qc.query({"subsys": name})), direct)
+        nm = NMClient(RP, RQ)
+        await nm.connect(host, port)
+        await timed("nm", SRV_NM, nm.query, lambda name, out: gyt[name])
+        gw = WebGateway(host, port)
+        gh, gp = await _w(gw.start())
+        await timed("rest", SRV_REST,
+                    lambda name: _http_query(gh, gp, {"subsys": name}),
+                    lambda name, out: gyt[name])
+        perf["query_ms"] = {e: {k: _pcts(v) for k, v in d.items()}
+                            for e, d in lat.items()}
+        check(gyt["svcstate"]["nrecs"] > 0
+              and int(rt.state.tbl.n_live) >= n_svcs,
+              f"{len(served)} subsystems over GYT, {len(SRV_NM)} over NM, "
+              f"{len(SRV_REST)} over REST: JSON equal to rt.query on the "
+              f"same snapshot and across edges; "
+              f"{int(rt.state.tbl.n_live)} services live")
+        for e, d in perf["query_ms"].items():
+            log(f"  {e} query ms: first {_fmt_pcts(d['first'])}; cached "
+                f"{_fmt_pcts(d['cached'])}")
+        # the query conns are done: closed before the stretch, whose
+        # idle deadline would reap them (they are silent, not live)
+        await gw.stop()
+        gw = None
+        nm.close()
+        nm = None
+        await qc.close()
+        qc = None
+
+        # ---- a stretch under the server's own tick loop, with an idle
+        # deadline on every conn: run_tick holds the loop thread while
+        # the agents go on sending
+        loop_ticks, tick_calls = [], [0]
+        run_tick = rt.run_tick
+
+        def timed_tick():
+            tick_calls[0] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_tick()
+            torch.cuda.synchronize()
+            loop_ticks.append((time.perf_counter() - t0) * 1e3)
+            return out
+        rt.run_tick = timed_tick
+        srv.idle_timeout = SRV_IDLE_S
+        srv.tick_interval = SRV_LOOP_TICK_S
+        srv._tick_task = asyncio.create_task(srv._tick_loop())
+        t_end = time.monotonic() + SRV_LOOP_S
+        while time.monotonic() < t_end or len(loop_ticks) < 2:
+            if time.monotonic() > t_end + SRV_TIMEOUT:
+                raise AssertionError("the server's tick loop stalled")
+            await feed_buffers(len(conns), j)
+            j += len(conns)
+        srv._tick_task.cancel()
+        srv._tick_task = None
+        rt.run_tick = run_tick
+        reaped = {k: v for k, v in ctr.items()
+                  if k.startswith("conn_timeouts")}
+        perf["loop_tick_ms"] = loop_ticks
+        perf["conn_timeouts"] = reaped
+        check(len(loop_ticks) >= 2 and tick_calls[0] == len(loop_ticks)
+              and not tick_log.records and not reaped,
+              f"the server's tick loop ran {len(loop_ticks)} ticks of "
+              f"{tick_calls[0]} in {SRV_LOOP_S}s "
+              f"({', '.join(f'{m:.1f}' for m in loop_ticks)} ms), no tick "
+              f"failed {tick_log.records}, no conn reaped under a "
+              f"{SRV_IDLE_S}s idle deadline {reaped}")
+        launches = read_launches(scatter, mods)
+        perf["fed"] = dict(fed)
+        perf["counters"] = {k: ctr.get(k, 0) for k in (
+            "conn_events", "resp_events", "slab_dispatches",
+            "fold_dispatches", "ref_native_decoded", "net_queries",
+            "conns_ref_adapted", "net_subscribes")}
+        slabs = ctr["slab_dispatches"] - slabs0
+        # each conn/resp dispatch: hll_update twice, inv and cms once
+        check(launches["hll_update"] == 2 * launches["inv_update"]
+              == 2 * launches["cms_update"]
+              and launches["inv_update"] >= slabs > 0,
+              f"kernels launched during the serving run: {launches} "
+              f"({slabs} slab dispatches)")
+        perf["max_memory_allocated_gib"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  max_memory_allocated: "
+            f"{perf['max_memory_allocated_gib']:.3f} GiB")
+    finally:
+        if qc is not None:
+            await qc.close()
+        if nm is not None:
+            nm.close()
+        if sc is not None:
+            await sc.close()
+        if gw is not None:
+            await gw.stop()
+        for _, w, _ in conns:
+            w.close()
+        await srv.stop()              # closes the runtime
+        logging.getLogger("gyeeta_tpu_torch.net").removeHandler(tick_log)
+    del rt, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the decode pipeline over the same buffers
+    rt = Runtime(cfg, RuntimeOpts(**RT_OPTS), device=DEV)
+    srv = GytServer(rt, host="127.0.0.1", port=0, tick_interval=None,
+                    idle_timeout=0, feed_pipeline=True)
+    ctr = rt.stats.counters
+    conns = []
+    try:
+        host, port = await _w(srv.start())
+        conns = await _register_agents(register, wire, host, port,
+                                       SRV_AGENTS)
+        want = sum(bufs[i % len(bufs)][1] for i in range(SRV_BUFFERS))
+        for rnd in range(2):                 # a warm pass, then timed
+            sends = [[] for _ in conns]
+            for i in range(SRV_BUFFERS):
+                sends[i % len(conns)].append(bufs[i % len(bufs)][0])
+            c0 = ctr.get("conn_events", 0)
+            t0 = time.perf_counter()
+
+            async def one(w, bl):
+                for b in bl:
+                    await _send(w, b)
+            await asyncio.gather(*(one(w, bl) for (_, w, _), bl
+                                   in zip(conns, sends)))
+
+            def done():
+                srv._feed_barrier()
+                return ctr.get("conn_events", 0) >= c0 + want
+            await _until(done, "the pipeline's buffers")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        perf["pipeline_events_per_s"] = SRV_BUFFERS * ev_buf / dt
+        rt.run_tick()
+        check(ctr.get("pipeline_frame_errors", 0) == 0
+              and ctr["conn_events"] == 2 * want,
+              f"feed_pipeline=True: {perf['pipeline_events_per_s']:.0f} "
+              f"events/s wire→fold, {ctr['conn_events']} conn events, no "
+              "frame errors")
+    finally:
+        for _, w, _ in conns:
+            w.close()
+        await srv.stop()
+    del rt, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return perf, launches
+
+
+async def tiny_server_run(device) -> dict:
+    """The tiny stream (phase 8's, with registry records) over one
+    registered TCP conn into a port server over
+    ``Runtime(device=...)``; a manual tick after each tick's bytes →
+    tick reports, every served subsystem's JSON over QueryClient."""
+    from gyeeta_tpu_torch.ingest import wire
+    from gyeeta_tpu_torch.net.agent import QueryClient, register
+    from gyeeta_tpu_torch.net.server import GytServer
+    from gyeeta_tpu_torch.runtime import Runtime
+    from gyeeta_tpu_torch.utils.config import RuntimeOpts
+
+    now = [1.7e9]
+    rt = Runtime(tiny_rt_cfg(), RuntimeOpts(**TINY_RT_OPTS),
+                 clock=lambda: now[0], device=device)
+    install_alert_ops(rt)
+    srv = GytServer(rt, host="127.0.0.1", port=0, tick_interval=None,
+                    idle_timeout=0)
+    bufs, _ = tiny_runtime_stream()
+    out = {"reports": []}
+    w = qc = None
+    ctr = rt.stats.counters
+    try:
+        host, port = await _w(srv.start())
+        _, w, status, _ = await _w(register(host, port, 0x71, wire.CONN_EVENT))
+        if status != wire.REG_OK:
+            raise AssertionError(f"tiny agent registration status {status}")
+        for buf in bufs:
+            recs, _, _ = wire.drain2(buf)
+            want = ctr.get("resp_events", 0) + len(
+                recs[wire.NOTIFY_RESP_SAMPLE])
+            await _send(w, buf)
+            await _until(lambda: ctr.get("resp_events", 0) >= want,
+                         "a tiny tick's bytes")
+            now[0] += 5.0
+            out["reports"].append(rt.run_tick())
+        prime_vips(rt)
+        qc = QueryClient(request_timeout=SRV_TIMEOUT)
+        await _w(qc.connect(host, port))
+        out["json"] = {name: await _w(qc.query({"subsys": name,
+                                                "maxrecs": 10000}))
+                       for name in RT_SERVED + RT_NEW}
+    finally:
+        if qc is not None:
+            await qc.close()
+        if w is not None:
+            w.close()
+        await srv.stop()
+    return out
+
+
+def serving_phase(torch, scatter, frames, rt_perf):
+    """Phase 11: the serving edge at ns geometry on the card."""
+    import asyncio
+
+    from gyeeta_tpu_torch.sketch import loghist
+
+    t_phase = time.perf_counter()
+    log(f"phase 11: the serving edge at north-star geometry: a GytServer "
+        f"over the card's Runtime on 127.0.0.1, {SRV_AGENTS} agents' "
+        f"conns, {SRV_TICKS} ticks of {SRV_BUFFERS} feed buffers")
+    perf, launches = asyncio.run(serving_run(torch, scatter, frames,
+                                             rt_perf))
+    log("  tiny stream over TCP, card server vs CPU server")
+    g = asyncio.run(tiny_server_run(DEV))
+    c = asyncio.run(tiny_server_run("cpu"))
+    check(g["reports"] == c["reports"], f"tick reports equal card vs CPU: "
+          f"{c['reports']}")
+    _, fed = tiny_runtime_stream()
+    tcfg = tiny_rt_cfg()
+    moved = {k: _moved(torch, loghist, getattr(tcfg, k), v)
+             for k, v in fed.items()}
+    n_q = [0, 0]
+    for name in c["json"]:
+        _json_diff(torch, loghist, tcfg, c["json"][name], g["json"][name],
+                   moved, name, n_q)
+    check(True, f"JSON of {len(c['json'])} subsystems over the GYT edge "
+          f"agrees card vs CPU ({n_q[0]} quantiles one loghist bucket "
+          f"apart, {n_q[1]} values one unit apart in the third decimal)")
+    perf["tiny_json_bucket_apart"], perf["tiny_json_rounding_apart"] = n_q
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 11: {perf['phase_s']:.1f}s")
+    return perf, launches
+
+
 def _no_lookup(*a, **kw):
     raise OSError("chip_smoke resolves no names")
 
@@ -3442,12 +4147,16 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     hp, h_launches = history_phase(torch, scatter, frames,
                                    rtp["buffer_ms"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp, s_launches = serving_phase(torch, scatter, frames, rtp)
     del frames
     for k in kernels:
         k["launches_fold_all"] = fa["launches"][k["name"]]
         k["launches_runtime"] = rt_launches[k["name"]]
         k["launches_delta"] = d_launches[k["name"]]
         k["launches_history"] = h_launches[k["name"]]
+        k["launches_serving"] = s_launches[k["name"]]
         cs = d_sites.get(k["name"])
         if cs:
             k["delta"] = {f: sum(c[f] for c in cs) for f in (
@@ -3474,6 +4183,7 @@ def main(argv) -> int:
     log(json.dumps({"runtime": rtp}))
     log(json.dumps({"delta": dp}, default=float))
     log(json.dumps({"history": hp}, default=float))
+    log(json.dumps({"serving": sp}, default=float))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

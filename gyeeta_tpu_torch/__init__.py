@@ -9,8 +9,13 @@ JSON query API, the CRUD channel, continuous queries), ``alerts/*``
 (the alert manager and webhook delivery), ``trace/defs.py``,
 ``obs/*`` and ``utils/*`` (hashing, interning, config, checkpoints,
 self-stats, the host-side registries, the notification log, drop
-pressure). What is not ported yet raises, naming its ROADMAP.md item
-(``unported.py``).
+pressure, the journal), ``history/*``, and the serving edge: ``net/*``
+(``GytServer``, the query executor, subscriptions, the NM and REST
+edges, the query client), ``ingest/native`` (the C++ deframer and
+columnar decoder, built with ``g++``), ``ingest/refproto.py`` (stock
+partha streams), ``server_main.py`` and ``cli.py`` (``python -m
+gyeeta_tpu_torch serve``). What is not ported yet raises, naming its
+ROADMAP.md item (``unported.py``).
 
 The two Pallas kernels of the reference
 (``gyeeta_tpu/sketch/pallas_scatter.py``) are hand-written CUDA kernels

@@ -16,7 +16,10 @@ The runtime's staging helpers are here too: :func:`drain_chunks` (the
 fold plan of a drained feed), :func:`take_raw_chunks`,
 :func:`conn_slab` / :func:`resp_slab` (raw records → one ``(K, B)``
 slab, decoded in place into a reused buffer of the double-buffered
-staging slabs: :func:`alloc_conn_cols` / :func:`alloc_resp_cols`) and :func:`resp_from_trace` (the trace→resp bridge).
+staging slabs: :func:`alloc_conn_cols` / :func:`alloc_resp_cols`) and
+:func:`resp_from_trace` (the trace→resp bridge). The slab and section
+builders decode through the native C++ path of ``ingest/native`` unless
+asked for numpy (``native=False``), bit for bit the same columns.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from gyeeta_tpu_torch.device import resolve
-from gyeeta_tpu_torch.ingest import wire
+from gyeeta_tpu_torch.ingest import native as nat, wire
 from gyeeta_tpu_torch.utils import hashing as H
 
 # stat column indices of ListenerBatch.stats (and AggState.svc_stats)
@@ -411,17 +414,6 @@ def task_batch(recs: np.ndarray, size: int = wire.MAX_TASKS_PER_BATCH
     )
 
 
-def ping_batch(recs: np.ndarray, size: int = wire.MAX_PINGS_PER_BATCH
-               ) -> PingBatch:
-    """TASK_PING records → columnar keepalive microbatch."""
-    n = _check_fit(recs, size)
-    r = recs[:n]
-    k_hi, k_lo = split_u64(r["aggr_task_id"])
-    return PingBatch(key_hi=_pad(k_hi, size), key_lo=_pad(k_lo, size),
-                     host_id=_pad(r["host_id"].astype(np.int32), size),
-                     valid=_valid(n, size))
-
-
 def trace_batch(recs: np.ndarray, size: int = wire.MAX_TRACE_PER_BATCH
                 ) -> TraceBatch:
     n = _check_fit(recs, size)
@@ -467,17 +459,124 @@ def host_batch(recs: np.ndarray, size: int = wire.MAX_HOSTS_PER_BATCH
     )
 
 
-# ------------------------------------------------------- runtime staging
-# The reference's sections decode through a native C++ path when it is
-# built (``*_batch_fast``) and fall back to the numpy builders above, bit
-# for bit the same columns. The port has the numpy path only, under the
-# reference's names (tests/test_torch_runtime.py holds its columns
-# against the reference's builders).
+# ------------------------------------------------ native section builders
+# The sections decode through the native C++ path (``ingest/native``) by
+# default, bit for bit the columns of the numpy builders above; the
+# caller picks the numpy path with ``native=False``. ``stats`` counts
+# the decoded records by path (``_count_path``).
 
-listener_batch_fast = listener_batch
-task_batch_fast = task_batch
-cpumem_batch_fast = cpumem_batch
-host_batch_fast = host_batch
+
+def _count_path(stats, used_native: bool, n: int) -> None:
+    """Per-path decode counters of selfstats: ``ref_native_decoded`` /
+    ``ref_fallback_decoded``, bumped by the records each section
+    decodes."""
+    if stats is not None and n:
+        stats.bump("ref_native_decoded" if used_native
+                   else "ref_fallback_decoded", n)
+
+
+def listener_batch_fast(recs: np.ndarray,
+                        size: int = wire.MAX_LISTENERS_PER_BATCH,
+                        stats=None, native: bool = True) -> ListenerBatch:
+    """LISTENER_STATE records → ListenerBatch: the id split and the stat
+    matrix in one native pass each (``native=False``: the numpy
+    :func:`listener_batch`)."""
+    n = _check_fit(recs, size)
+    _count_path(stats, native, n)
+    if not native:
+        return listener_batch(recs, size)
+    r = recs[:n]
+    svc_hi = np.zeros(size, np.uint32)
+    svc_lo = np.zeros(size, np.uint32)
+    stat_m = np.zeros((size, NSTAT), np.float32)
+    host_id = np.zeros(size, np.int32)
+    nat.split_u64_into(r, "glob_id", svc_hi, svc_lo)
+    nat.pack_f32_into(r, _LISTENER_STAT_FIELDS, stat_m)
+    nat.pack_i32_into(r, "host_id", host_id)
+    return ListenerBatch(svc_hi=svc_hi, svc_lo=svc_lo, stats=stat_m,
+                         host_id=host_id, valid=_valid(n, size))
+
+
+def task_batch_fast(recs: np.ndarray,
+                    size: int = wire.MAX_TASKS_PER_BATCH,
+                    stats=None, native: bool = True) -> TaskBatch:
+    """AGGR_TASK_STATE records → TaskBatch, native (see
+    :func:`listener_batch_fast`)."""
+    n = _check_fit(recs, size)
+    _count_path(stats, native, n)
+    if not native:
+        return task_batch(recs, size)
+    r = recs[:n]
+    cols = {k: np.zeros(size, np.uint32)
+            for k in ("key_hi", "key_lo", "comm_hi", "comm_lo", "rel_hi",
+                      "rel_lo")}
+    stat_m = np.zeros((size, NTASKSTAT), np.float32)
+    state, issue, host_id = (np.zeros(size, np.int32) for _ in range(3))
+    nat.split_u64_into(r, "aggr_task_id", cols["key_hi"], cols["key_lo"])
+    nat.split_u64_into(r, "comm_id", cols["comm_hi"], cols["comm_lo"])
+    nat.split_u64_into(r, "related_listen_id", cols["rel_hi"],
+                       cols["rel_lo"])
+    nat.pack_f32_into(r, _TASK_STAT_FIELDS, stat_m)
+    nat.pack_i32_into(r, "curr_state", state)
+    nat.pack_i32_into(r, "curr_issue", issue)
+    nat.pack_i32_into(r, "host_id", host_id)
+    return TaskBatch(stats=stat_m, state=state, issue=issue,
+                     host_id=host_id, valid=_valid(n, size), **cols)
+
+
+def ping_batch(recs: np.ndarray, size: int = wire.MAX_PINGS_PER_BATCH,
+               stats=None, native: bool = True) -> PingBatch:
+    """TASK_PING records → columnar keepalive microbatch (the key split
+    native unless ``native=False``)."""
+    n = _check_fit(recs, size)
+    _count_path(stats, native, n)
+    r = recs[:n]
+    if not native:
+        k_hi, k_lo = split_u64(r["aggr_task_id"])
+        return PingBatch(key_hi=_pad(k_hi, size), key_lo=_pad(k_lo, size),
+                         host_id=_pad(r["host_id"].astype(np.int32), size),
+                         valid=_valid(n, size))
+    k_hi = np.zeros(size, np.uint32)
+    k_lo = np.zeros(size, np.uint32)
+    host_id = np.zeros(size, np.int32)
+    nat.split_u64_into(r, "aggr_task_id", k_hi, k_lo)
+    nat.pack_i32_into(r, "host_id", host_id)
+    return PingBatch(key_hi=k_hi, key_lo=k_lo, host_id=host_id,
+                     valid=_valid(n, size))
+
+
+def cpumem_batch_fast(recs: np.ndarray,
+                      size: int = wire.MAX_CPUMEM_PER_BATCH,
+                      stats=None, native: bool = True) -> CpuMemBatch:
+    """CPU_MEM_STATE records → CpuMemBatch, native (see
+    :func:`listener_batch_fast`)."""
+    n = _check_fit(recs, size)
+    _count_path(stats, native, n)
+    if not native:
+        return cpumem_batch(recs, size)
+    r = recs[:n]
+    vals = np.zeros((size, NCM), np.float32)
+    host_id = np.zeros(size, np.int32)
+    nat.pack_f32_into(r, _CM_FIELDS, vals)
+    nat.pack_i32_into(r, "host_id", host_id)
+    return CpuMemBatch(host_id=host_id, vals=vals, valid=_valid(n, size))
+
+
+def host_batch_fast(recs: np.ndarray,
+                    size: int = wire.MAX_HOSTS_PER_BATCH,
+                    stats=None, native: bool = True) -> HostBatch:
+    """HOST_STATE records → HostBatch, native (see
+    :func:`listener_batch_fast`)."""
+    n = _check_fit(recs, size)
+    _count_path(stats, native, n)
+    if not native:
+        return host_batch(recs, size)
+    r = recs[:n]
+    panel = np.zeros((size, NHOSTCOL), np.float32)
+    host_id = np.zeros(size, np.int32)
+    nat.pack_f32_into(r, _HOST_PANEL_FIELDS, panel)
+    nat.pack_i32_into(r, "host_id", host_id)
+    return HostBatch(host_id=host_id, panel=panel, valid=_valid(n, size))
 
 
 def _delta_pad(a, lanes, dtype):
@@ -751,12 +850,50 @@ def _fill_cols(cols: dict, out: dict, n: int, clear_to: int) -> dict:
     return out
 
 
+def _batch_dtypes(dtypes: dict) -> dict:
+    """Staging dtypes with the id columns as the batch builders' uint32
+    (a fresh native batch has the numpy builders' columns)."""
+    return {k: (np.uint32 if dt is np.int64 else dt)
+            for k, dt in dtypes.items()}
+
+
+def _native_cols(chunks: list, size: int, out, clear_to: int,
+                 dtypes: dict, decode_into) -> dict:
+    """Decode each chunk straight into the column buffers at its lane
+    offset: ``out`` (a staging buffer, reused, lanes ``[n, clear_to)``
+    re-zeroed) or fresh uint32-id columns."""
+    n = sum(len(c) for c in chunks)
+    if n > size:
+        raise ValueError(
+            f"{n} records exceed batch size {size}; split upstream")
+    if out is None:
+        cols = _alloc_cols(_batch_dtypes(dtypes), size, False)
+    else:
+        cols = out
+        _reuse_cols(cols, n, clear_to)
+    off = 0
+    for c in chunks:
+        if len(c):
+            decode_into(c, cols, off)
+            off += len(c)
+    cols["valid"][:n] = True
+    return cols
+
+
 def conn_batch_parts(chunks: list, size: int, out=None,
-                     clear_to: int = 0) -> ConnBatch:
+                     clear_to: int = 0, stats=None,
+                     native: bool = True) -> ConnBatch:
     """A list of raw TCP_CONN chunks (total ≤ size) → one flat padded
-    ConnBatch. ``out``: a column dict of :func:`alloc_conn_cols`, reused
-    across dispatches, decoded into in place with lanes ``[n, clear_to)``
-    re-zeroed — the same columns as a fresh batch."""
+    ConnBatch. Native: each chunk decodes straight into the column
+    buffers at its lane offset (no concatenate). ``out``: a column dict
+    of :func:`alloc_conn_cols`, reused across dispatches, decoded into
+    in place with lanes ``[n, clear_to)`` re-zeroed — the same columns
+    as a fresh batch. ``native=False``: the numpy builders."""
+    _count_path(stats, native, sum(len(c) for c in chunks))
+    if native:
+        return ConnBatch(**_native_cols(chunks, size, out, clear_to,
+                                        _CONN_COL_DTYPES,
+                                        nat.decode_conn_into))
     recs = _concat_chunks(chunks, wire.TCP_CONN_DT)
     if out is None:
         return conn_batch(recs, size)
@@ -764,11 +901,22 @@ def conn_batch_parts(chunks: list, size: int, out=None,
     return ConnBatch(**_fill_cols(_conn_cols(recs), out, n, clear_to))
 
 
+def _decode_resp_into(recs, cols: dict, off: int) -> None:
+    nat.decode_resp_into(recs, cols["svc_hi"], cols["svc_lo"],
+                         cols["resp_us"], cols["host_id"], off)
+
+
 def resp_batch_parts(chunks: list, size: int, out=None,
-                     clear_to: int = 0) -> RespBatch:
+                     clear_to: int = 0, stats=None,
+                     native: bool = True) -> RespBatch:
     """A list of raw RESP_SAMPLE chunks (total ≤ size) → one flat padded
     RespBatch (see :func:`conn_batch_parts`; ``out`` is an
     :func:`alloc_resp_cols` dict)."""
+    _count_path(stats, native, sum(len(c) for c in chunks))
+    if native:
+        return RespBatch(**_native_cols(chunks, size, out, clear_to,
+                                        _RESP_COL_DTYPES,
+                                        _decode_resp_into))
     recs = _concat_chunks(chunks, wire.RESP_SAMPLE_DT)
     if out is None:
         return resp_batch(recs, size)
@@ -776,8 +924,8 @@ def resp_batch_parts(chunks: list, size: int, out=None,
     return RespBatch(**_fill_cols(_resp_cols(recs), out, n, clear_to))
 
 
-def conn_slab(recs, k: int, b: int, out=None,
-              clear_to: int = 0) -> ConnBatch:
+def conn_slab(recs, k: int, b: int, out=None, clear_to: int = 0,
+              stats=None, native: bool = True) -> ConnBatch:
     """TCP_CONN records (n ≤ k·b; an array or a list of chunk arrays)
     → ConnBatch with ``(k, b)`` stacked columns: one flat decode and a
     reshape. Record i lands in flattened lane i, the padding at the
@@ -785,16 +933,18 @@ def conn_slab(recs, k: int, b: int, out=None,
     ``clear_to``: decode into a staging buffer (:func:`conn_batch_parts`).
     """
     chunks = recs if isinstance(recs, list) else [recs]
-    cb = conn_batch_parts(chunks, k * b, out=out, clear_to=clear_to)
+    cb = conn_batch_parts(chunks, k * b, out=out, clear_to=clear_to,
+                          stats=stats, native=native)
     return ConnBatch(*(x.reshape(k, b) for x in cb))
 
 
-def resp_slab(recs, k: int, b: int, out=None,
-              clear_to: int = 0) -> RespBatch:
+def resp_slab(recs, k: int, b: int, out=None, clear_to: int = 0,
+              stats=None, native: bool = True) -> RespBatch:
     """RESP_SAMPLE records (n ≤ k·b; array or chunk list) → RespBatch
     with ``(k, b)`` stacked columns (see :func:`conn_slab`)."""
     chunks = recs if isinstance(recs, list) else [recs]
-    rb = resp_batch_parts(chunks, k * b, out=out, clear_to=clear_to)
+    rb = resp_batch_parts(chunks, k * b, out=out, clear_to=clear_to,
+                          stats=stats, native=native)
     return RespBatch(*(x.reshape(k, b) for x in rb))
 
 

@@ -36,6 +36,34 @@ MAGIC_NQ = 0x47590003   # query client (node webserver analogue)
 MAX_COMM_DATA_SZ = 16 * 1024 * 1024   # 16MB frame cap
 
 COMM_EVENT_NOTIFY = 1
+COMM_QUERY_CMD = 2
+COMM_QUERY_RESP = 3
+COMM_REGISTER_REQ = 4     # agent handshake (ref PS_REGISTER_REQ_S :584)
+COMM_REGISTER_RESP = 5
+COMM_TRACE_SET = 6        # server→agent capture control (ref
+#                           REQ_TRACE_SET, gy_comm_proto.h:3295; rides
+#                           the event conn in reverse — the analogue of
+#                           the reference's CLI_TYPE_RESP_REQ direction)
+COMM_SUBSCRIBE_CMD = 8    # client→server streaming subscription: the
+#                           payload is a standard QUERY_HDR + JSON
+#                           envelope; the server answers an open-ended
+#                           stream of QUERY_RESP frames (status
+#                           QS_PARTIAL, seqid echoed) where EACH frame
+#                           body is one complete subscription event
+#                           (query/delta.py: full | delta | ack) —
+#                           pushed when snaptick advances, not polled.
+#                           The conn closing (either end) ends the
+#                           subscription; a QS_ERROR frame reports a
+#                           rejected registration. Pre-v6 servers
+#                           answer unknown data_type like any other
+#                           junk query frame (counted, conn survives).
+COMM_THROTTLE = 7         # server→agent admission control: hold feeds
+#                           in the agent spool for N ms (backpressure —
+#                           server pressure becomes agent-side spooling
+#                           instead of engine-side garbage; versioned
+#                           like NOTIFY_AGENT_STATS — old agents skip
+#                           unknown control dtypes)
+
 
 NOTIFY_TCP_CONN = 10          # flow close/open records
 NOTIFY_LISTENER_STATE = 11    # 5s per-service state
@@ -668,3 +696,313 @@ def decode_preagg(buf: bytes):
         return None
     return {f: (float(r[f]) if f.startswith("resp_v") else int(r[f]))
             for f in _PREAGG_FIELDS}
+
+# ----------------------------------------------------- control-plane msgs
+# Registration (ref PS_REGISTER_REQ_S/PM_CONNECT_CMD_S,
+# gy_comm_proto.h:584-952, version gates :55-56): one message class —
+# single-controller design collapses the partha→shyama→madhava two-step
+# into one handshake; machine-id → host_id stickiness replaces
+# assign_partha_madhava placement (gy_shconnhdlr.cc:5876).
+REGISTER_REQ_DT = np.dtype([
+    ("machine_id_hi", "<u8"),    # SYS_HARDWARE machine-id analogue
+    ("machine_id_lo", "<u8"),
+    ("wire_version", "<u4"),
+    ("conn_type", "<u4"),        # CONN_EVENT | CONN_QUERY
+    ("hostname_id", "<u8"),      # interned hostname (announce separately)
+])
+
+REGISTER_RESP_DT = np.dtype([
+    ("status", "<u4"),
+    ("host_id", "<u4"),          # assigned dense engine index
+    ("curr_version", "<u4"),
+    ("pad", "u1", (4,)),
+])
+
+CONN_EVENT = 1
+CONN_QUERY = 2
+
+REG_OK = 0
+REG_ERR_VERSION = 1              # older than MIN_WIRE_VERSION
+REG_ERR_CAPACITY = 2             # host slots exhausted (n_hosts)
+
+# Trace capture control (server→agent): which services to capture.
+# One record per service; enable=0 stops capture (ref REQ_TRACE_SET /
+# SM_REQ_TRACE_DEF_NEW→partha distribution, gy_comm_proto.h:3295,3377).
+TRACE_SET_DT = np.dtype([
+    ("svc_glob_id", "<u8"),
+    ("enable", "u1"),
+    ("pad", "u1", (7,)),
+])
+
+MAX_TRACE_SET_PER_BATCH = 4096
+
+
+def encode_trace_set(svc_ids, enable) -> bytes:
+    """(svc_glob_ids, enable flags) → COMM_TRACE_SET frame(s); large
+    sets chunk at the batch cap like every other record stream."""
+    recs = np.zeros(len(svc_ids), TRACE_SET_DT)
+    recs["svc_glob_id"] = np.asarray(svc_ids, np.uint64)
+    recs["enable"] = np.asarray(enable, np.uint8)
+    return b"".join(
+        _frame(COMM_TRACE_SET,
+               recs[i: i + MAX_TRACE_SET_PER_BATCH].tobytes(), MAGIC_MS)
+        for i in range(0, max(len(recs), 1), MAX_TRACE_SET_PER_BATCH))
+
+
+def decode_trace_set(payload: bytes) -> np.ndarray:
+    n = len(payload) // TRACE_SET_DT.itemsize
+    return np.frombuffer(payload, TRACE_SET_DT, count=n)
+
+
+# Admission control (server→agent backpressure): which feed classes to
+# hold in the agent's spool, for how long. Priority-aware shedding
+# (PSketch, PAPERS.md): trace/pcap feeds throttle BEFORE svc/task
+# state, so health classification degrades last. hold_ms=0 releases a
+# class early. Unknown feed ids are ignored by receivers (forward
+# compatible, the NOTIFY_AGENT_STATS versioning discipline).
+FEED_TRACE = 1            # request-trace / pcap transaction streams
+FEED_ALL = 2              # every sweep (state feeds included)
+
+THROTTLE_DT = np.dtype([
+    ("feed", "<u4"),
+    ("hold_ms", "<u4"),
+])
+
+assert THROTTLE_DT.itemsize % 8 == 0
+
+
+def encode_throttle(feeds, hold_ms: int, magic: int = MAGIC_MS) -> bytes:
+    """(feed classes, hold duration ms) → one COMM_THROTTLE frame."""
+    return encode_throttle_multi([(f, hold_ms) for f in feeds], magic)
+
+
+def encode_throttle_multi(pairs, magic: int = MAGIC_MS) -> bytes:
+    """[(feed, hold_ms), …] → one COMM_THROTTLE frame (hold 0 releases
+    that class early)."""
+    pairs = list(pairs)
+    recs = np.zeros(len(pairs), THROTTLE_DT)
+    recs["feed"] = np.asarray([p[0] for p in pairs], np.uint32)
+    recs["hold_ms"] = np.asarray([p[1] for p in pairs], np.uint32)
+    return _frame(COMM_THROTTLE, recs.tobytes(), magic)
+
+
+def decode_throttle(payload: bytes) -> np.ndarray:
+    n = len(payload) // THROTTLE_DT.itemsize
+    return np.frombuffer(payload, THROTTLE_DT, count=n)
+
+
+# Query multiplexing (ref QUERY_CMD/QUERY_RESPONSE, gy_comm_proto.h:502,
+# 536; ≤4K outstanding :53): seqid echoes back with the JSON response.
+QUERY_HDR_DT = np.dtype([
+    ("seqid", "<u8"),
+    ("status", "<u4"),           # req: 0; resp: QS_*
+    ("nbytes", "<u4"),           # JSON payload bytes (before pad)
+])
+
+QS_OK = 0
+QS_ERROR = 1                     # payload = {"error": msg}
+QS_BUSY = 2                      # too many outstanding queries
+QS_PARTIAL = 3                   # streamed chunk; more frames follow
+
+MAX_OUTSTANDING_QUERIES = 64     # per conn (global 4K analogue)
+
+# streamed-response chunk size: large results ride as a sequence of
+# QS_PARTIAL frames closed by the final status frame — the reference
+# streams web responses in 16MB heap-buffer chunks up to 4GB total
+# (gy_msg_comm.h buffer discipline); 1MB chunks keep frames well under
+# the 16MB frame cap with room for framing
+QUERY_CHUNK_BYTES = 1 << 20
+
+
+def _frame(data_type: int, payload: bytes, magic: int) -> bytes:
+    pad = (-len(payload)) % 8
+    total = HEADER_DT.itemsize + len(payload) + pad
+    if total >= MAX_COMM_DATA_SZ:
+        raise FrameError(f"frame {total} bytes exceeds 16MB cap")
+    hdr = np.zeros((), HEADER_DT)
+    hdr["magic"] = magic
+    hdr["total_sz"] = total
+    hdr["data_type"] = data_type
+    hdr["padding_sz"] = pad
+    return hdr.tobytes() + payload + b"\x00" * pad
+
+
+def encode_register_req(machine_id: int, conn_type: int,
+                        wire_version: int, hostname_id: int = 0) -> bytes:
+    r = np.zeros((), REGISTER_REQ_DT)
+    r["machine_id_hi"] = np.uint64((machine_id >> 64)
+                                   & 0xFFFFFFFFFFFFFFFF)
+    r["machine_id_lo"] = np.uint64(machine_id & 0xFFFFFFFFFFFFFFFF)
+    r["wire_version"] = wire_version
+    r["conn_type"] = conn_type
+    r["hostname_id"] = np.uint64(hostname_id)
+    return _frame(COMM_REGISTER_REQ, r.tobytes(), MAGIC_PM)
+
+
+def encode_register_resp(status: int, host_id: int,
+                         curr_version: int, last_seq: int = 0,
+                         preagg: dict | None = None) -> bytes:
+    """REGISTER_RESP + the v4 trailing extension: the server's durable
+    per-host sweep-seq high-water mark (``last_seq``), + the optional
+    v5 pre-aggregation advert (``preagg``, see PREAGG_DT). Agents built
+    before v4 parse the fixed prefix and ignore the tail; agents that
+    understand it prune already-durable sweeps from their resend spool
+    (the WAL dedup contract, see NOTIFY_SWEEP_SEQ)."""
+    r = np.zeros((), REGISTER_RESP_DT)
+    r["status"] = status
+    r["host_id"] = host_id
+    r["curr_version"] = curr_version
+    ext = np.uint64(last_seq).tobytes()
+    if preagg is not None:
+        ext += encode_preagg(preagg)
+    return _frame(COMM_REGISTER_RESP, r.tobytes() + ext, MAGIC_MS)
+
+
+def decode_register_resp(payload: bytes) -> tuple:
+    """REGISTER_RESP payload → (status, host_id, curr_version,
+    last_seq, preagg). ``last_seq`` is 0 when the server predates the
+    v4 extension (16-byte fixed payload only); ``preagg`` is None
+    unless the server advertised the v5 edge pre-aggregation tail."""
+    r = np.frombuffer(payload, REGISTER_RESP_DT, count=1)[0]
+    last_seq = 0
+    preagg = None
+    base = REGISTER_RESP_DT.itemsize
+    if len(payload) >= base + 8:
+        last_seq = int(np.frombuffer(payload, "<u8", 1, base)[0])
+        preagg = decode_preagg(payload[base + 8:])
+    return (int(r["status"]), int(r["host_id"]),
+            int(r["curr_version"]), last_seq, preagg)
+
+
+def encode_query(seqid: int, obj, status: int = QS_OK,
+                 resp: bool = False) -> bytes:
+    import json as _json
+    payload = _json.dumps(obj).encode()
+    h = np.zeros((), QUERY_HDR_DT)
+    h["seqid"] = np.uint64(seqid)
+    h["status"] = status
+    h["nbytes"] = len(payload)
+    return _frame(COMM_QUERY_RESP if resp else COMM_QUERY_CMD,
+                  h.tobytes() + payload, MAGIC_NQ)
+
+
+def iter_query_frames(seqid: int, obj, status: int = QS_OK,
+                      chunk_bytes: int = QUERY_CHUNK_BYTES):
+    """Yield a streamed frame sequence for a (possibly large) JSON
+    response: N-1 QS_PARTIAL chunks + one final frame carrying
+    ``status``. A small response is exactly one ordinary frame.
+    Writers send each frame as it yields (bounded transport memory; the
+    JSON text itself is materialized once — ``json.dumps`` — so peak is
+    ~1× payload, vs ~3× when the whole frame blob is pre-joined)."""
+    import json as _json
+    payload = _json.dumps(obj).encode()
+    for off in range(0, max(len(payload), 1), chunk_bytes):
+        body = payload[off: off + chunk_bytes]
+        last = off + chunk_bytes >= len(payload)
+        h = np.zeros((), QUERY_HDR_DT)
+        h["seqid"] = np.uint64(seqid)
+        h["status"] = status if last else QS_PARTIAL
+        h["nbytes"] = len(body)
+        yield _frame(COMM_QUERY_RESP, h.tobytes() + body, MAGIC_NQ)
+
+
+def encode_query_frames(seqid: int, obj, status: int = QS_OK,
+                        chunk_bytes: int = QUERY_CHUNK_BYTES) -> bytes:
+    """Joined form of :func:`iter_query_frames` (tests / small results)."""
+    return b"".join(iter_query_frames(seqid, obj, status, chunk_bytes))
+
+
+def decode_query_chunk(payload: bytes):
+    """QUERY_RESP frame payload → (seqid, status, raw_body_bytes).
+
+    Callers accumulate QS_PARTIAL bodies and JSON-parse once the final
+    status arrives (the streamed-response read side)."""
+    h = np.frombuffer(payload, QUERY_HDR_DT, count=1)[0]
+    n = int(h["nbytes"])
+    body = payload[QUERY_HDR_DT.itemsize: QUERY_HDR_DT.itemsize + n]
+    return int(h["seqid"]), int(h["status"]), body
+
+
+def decode_query_payload(payload: bytes):
+    """QUERY_CMD/RESP frame payload → (seqid, status, json_obj)."""
+    import json as _json
+    h = np.frombuffer(payload, QUERY_HDR_DT, count=1)[0]
+    n = int(h["nbytes"])
+    body = payload[QUERY_HDR_DT.itemsize: QUERY_HDR_DT.itemsize + n]
+    return int(h["seqid"]), int(h["status"]), _json.loads(body or b"null")
+
+
+def count_events(buf: bytes) -> int:
+    """Total EVENT_NOTIFY records across the complete frames of ``buf``
+    (header walk only — payloads untouched). The spool/loss-accounting
+    helper: agents count what a sweep carries before spooling it, so a
+    dropped sweep's records can be attributed, not silently lost."""
+    n = 0
+    off = 0
+    ln = len(buf)
+    hsz = HEADER_DT.itemsize
+    esz = EVENT_NOTIFY_DT.itemsize
+    while off + hsz <= ln:
+        _magic, total = _HDR_PREFIX_UNPACK(buf, off)
+        if total < hsz or off + total > ln:
+            break
+        dtype = int.from_bytes(buf[off + 8: off + 12], "little")
+        if dtype == COMM_EVENT_NOTIFY and total >= hsz + esz:
+            n += int.from_bytes(buf[off + hsz + 4: off + hsz + 8],
+                                "little")
+        off += total
+    return n
+
+
+async def read_frame(reader, first: bytes = b"",
+                     timeout=None) -> tuple[int, bytes]:
+    """THE validated async frame reader → ``(data_type, payload)``.
+
+    Shared by the agent and the server (one validation discipline on
+    both ends of the wire): magic gate, ``total_sz`` bounds (a corrupt
+    header can neither hang ``readexactly`` on a multi-MB read nor
+    crash it on a short one) and ``padding_sz`` bounds, all checked
+    BEFORE the body read. ``first`` carries bytes already peeked off
+    the stream. Raises :class:`FrameError` (with a ``reason``) on a
+    poison or truncated header, ``asyncio.IncompleteReadError`` on a
+    clean EOF at a frame boundary, and ``asyncio.TimeoutError`` when
+    ``timeout`` (whole-frame deadline, seconds) expires."""
+    if timeout is not None:
+        import asyncio
+        return await asyncio.wait_for(_read_frame(reader, first), timeout)
+    return await _read_frame(reader, first)
+
+
+async def _read_frame(reader, first: bytes = b"") -> tuple[int, bytes]:
+    import asyncio
+    hsz = HEADER_DT.itemsize
+    try:
+        hdr_b = first + await reader.readexactly(hsz - len(first))
+    except asyncio.IncompleteReadError as e:
+        if first or e.partial:
+            raise FrameError(
+                f"truncated header ({len(first) + len(e.partial)}"
+                f"/{hsz} bytes at EOF)", reason="truncated") from e
+        raise                    # clean EOF at a frame boundary
+    hdr = np.frombuffer(hdr_b, HEADER_DT, count=1)[0]
+    magic = int(hdr["magic"])
+    if magic not in (MAGIC_PM, MAGIC_MS, MAGIC_NQ):
+        raise FrameError(f"bad magic {magic:#x}", reason="bad_magic")
+    total = int(hdr["total_sz"])
+    if total < hsz or total >= MAX_COMM_DATA_SZ:
+        raise FrameError(f"bad total_sz {total}", reason="bad_size")
+    padf = int(hdr["padding_sz"])
+    pad = padf & 0xFF                # upper bits carry the checksum
+    if pad > total - hsz:
+        raise FrameError(f"bad padding_sz {pad} (total_sz {total})",
+                         reason="bad_size")
+    try:
+        body = await reader.readexactly(total - hsz)
+    except asyncio.IncompleteReadError as e:
+        raise FrameError(
+            f"truncated frame body ({len(e.partial)}/{total - hsz} "
+            f"bytes at EOF)", reason="truncated") from e
+    if padf & CHK_FLAG and \
+            _xor8(body) != (padf >> _CHK_SHIFT) & 0xFF:
+        raise FrameError("payload checksum mismatch", reason="checksum")
+    return int(hdr["data_type"]), body[: len(body) - pad]

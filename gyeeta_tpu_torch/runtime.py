@@ -1,7 +1,9 @@
 """Runtime: the aggregation-server loop of the port.
 
 Counterpart of ``gyeeta_tpu/runtime.py`` on its default fused-fold
-path: ``feed()`` takes byte streams (the reference's Python deframe),
+path: ``feed()`` takes byte streams (deframed and decoded by the native
+C++ path of ``ingest/native`` unless ``deframe="python"`` asks for the
+numpy one, bit for bit the same records and columns),
 stages raw conn/resp records, sweep sections and edge pre-aggregated
 SKETCH_DELTA records on the host and folds them in one ``fold_all``
 dispatch per feed boundary, and keeps the announce-rate records
@@ -44,6 +46,7 @@ each dispatch, exactly the reference's lag, because the timing of
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from collections import deque
@@ -61,7 +64,7 @@ from gyeeta_tpu_torch.history import open_store
 from gyeeta_tpu_torch.history.histwriter import HistoryWriter
 from gyeeta_tpu_torch.history.shards import open_shard_store
 from gyeeta_tpu_torch.history.timeview import TimeView, route_historical
-from gyeeta_tpu_torch.ingest import decode, wire
+from gyeeta_tpu_torch.ingest import decode, native, wire
 from gyeeta_tpu_torch.obs import health as obs_health
 from gyeeta_tpu_torch.obs.spans import SpanTracer
 from gyeeta_tpu_torch.parallel import depgraph as dg
@@ -123,8 +126,9 @@ _SECTION_SUBTYPES = {
 _SECTION_BUILDERS = {
     "listener": decode.listener_batch_fast, "host": decode.host_batch_fast,
     "task": decode.task_batch_fast, "ping": decode.ping_batch,
-    "cpumem": decode.cpumem_batch_fast, "trace": decode.trace_batch,
-}   # + "delta", bound per runtime to its stats and geometry
+    "cpumem": decode.cpumem_batch_fast,
+}   # each bound per runtime to its stats and decode path; + "trace"
+#     (numpy on both paths) and "delta" (bound to the geometry)
 
 # announce-rate record kinds → (registry attribute, selfstats counter)
 _REGISTRY_KINDS = {
@@ -146,8 +150,18 @@ _AGENT_STATS_COUNTERS = (
 class Runtime:
     def __init__(self, cfg: Optional[EngineCfg] = None,
                  opts: Optional[RuntimeOpts] = None, clock=None,
-                 device=None):
+                 device=None, deframe: str = "native"):
         self.device = resolve(device)
+        # the host decode path: the native C++ deframer and columnar
+        # decoders (built at first use; a failed build raises), or the
+        # numpy path the tests hold it against
+        if deframe not in ("native", "python"):
+            raise ValueError(f"deframe must be 'native' or 'python', "
+                             f"got {deframe!r}")
+        self.deframe = deframe
+        self._native = deframe == "native"
+        if self._native:
+            native.lib()
         self.cfg = cfg or EngineCfg()
         self.opts = opts or RuntimeOpts()
         self.state = aggstate.init(self.cfg, self.device)
@@ -219,7 +233,10 @@ class Runtime:
         dims = dict(resp_nbuckets=self.cfg.resp_spec.nbuckets,
                     hll_m_svc=1 << self.cfg.hll_p_svc,
                     hll_m_glob=1 << self.cfg.hll_p_global)
-        self._sect_builders = dict(_SECTION_BUILDERS)
+        self._sect_builders = {
+            k: functools.partial(fn, stats=self.stats, native=self._native)
+            for k, fn in _SECTION_BUILDERS.items()}
+        self._sect_builders["trace"] = decode.trace_batch
         self._sect_builders["delta"] = lambda r, sz: decode.delta_batch(
             r, sz, stats=self.stats, **dims)
         # per-section raw record backlogs that ride the next fold_all
@@ -296,8 +313,8 @@ class Runtime:
         try:
             with self.stats.timeit("deframe"), \
                     self.spans.span("deframe", nrec=len(data),
-                                    path="python"):
-                recs, consumed, unknown = wire.drain2(data)
+                                    path=self.deframe):
+                recs, consumed, unknown = self.drain2(data)
         except wire.FrameError:
             self.stats.bump("frames_bad")
             self._pending = b""       # poison frame: drop buffer, resync
@@ -315,8 +332,16 @@ class Runtime:
             self.stats.bump("records_unknown_subtype", unknown)
         return self.ingest_records(recs)
 
+    def drain2(self, data: bytes) -> tuple[dict, int, int]:
+        """This runtime's deframe (``native.drain2`` or
+        ``wire.drain2``) → (records by subtype, consumed, unknown)."""
+        return (native.drain2(data) if self._native
+                else wire.drain2(data))
+
     def ingest_records(self, recs: dict) -> int:
-        """Fold a drained {subtype: record array} dict."""
+        """Fold a drained {subtype: record array} dict (the post-
+        deframe half of :meth:`feed`; the feed pipeline's decode worker
+        hands these over, ``ingest/pipeline.py``)."""
         n = 0
         sw = recs.pop(wire.NOTIFY_SWEEP_SEQ, None)
         if sw is not None and len(sw):
@@ -428,14 +453,17 @@ class Runtime:
                                            k * self.cfg.resp_batch)
         self._n_conn_raw -= nc
         self._n_resp_raw -= nr
+        kw = dict(stats=self.stats, native=self._native)
         if buf is None:
-            return (decode.conn_slab(crecs, k, self.cfg.conn_batch),
-                    decode.resp_slab(rrecs, k, self.cfg.resp_batch),
+            return (decode.conn_slab(crecs, k, self.cfg.conn_batch, **kw),
+                    decode.resp_slab(rrecs, k, self.cfg.resp_batch, **kw),
                     nc, nr)
         cbs = decode.conn_slab(crecs, k, self.cfg.conn_batch,
-                               out=buf["conn"], clear_to=buf["hw_conn"])
+                               out=buf["conn"], clear_to=buf["hw_conn"],
+                               **kw)
         rbs = decode.resp_slab(rrecs, k, self.cfg.resp_batch,
-                               out=buf["resp"], clear_to=buf["hw_resp"])
+                               out=buf["resp"], clear_to=buf["hw_resp"],
+                               **kw)
         buf["hw_conn"], buf["hw_resp"] = nc, nr
         return cbs, rbs, nc, nr
 
@@ -494,7 +522,8 @@ class Runtime:
             self.stats.bump("td_partial_flushes")
         names = tuple(k for k in step.FOLD_ALL_ORDER if k in sections)
         with self.stats.timeit("fold_dispatch"), \
-                self.spans.span("decode_fold", nrec=nc + nr, path="python"):
+                self.spans.span("decode_fold", nrec=nc + nr,
+                                path=self.deframe):
             staged = buf is not None
             secs = {k: (decode.to_device(sections[k][0], self.device,
                                          staged=staged),
@@ -556,6 +585,8 @@ class Runtime:
         vec = step.engine_health_vec(self.cfg, self.state, self.dep)
         gauges = obs_health.gauges_from_vec(
             vec.cpu().numpy(), obs_health.capacities(self.cfg, self.opts))
+        # decode-path gauge: the native deframer and decoders in use
+        gauges["native_decode_available"] = 1.0 if self._native else 0.0
         # WAL health: fsync lag (the RPO bound), pending bytes, segments
         if self.journal is not None:
             gauges.update(self.journal.gauges())

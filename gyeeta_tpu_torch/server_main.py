@@ -1,0 +1,516 @@
+"""gyt-server: the deployable aggregation-server daemon of the port.
+
+Counterpart of ``gyeeta_tpu/server_main.py``: config layering (defaults
+≺ file ≺ ``GYT_<FIELD>`` environment ≺ flags; this module is the one
+place that hands ``os.environ`` to the loaders), structured startup
+logging, checkpoint restore and WAL replay, the history compactor,
+SIGTERM/SIGINT graceful shutdown (drain staged slabs, final checkpoint),
+SIGHUP hot-reload of runtime knobs, and a periodic self-stats report.
+Run as ``python -m gyeeta_tpu_torch serve --device cuda --port 10038``.
+
+The runtime lives on ``--device`` (CUDA by default; without a GPU the
+daemon raises unless ``--device cpu`` is given). Flags of tiers the port
+does not have yet raise :class:`~gyeeta_tpu_torch.unported.NotPortedError`
+naming ROADMAP.md's item: ``--shards`` above 1 and ``--compact-procs``
+(the sharded tier), ``--ship-to``, ``--ship-staging`` and ``--ship-port``
+(the segment shipper and the remote compaction region).
+
+Single-controller design: one asyncio loop owns the Runtime; the device
+stream is the concurrency.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import logging
+import os
+import signal
+from typing import Optional
+
+from gyeeta_tpu_torch.net.server import GytServer
+from gyeeta_tpu_torch.runtime import Runtime
+from gyeeta_tpu_torch.unported import SERVING_REST, SHARDED, refuse
+from gyeeta_tpu_torch.utils import config as C
+
+log = logging.getLogger("gyeeta_tpu_torch.daemon")
+
+
+def _refuse_unported(args) -> None:
+    """Flags of tiers the port does not have yet raise, naming their
+    ROADMAP.md item, before anything is built."""
+    if int(getattr(args, "shards", 0) or 0) > 1:
+        raise refuse(f"--shards {args.shards} (the sharded runtime)",
+                     SHARDED)
+    if int(getattr(args, "compact_procs", 0) or 0) >= 1:
+        raise refuse("--compact-procs (distributed compaction)", SHARDED)
+    for flag in ("ship_to", "ship_staging", "ship_port"):
+        if getattr(args, flag, None) is not None:
+            raise refuse(f"--{flag.replace('_', '-')} (the segment "
+                         "shipper and the remote compaction region)",
+                         SERVING_REST)
+
+
+class Daemon:
+    def __init__(self, args: argparse.Namespace, env=None):
+        """``env``: the environment layer of the config loaders
+        (``os.environ`` unless given)."""
+        self.args = args
+        _refuse_unported(args)
+        env = os.environ if env is None else env
+        cfg = C.load_engine_cfg(args.config, env=env)
+        opts = C.load_runtime_opts(
+            args.config, env=env,
+            **({"history_db": args.history_db} if args.history_db else {}),
+            **({"checkpoint_dir": args.checkpoint_dir}
+               if args.checkpoint_dir else {}),
+            **({"journal_dir": args.journal_dir}
+               if getattr(args, "journal_dir", None) else {}),
+            **({"journal_fsync_ms": args.journal_fsync_ms}
+               if getattr(args, "journal_fsync_ms", None) is not None
+               else {}),
+            **({"journal_fsync_kb": args.journal_fsync_kb}
+               if getattr(args, "journal_fsync_kb", None) is not None
+               else {}),
+            **({"journal_segment_mb": args.journal_segment_mb}
+               if getattr(args, "journal_segment_mb", None) is not None
+               else {}),
+            **({"hist_shard_dir": args.shard_dir}
+               if getattr(args, "shard_dir", None) else {}),
+            **({"hist_window_ticks": args.hist_window_ticks}
+               if getattr(args, "hist_window_ticks", None) is not None
+               else {}),
+            **({"hist_compact_interval_s": args.compact_interval}
+               if getattr(args, "compact_interval", None) is not None
+               else {}))
+        # a crash mid-`checkpoint.save` leaves .tmp.npz staging files
+        # behind; without a start-time sweep they accumulate forever
+        if opts.checkpoint_dir:
+            from gyeeta_tpu_torch.utils import checkpoint as _ck
+            n = _ck.sweep_stale_tmp(opts.checkpoint_dir)
+            if n:
+                log.info("swept %d stale .tmp.npz staging file(s)", n)
+        self.rt = Runtime(cfg, opts,
+                          device=getattr(args, "device", None) or "cuda")
+        if args.restore:
+            extra = self.rt.restore(args.restore)
+            log.info("restored checkpoint %s (tick %s)", args.restore,
+                     extra.get("tick"))
+            _replay_wal(self.rt, extra)
+        elif getattr(args, "restore_latest", False):
+            if restore_latest_checkpoint(
+                    self.rt, opts.checkpoint_dir) is None:
+                log.info("no usable checkpoint (cold start)")
+        self.srv = GytServer(self.rt, host=args.host, port=args.port,
+                             tick_interval=args.tick_interval,
+                             hostmap_path=args.hostmap,
+                             record_path=args.record,
+                             feed_pipeline=getattr(
+                                 args, "feed_pipeline", False),
+                             handshake_timeout=getattr(
+                                 args, "handshake_timeout", 10.0),
+                             idle_timeout=getattr(
+                                 args, "idle_timeout", None),
+                             write_timeout=getattr(
+                                 args, "write_timeout", 10.0),
+                             frame_error_budget=getattr(
+                                 args, "frame_error_budget", 8),
+                             throttle_hold_ms=getattr(
+                                 args, "throttle_hold_ms", 1500),
+                             throttle_lag_s=getattr(
+                                 args, "throttle_lag_s", 0.75),
+                             throttle_pending_mb=getattr(
+                                 args, "throttle_pending_mb", 32.0),
+                             query_workers=getattr(
+                                 args, "query_workers", None),
+                             query_queue_max=getattr(
+                                 args, "query_queue_max", None),
+                             query_snapshot=not getattr(
+                                 args, "query_strong", False),
+                             ingest_procs=getattr(
+                                 args, "ingest_procs", 1) or 1,
+                             sub_persist=getattr(
+                                 args, "sub_persist", None),
+                             relay_port=getattr(
+                                 args, "relay_port", None),
+                             preagg=getattr(args, "preagg", False))
+        self._hot = C.HotReload(args.config, opts) if args.config else None
+        # history compaction daemon: sealed WAL segments → columnar
+        # snapshot shards (the time-travel tier's writer). Runs only
+        # with BOTH a journal (the source) and a shard dir (the sink).
+        self.compactor = None
+        if opts.hist_shard_dir and self.rt.journal is not None:
+            # its replay runtime runs on the serving runtime's device
+            from gyeeta_tpu_torch.history.compactor import Compactor
+            self.compactor = Compactor(self.rt.cfg, opts,
+                                       journal=self.rt.journal,
+                                       stats=self.rt.stats,
+                                       device=self.rt.device)
+        elif opts.hist_shard_dir:
+            log.warning("--shard-dir set without --journal-dir: the "
+                        "WAL is the history source — time-travel "
+                        "queries will serve existing shards only")
+        self.stop_event = asyncio.Event()
+
+    async def run(self) -> None:
+        host, port = await self.srv.start()
+        log.info("gyt-server listening on %s:%d (svc_capacity=%d, "
+                 "n_hosts=%d); protocol edges: GYT agent/query, "
+                 "stock partha (PS/PM), stock node webserver (NM)",
+                 host, port, self.rt.cfg.svc_capacity,
+                 self.rt.cfg.n_hosts)
+        # crash forensics + liveness watchdog (the reference's
+        # fatal-signal backtraces + scheduler watchdogs)
+        from gyeeta_tpu_torch.utils import crashguard
+        if self.rt.opts.checkpoint_dir:
+            os.makedirs(self.rt.opts.checkpoint_dir, exist_ok=True)
+            crash_path = f"{self.rt.opts.checkpoint_dir}/gyt_crash.log"
+        else:
+            import tempfile
+            crash_path = os.path.join(tempfile.gettempdir(),
+                                      "gyt_crash.log")
+        crashguard.enable_crash_dumps(crash_path)
+        watchdog = None
+        if self.args.tick_interval:
+            watchdog = crashguard.TickWatchdog(
+                stall_after_s=max(12 * self.args.tick_interval, 30.0),
+                on_stall=lambda gap: self.rt.notifylog.add(
+                    f"serving loop stalled for {gap:.0f}s "
+                    f"(stacks in {crash_path})", ntype="error",
+                    source="selfmon"))
+            watchdog.beat()
+            watchdog.start()
+            self.srv.watchdog = watchdog
+        if self.compactor is not None:
+            self.compactor.start()
+            log.info("history compactor: window=%d ticks, every %.0fs "
+                     "-> %s", self.rt.opts.hist_window_ticks,
+                     self.rt.opts.hist_compact_interval_s,
+                     self.rt.opts.hist_shard_dir)
+        stats_task = asyncio.create_task(self._stats_loop())
+        try:
+            await self.stop_event.wait()
+        finally:
+            if watchdog is not None:
+                watchdog.stop()
+            stats_task.cancel()
+            await self.shutdown()
+
+    async def _stats_loop(self) -> None:
+        while True:
+            await asyncio.sleep(self.args.stats_interval)
+            d = self.rt.stats.delta()
+            if d:
+                log.info("stats %s", json.dumps(d, default=str))
+            # the numpy decode path must be visible without a query
+            # client: the per-interval numpy decode count rides the
+            # cadence log at WARNING (the runtime decodes natively
+            # unless it was built with deframe="python")
+            if d.get("ref_fallback_decoded"):
+                log.warning(
+                    "numpy decode path active: %d events decoded in "
+                    "Python this interval (counter ref_fallback_decoded;"
+                    " the native library builds with `python -m "
+                    "gyeeta_tpu_torch.ingest.native.build`)",
+                    d["ref_fallback_decoded"])
+            # engine device-health gauges (refreshed each tick by the
+            # batched readback) — the print_stats() cadence analogue;
+            # the durable-ingest gauges (journal fsync lag = the RPO
+            # bound, unsynced WAL bytes, throttle state) ride the same
+            # line: one glance covers device AND disk pressure
+            eng = {k: v for k, v in self.rt.stats.gauges.items()
+                   if k.startswith(("engine_", "journal_",
+                                    "throttle_state"))}
+            # fused fold-path cadence: device dispatches + staging-slab
+            # buffer flips + digest flushes this interval (the fold
+            # half of the overlap win; gyt_fold_dispatches_total etc
+            # ride /metrics from the same counters)
+            for k in ("fold_dispatches", "stage_slab_flips",
+                      "td_partial_flushes"):
+                if d.get(k):
+                    eng[k + "_delta"] = d[k]
+            if eng:
+                log.info("health %s", json.dumps(eng, default=str,
+                                                 sort_keys=True))
+            # NM query-edge cadence line: live node conns + per-verb
+            # rates this interval (only when the edge is in use)
+            nm = {k: v for k, v in d.items() if k.startswith("nm_")}
+            if self.srv._nm_conns_live or nm:
+                nm["conns_live"] = self.srv._nm_conns_live
+                log.info("nm %s", json.dumps(nm, default=str,
+                                             sort_keys=True))
+            if self._hot:
+                new = self._hot.poll()
+                if new is not self.rt.opts:
+                    self.rt.opts = new
+                    log.info("hot-reloaded runtime knobs")
+
+    async def shutdown(self) -> None:
+        """Graceful stop: stop accepting, drain staged folds, final
+        checkpoint recording the fsynced journal position, then drop
+        the WAL segments that checkpoint supersedes (the SIGTERM path
+        of the reference's init proc). A clean shutdown therefore
+        leaves an EMPTY WAL window: the respawn replays zero chunks."""
+        log.info("shutting down: draining staged slabs")
+        if self.compactor is not None:
+            # final pass BEFORE the journal closes: seal + compact the
+            # shutdown window so a clean stop leaves history current
+            try:
+                self.compactor.compact_once(seal=True)
+            except Exception:     # noqa: BLE001 — never block shutdown
+                log.exception("final compaction pass failed")
+            self.compactor.close()
+        await self.srv.stop()          # closes rt (journal fsync+close)
+        self.rt.flush()
+        if self.rt.opts.checkpoint_dir:
+            from gyeeta_tpu_torch.utils import checkpoint as ckpt
+            from gyeeta_tpu_torch.utils import journal as J
+            tick = self.rt._tick_no
+            extra = J.checkpoint_extra(self.rt, tick)
+            path = ckpt.save(
+                f"{self.rt.opts.checkpoint_dir}/gyt_final_{tick:08d}.npz",
+                self.rt.cfg, self.rt.state, extra=extra)
+            J.post_checkpoint_truncate(self.rt, extra)
+            log.info("final checkpoint: %s", path)
+        log.info("bye")
+
+    def handle_signal(self, sig: int) -> None:
+        if sig == signal.SIGHUP:
+            # hot-reload when a config file backs the knobs; a stray
+            # HUP (logrotate, tty hangup) must never stop the server
+            if self._hot:
+                new = self._hot.poll()
+                if new is not self.rt.opts:
+                    self.rt.opts = new
+                    log.info("SIGHUP: hot-reloaded runtime knobs")
+            else:
+                log.info("SIGHUP ignored (no --config)")
+            return
+        log.info("signal %d: stopping", sig)
+        self.stop_event.set()
+
+
+def checkpoint_candidates(ckpt_dir: Optional[str]) -> list:
+    """Complete checkpoint files, newest first. Excludes the .tmp.npz
+    a crash mid-``ckpt.save`` leaves behind (atomic-rename staging) —
+    restoring one would crash-loop a supervised restart forever."""
+    import pathlib
+    if not ckpt_dir:
+        return []
+    d = pathlib.Path(ckpt_dir)
+    if not d.is_dir():
+        return []
+    cands = [p for p in d.glob("gyt_*.npz")
+             if not p.name.endswith(".tmp.npz")]
+    return [str(p) for p in sorted(
+        cands, key=lambda p: p.stat().st_mtime, reverse=True)]
+
+
+def latest_checkpoint(ckpt_dir: Optional[str]):
+    """Newest complete checkpoint file in the dir, or None."""
+    cands = checkpoint_candidates(ckpt_dir)
+    return cands[0] if cands else None
+
+
+def _replay_wal(rt, extra: Optional[dict]) -> dict:
+    """Recovery phase 2: re-fold write-ahead-journal chunks from the
+    checkpoint's recorded position (``extra["wal"]``; a cold start
+    replays the whole journal) through the normal decode/fold path.
+    No-op without a journal. Returns the replay report."""
+    if getattr(rt, "journal", None) is None:
+        return {"chunks": 0, "records": 0}
+    pos = (extra or {}).get("wal")
+    rep = rt.replay_journal(tuple(pos) if pos else None)
+    if rep["chunks"]:
+        log.info("WAL replay: %d chunk(s) / %d record(s) re-folded "
+                 "(from %s)", rep["chunks"], rep["records"],
+                 "checkpoint position" if pos else "journal start")
+    else:
+        log.info("WAL replay: empty window (clean shutdown or no "
+                 "post-checkpoint traffic)")
+    return rep
+
+
+def restore_latest_checkpoint(rt, ckpt_dir: Optional[str]):
+    """The ``--restore-latest`` respawn path: walk checkpoints newest→
+    oldest and restore the first usable one into ``rt``, then replay
+    the write-ahead journal from that checkpoint's recorded position
+    (when ``rt`` has one — the crash-window recovery that bounds data
+    loss to the last fsync). A truncated / corrupt / cfg-mismatched
+    newest file (torn by a crash mid-write) must NEVER crash-loop a
+    supervised restart — it logs and falls through to the next-older
+    candidate. Returns the restored path, or None (cold start; a cold
+    start with a non-empty journal still replays it)."""
+    for cand in checkpoint_candidates(ckpt_dir):
+        try:
+            extra = rt.restore(cand)
+            log.info("restored checkpoint %s (tick %s)", cand,
+                     extra.get("tick"))
+            _replay_wal(rt, extra)
+            return cand
+        except Exception as e:  # noqa: BLE001 — corrupt / mismatched
+            log.warning("checkpoint %s unusable (%s) — trying older",
+                        cand, e)
+    _replay_wal(rt, None)
+    return None
+
+
+def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(
+        prog="gyeeta_tpu_torch serve",
+        description="fleet observability aggregation server (PyTorch/"
+        "CUDA port)")
+    ap.add_argument("--device", default="cuda",
+                    help="device of the runtime's state: cuda (default;"
+                    " raises without a GPU) or cpu")
+    ap.add_argument("--config", help="JSON config ({engine:…, runtime:…})")
+    ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--port", type=int, default=10038)
+    ap.add_argument("--history-db",
+                    help="history store: a sqlite path, or a "
+                    "postgresql:// DSN for the durable Postgres tier "
+                    "(needs psycopg in the image)")
+    ap.add_argument("--checkpoint-dir")
+    ap.add_argument("--restore", help="checkpoint .npz to restore")
+    ap.add_argument("--restore-latest", action="store_true",
+                    help="restore the newest checkpoint in "
+                    "--checkpoint-dir when one exists (the respawn "
+                    "path: a supervised restart resumes state)")
+    ap.add_argument("--hostmap", help="machine-id→host-id placement file")
+    ap.add_argument("--record", help="tee ingested wire bytes to this "
+                    "capture file (GYTREC01, utils/replay.py)")
+    ap.add_argument("--tick-interval", type=float, default=5.0)
+    # fleet-scale sharded serving (OPERATIONS.md "Fleet-scale
+    # deployment"): per-shard ingest loops + fused per-shard folds +
+    # one collective roll-up per tick on an N-device mesh
+    ap.add_argument("--shards", type=int, default=0,
+                    help="the sharded mesh runtime over N devices: not "
+                    "ported yet, N > 1 raises (0/1 = the single-device "
+                    "runtime)")
+    # multi-process ingest edge (net/ingestproc.py; OPERATIONS.md
+    # "Multi-process deployment"): N worker processes own wire
+    # validation + deframe/decode + per-shard WAL append off the fold
+    # GIL and publish decoded slabs over shared-memory rings
+    ap.add_argument("--ingest-procs", type=int, default=1,
+                    help="ingest worker processes: not ported yet, "
+                    "N > 1 raises (1 = the in-process edge)")
+    ap.add_argument("--feed-pipeline", action="store_true",
+                    help="deframe/decode on a worker thread (the "
+                    "reference's L1/L2 split; useful on multi-core "
+                    "hosts — the native decoders release the GIL)")
+    ap.add_argument("--relay-port", type=int, default=None,
+                    help="the remote ingest relay hub: not ported yet, "
+                    "raises when given")
+    ap.add_argument("--preagg", action="store_true",
+                    help="advertise edge pre-aggregation to registering"
+                    " agents (wire v5): they fold sketch deltas with "
+                    "this server's geometry")
+    ap.add_argument("--stats-interval", type=float, default=60.0)
+    # conn-hardening deadlines (net/server.py; every reap lands on a
+    # labeled gyt_conn_timeouts_total counter in /metrics)
+    ap.add_argument("--handshake-timeout", type=float, default=10.0,
+                    help="seconds a conn may take to complete "
+                    "registration (slow-loris reap)")
+    ap.add_argument("--idle-timeout", type=float, default=None,
+                    help="seconds of silence before an established "
+                    "conn is reaped (default: 12x tick interval, "
+                    "min 30s; 0 disables)")
+    ap.add_argument("--write-timeout", type=float, default=10.0,
+                    help="seconds a control push may block on a "
+                    "non-draining agent conn")
+    ap.add_argument("--frame-error-budget", type=int, default=8,
+                    help="recoverable frame-level errors per query "
+                    "conn before it is closed")
+    # snapshot-isolated query serving (query/snapshot.py, net/qexec.py;
+    # OPERATIONS.md "Query serving"): live queries read the last
+    # published per-tick engine view on a bounded off-loop worker pool
+    ap.add_argument("--query-workers", type=int, default=None,
+                    help="query worker-pool width (default 4)")
+    ap.add_argument("--query-queue-max", type=int, default=None,
+                    help="max in-flight queries before shedding with "
+                    "a counted overload error (default 128)")
+    ap.add_argument("--sub-persist",
+                    help="append-only file persisting the streaming-"
+                    "subscription version ring (net/subs.py): a "
+                    "restarted server resumes reconnecting "
+                    "subscribers with deltas instead of full resyncs "
+                    "(single-replica deployments; gateways have "
+                    "their own --sub-persist)")
+    ap.add_argument("--query-strong", action="store_true",
+                    help="serve every query inline with strong "
+                    "consistency (the pre-snapshot behavior)")
+    # durable-ingest tier: write-ahead journal + admission control
+    # (utils/journal.py; OPERATIONS.md "Durability & recovery")
+    ap.add_argument("--journal-dir",
+                    help="write-ahead event journal directory: every "
+                    "accepted event chunk is appended pre-fold and "
+                    "replayed on --restore-latest, bounding data loss "
+                    "to the last group fsync (unset = journaling off)")
+    ap.add_argument("--journal-fsync-ms", type=float, default=None,
+                    help="group-fsync time cadence in ms (the RPO "
+                    "bound; default 50)")
+    ap.add_argument("--journal-fsync-kb", type=int, default=None,
+                    help="group-fsync byte cadence in KiB (default "
+                    "1024; whichever cadence trips first syncs)")
+    ap.add_argument("--journal-segment-mb", type=int, default=None,
+                    help="journal segment rotation size in MiB "
+                    "(default 64)")
+    ap.add_argument("--throttle-hold-ms", type=int, default=1500,
+                    help="admission control: how long a COMM_THROTTLE "
+                    "tells agents to hold feeds in their spool when "
+                    "ingest pressure trips (0 disables the controller)")
+    ap.add_argument("--throttle-lag-s", type=float, default=0.75,
+                    help="journal fsync lag that trips the trace-feed "
+                    "throttle")
+    ap.add_argument("--throttle-pending-mb", type=float, default=32.0,
+                    help="unsynced WAL bytes that trip the trace-feed "
+                    "throttle")
+    # time-travel history tier: WAL compaction → columnar snapshot
+    # shards + at=/window= queries (OPERATIONS.md "History & time
+    # travel"; GYT_HIST_* env knobs cover the rest)
+    ap.add_argument("--shard-dir",
+                    help="snapshot-shard directory: enables the "
+                    "time-travel query tier; with --journal-dir a "
+                    "compaction daemon rolls sealed WAL segments into "
+                    "per-window columnar shards")
+    ap.add_argument("--hist-window-ticks", type=int, default=None,
+                    help="raw shard window in 5s ticks (default 12 = "
+                    "1m time-travel resolution)")
+    ap.add_argument("--compact-interval", type=float, default=None,
+                    help="compaction daemon cadence in seconds "
+                    "(default 30)")
+    # flags of tiers not ported yet: each raises NotPortedError
+    ap.add_argument("--compact-procs", type=int, default=0,
+                    help="distributed compaction: not ported yet, "
+                    "N >= 1 raises (0 = the in-process compactor)")
+    ap.add_argument("--ship-to", metavar="HOST:PORT",
+                    help="the segment shipper: not ported yet, raises")
+    ap.add_argument("--ship-staging",
+                    help="the remote compaction region: not ported "
+                    "yet, raises")
+    ap.add_argument("--ship-port", type=int, default=None,
+                    help="the remote compaction region's listen port: "
+                    "not ported yet, raises")
+    ap.add_argument("--log-level", default="INFO")
+    return ap.parse_args(argv)
+
+
+def main(argv: Optional[list] = None) -> None:
+    args = parse_args(argv)
+    logging.basicConfig(
+        level=getattr(logging, args.log_level.upper()),
+        format="%(asctime)s %(levelname)s %(name)s %(message)s")
+
+    async def amain():
+        d = Daemon(args, env=os.environ)
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGTERM, signal.SIGINT, signal.SIGHUP):
+            loop.add_signal_handler(sig, d.handle_signal, sig)
+        await d.run()
+
+    asyncio.run(amain())
+
+
+if __name__ == "__main__":
+    main()

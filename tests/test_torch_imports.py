@@ -40,8 +40,8 @@ def test_no_jax_or_reference_import(path):
 
 
 # modules of the edge pre-aggregation and snapshot slice, of the
-# registries and alert slice and of the history and journal slice, each
-# of which the AST check above must cover
+# registries and alert slice, of the history and journal slice and of
+# the serving edge, each of which the AST check above must cover
 SLICE_MODULES = ("sketch/edgefold.py", "query/snapshot.py",
                  "query/normalize.py", "query/crud.py", "obs/prom.py",
                  "obs/spans.py", "utils/selfstats.py", "ingest/decode.py",
@@ -57,7 +57,16 @@ SLICE_MODULES = ("sketch/edgefold.py", "query/snapshot.py",
                  "history/store.py", "history/pgstore.py",
                  "history/histwriter.py", "history/shards.py",
                  "history/winquant.py", "history/timeview.py",
-                 "history/compactor.py")
+                 "history/compactor.py",
+                 # the serving edge
+                 "ingest/native/__init__.py", "ingest/native/build.py",
+                 "ingest/native/abiprobe.py", "ingest/refproto.py",
+                 "ingest/refquery.py", "ingest/pipeline.py",
+                 "trace/proto.py", "utils/crashguard.py",
+                 "utils/config.py", "net/__init__.py", "net/agent.py",
+                 "net/qexec.py", "net/subs.py", "net/nmhandle.py",
+                 "net/server.py", "net/webgw.py", "server_main.py",
+                 "cli.py", "__main__.py", "unported.py")
 
 
 @pytest.mark.parametrize("mod", SLICE_MODULES)
@@ -124,6 +133,21 @@ def test_entry_points_raise_without_gpu(monkeypatch):
                     assert c._rt.state.n_conn.device.type == "cpu"
             finally:
                 c.close()
+    # the daemon and its command line: CUDA by default, the CPU only
+    # with --device cpu
+    from gyeeta_tpu_torch import server_main
+    for argv in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            server_main.Daemon(server_main.parse_args(argv), env={})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        server_main.main(["--port", "0", "--log-level", "WARNING"])
+    d = server_main.Daemon(server_main.parse_args(["--device", "cpu"]),
+                           env={"GYT_SVC_CAPACITY": "64",
+                                "GYT_N_HOSTS": "4"})
+    try:
+        assert d.rt.state.n_conn.device.type == "cpu"
+    finally:
+        d.rt.close()
 
 
 def test_chip_smoke_fails_without_gpu(tmp_path):

@@ -83,8 +83,9 @@ NEW_SERVED = ("svcinfo", "procinfo", "hostinfo", "extsvcstate",
               "notifymsg", "alerts", "alertdef", "silences", "inhibits",
               "actions")
 SERVED = SERVED + NEW_SERVED
-# reference counters of the native decoder, which the port does not have
-REF_ONLY_COUNTERS = {"ref_native_decoded", "ref_fallback_decoded"}
+# counters only the reference keeps: none (the native decoder's
+# ref_native_decoded and ref_fallback_decoded are the port's too)
+REF_ONLY_COUNTERS: set = set()
 FOLD_COUNTERS = ("conn_events", "resp_events", "listener_records",
                  "host_records", "task_records", "cpumem_records",
                  "trace_records", "resp_from_trace", "sweep_marks",

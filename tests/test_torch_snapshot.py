@@ -47,9 +47,9 @@ from test_torch_delta_fold import N_TICKS, OPTS, SIM_KW, run_delta_both, \
     t_cfg
 from test_torch_runtime import SERVED, assert_json_equal
 
-# counters and gauges only the reference keeps: its native decoder's
-REF_ONLY_COUNTERS = {"ref_native_decoded", "ref_fallback_decoded",
-                     "native_decode_available"}
+# counters and gauges only the reference keeps: none (its native
+# decoder's are the port's too)
+REF_ONLY_COUNTERS: set = set()
 
 
 def _ref_only(name: str) -> bool:
