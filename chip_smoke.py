@@ -150,9 +150,31 @@ checkout of the repository. Phases:
    ms); peak memory; a ``feed_pipeline=True`` server over 16 buffers;
    the tiny stream over TCP into a card server and a CPU server (equal
    reports, JSON under the third-decimal rule).
+12. The rest of the serving edges at ns geometry. 12a, right after
+   phase 10, on its WAL and shards: the remote compaction region — the
+   WAL's segments (all sealed) ship with ``SegmentShipper`` over
+   127.0.0.1 to a ``SegmentReceiver`` (hash-verified atomic landing, the
+   JSONL ledger), and the daemon's ``_StagingCompactLoop`` on the card
+   compacts the staging dir into a fresh shard dir, the receiver's
+   staging sweep fed its floors; ship MB/s, landed → compacted s, the
+   region's replay records/s and ``compact_emit`` ms; the launch
+   counters zeroed before it (``launches_region``: 2/1/1 a replayed
+   conn/resp dispatch, generic 0). Checks: sealed == shipped + dropped
+   with no hash mismatch, the landed segments equal the source's, the
+   region's two shards equal phase 10's (integer and max leaves exact,
+   float sums rtol 1e-6), and ``at=tick:4`` svcstate and topk JSON equal
+   from both stores. 12b, inside phase 11 before its server closes: a
+   ``FabricGateway`` in front of phase 11's ``GytServer`` and a second
+   one over the same ``Runtime`` (no tick loop of its own): the 43
+   subsystems over its GYT front and 8 each over REST and NM, each equal
+   to ``rt.query`` on the snapshot (first and ≥ 100 cached calls: p50,
+   p99, max); 32 concurrent identical svcstate requests on a fresh tick
+   → one upstream render; an SSE push after a tick, reassembled equal to
+   the new snapshot's answer; the second replica's listener shut: every
+   query answers, its breaker opens at the third failure.
 6. Fold rate and device ops a dispatch, memory, the card's name and
    power limit, the JSON lines (fold, fold_all, runtime, delta,
-   history, serving, kernels), and last the result line.
+   history, serving, region, kernels), and last the result line.
 """
 
 from __future__ import annotations
@@ -3069,13 +3091,15 @@ def tiny_hist_run(device, tmp):
     return out
 
 
-def history_phase(torch, scatter, frames, rt_perf):
+def history_phase(torch, scatter, frames, rt_perf, tmp):
     """History and the journal at ns geometry through the Runtime's entry
     points: feed with the WAL on, ticks with the history sweep into
     sqlite, a compaction whose replay runtime re-folds the WAL on the
     card, the shard against the live state, at=/window=/tstart queries,
     db-mode and windowed alertdefs; then the history tests' stream card
-    vs CPU, recovery included."""
+    vs CPU, recovery included. The WAL and the shards are written under
+    ``tmp`` (the caller's, which phase 12 ships and the caller removes).
+    → (perf, launches, the runtime's options)."""
     import shutil
     import sqlite3
     import tempfile
@@ -3092,281 +3116,277 @@ def history_phase(torch, scatter, frames, rt_perf):
     t_phase = time.perf_counter()
     cfg = aggstate.EngineCfg(**NS_CFG)
     names, sweeps, bufs, n_svcs = frames
-    tmp = Path(tempfile.mkdtemp(prefix="gyt_smoke_hist_"))
     perf = {}
     log(f"phase 10: history and the journal at north-star geometry: "
         f"journal, shards (hist_window_ticks={HIST_WINDOW}) and sqlite "
         f"history (history_every_ticks=1) under {tmp}")
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        opts = RuntimeOpts(**RT_OPTS, journal_dir=str(tmp / "wal"),
-                           hist_shard_dir=str(tmp / "shards"),
-                           history_db=str(tmp / "history.db"),
-                           hist_window_ticks=HIST_WINDOW,
-                           history_every_ticks=1)
-        rt = Runtime(cfg, opts, device=DEV)
-        t0 = time.perf_counter()
-        rt.feed(names)
-        rt.feed(sweeps[0])
-        for i in range(RT_WARM_BUFFERS):
-            rt.feed(bufs[i % RT_DISTINCT][0])
-        rt.run_tick()
+    torch.cuda.reset_peak_memory_stats()
+    opts = RuntimeOpts(**RT_OPTS, journal_dir=str(tmp / "wal"),
+                       hist_shard_dir=str(tmp / "shards"),
+                       history_db=str(tmp / "history.db"),
+                       hist_window_ticks=HIST_WINDOW,
+                       history_every_ticks=1)
+    rt = Runtime(cfg, opts, device=DEV)
+    t0 = time.perf_counter()
+    rt.feed(names)
+    rt.feed(sweeps[0])
+    for i in range(RT_WARM_BUFFERS):
+        rt.feed(bufs[i % RT_DISTINCT][0])
+    rt.run_tick()
+    torch.cuda.synchronize()
+    log(f"  warm-up tick: {time.perf_counter() - t0:.2f}s")
+    tick_parts = SyncTimer(torch, (
+        (rt, "_history_sweep", "history_sweep"),
+        (rt, "publish_snapshot", "publish_snapshot"),
+        (rt, "_alert_step", "alert_step"),
+        (rt, "heavy_recover", "heavy_recover")))
+    perf.update(buffer_ms=[], sweep_s=[], tick_ms=[], tick_parts_ms=[],
+                history_rows=[])
+    live4 = live4_json = None
+    j = RT_WARM_BUFFERS
+    for tick in range(HIST_TICKS):
         torch.cuda.synchronize()
-        log(f"  warm-up tick: {time.perf_counter() - t0:.2f}s")
-        tick_parts = SyncTimer(torch, (
-            (rt, "_history_sweep", "history_sweep"),
-            (rt, "publish_snapshot", "publish_snapshot"),
-            (rt, "_alert_step", "alert_step"),
-            (rt, "heavy_recover", "heavy_recover")))
-        perf.update(buffer_ms=[], sweep_s=[], tick_ms=[], tick_parts_ms=[],
-                    history_rows=[])
-        live4 = live4_json = None
-        j = RT_WARM_BUFFERS
-        for tick in range(HIST_TICKS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            rt.feed(sweeps[1 + tick % (len(sweeps) - 1)])
-            torch.cuda.synchronize()
-            perf["sweep_s"].append(time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            for _ in range(HIST_BUFFERS):
-                rt.feed(bufs[j % RT_DISTINCT][0])
-                j += 1
-            torch.cuda.synchronize()
-            perf["buffer_ms"].append((time.perf_counter() - t0)
-                                     / HIST_BUFFERS * 1e3)
-            t0 = time.perf_counter()
-            with tick_parts:
-                rep = rt.run_tick()
-            torch.cuda.synchronize()
-            perf["tick_ms"].append((time.perf_counter() - t0) * 1e3)
-            perf["tick_parts_ms"].append(dict(tick_parts.ms))
-            tick_parts.ms = {}
-            perf["history_rows"].append(rep["history_rows"])
-            if rep["tick"] == 2 * HIST_WINDOW:
-                # the live state and JSON at the newest window's end
-                live4 = (tree_map(torch.clone, rt.state),
-                         tree_map(torch.clone, rt.dep))
-                live4_json = {k: rt.query(dict(r))
-                              for k, (r, _) in HIST_AT_REQS.items()}
-        check(live4 is not None, f"ticks ran to {rt._tick_no}, past the "
-              f"window end at tick {2 * HIST_WINDOW}")
-        log(f"  ms per feed buffer with the journal on, by tick: "
-            f"{', '.join(f'{m:.3f}' for m in perf['buffer_ms'])} (phase 8, "
-            f"no journal: {', '.join(f'{m:.3f}' for m in rt_perf)})")
-        log(f"  sweep feed (s): "
-            f"{', '.join(f'{s:.3f}' for s in perf['sweep_s'])}")
-        log(f"  ms per run_tick: "
-            f"{', '.join(f'{m:.2f}' for m in perf['tick_ms'])}; parts "
-            "(synchronised): " + " | ".join(
-                ", ".join(f"{k} {v:.2f}" for k, v in p.items())
-                for p in perf["tick_parts_ms"])
-            + f"; history_rows {perf['history_rows']}")
-        check(all(r > n_svcs for r in perf["history_rows"]),
-              f"each tick's history sweep wrote svcstate, taskstate and "
-              f"the rest: {perf['history_rows']} rows")
-        rt.journal.fsync()
-        g = rt.journal.gauges()
-        c = rt.stats.counters
-        perf["journal"] = g | {k: c.get(k, 0) for k in (
-            "wal_appended_chunks", "wal_appended_bytes", "wal_fsyncs",
-            "wal_rotations", "wal_backlog_dropped")}
-        log(f"  journal: {perf['journal']}")
-        check(perf["journal"]["wal_backlog_dropped"] == 0
-              and g["journal_segments"] >= 1,
-              "no WAL chunk dropped from the writer's backlog")
-        replies = [rt.query(dict(o)) for o in HIST_ALERT_OPS]
-        check(all(r.get("ok") for r in replies),
-              "a db-mode and a windowed alertdef installed through \"op\"")
-
-        # ---- compaction: the replay runtime re-folds the WAL, counted
-        mods = sketch_modules()
-        connresp = [0]
-        fold_all = step.fold_all
-
-        def counting_fold_all(*a, **kw):
-            connresp[0] += kw.get("connresp") is not None
-            return fold_all(*a, **kw)
-
-        comp = Compactor(cfg, opts, journal=rt.journal, stats=rt.stats,
-                         device=DEV)
-        emit0 = rt.stats.timing_totals().get("compact_emit", (0, 0.0))
-        reset_launches(scatter, mods)
-        step.fold_all = counting_fold_all
-        try:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            crep = comp.compact_once(seal=True, upto_tick=rt._tick_no)
-            torch.cuda.synchronize()
-            perf["compact_s"] = time.perf_counter() - t0
-        finally:
-            step.fold_all = fold_all
-        launches = read_launches(scatter, mods)
-        n_emit, emit_ms = rt.stats.timing_totals()["compact_emit"]
-        shards = comp.store.shards("raw")
-        perf["compact"] = crep
-        perf["compact_replay_ev_per_sec"] = \
-            rt.stats.gauges["compact_replay_ev_per_sec"]
-        perf["compact_emit_ms"] = (emit_ms - emit0[1]) / max(
-            n_emit - emit0[0], 1)
-        perf["shard_bytes"] = [e["bytes"] for e in shards]
-        perf["launches"] = launches
-        perf["replay_connresp_dispatches"] = connresp[0]
-        log(f"  compaction: {crep}; {perf['compact_s']:.2f}s, "
-            f"compact_replay_ev_per_sec "
-            f"{perf['compact_replay_ev_per_sec']}, compact_emit "
-            f"{perf['compact_emit_ms']:.1f} ms a window, shard bytes "
-            f"{perf['shard_bytes']}")
-        log(f"  kernel launches during the compaction: {launches}")
-        check(crep["windows"] == 2 and len(shards) == 2,
-              f"two raw shards emitted (ticks {[e['tick1'] for e in shards]})")
-        check(launches == {"hll_update": 2 * connresp[0],
-                           "cms_update": connresp[0],
-                           "inv_update": connresp[0],
-                           "scatter_max": 0, "scatter_add": 0}
-              and connresp[0] > 0,
-              f"each of the replay's {connresp[0]} conn/resp dispatches "
-              "launched hll_update 2x, cms_update 1x and inv_update 1x")
-
-        # ---- the newest raw shard against the live state, on the card
-        ent = [e for e in shards if e["tick1"] == 2 * HIST_WINDOW][0]
-        data = comp.store.load(ent)
-        perf["deflate"] = deflate_rates(data["state"] + data["dep"])
-        log(f"  deflate over a 1/16 block sample of the shard's leaves "
-            f"({perf['deflate']['sample_mb']:.0f} MB): level 6 (the "
-            f"reference's savez_compressed) "
-            f"{perf['deflate'][6]['mb_per_s']:.0f} MB/s, ratio "
-            f"{perf['deflate'][6]['ratio']:.0f}; level 1 (the port's "
-            f"shards) {perf['deflate'][1]['mb_per_s']:.0f} MB/s, ratio "
-            f"{perf['deflate'][1]['ratio']:.0f}")
-        s_state = aggstate.state_from_numpy(data["state"], DEV)
-        s_dep = depgraph.dep_from_numpy(data["dep"], DEV)
-        snames = tree_paths(aggstate.init(cfg, "meta"))
-        dnames = tree_paths(depgraph.init(1, 1, "meta"))
-        mass = float(live4[0].flow_topk.counts.sum()
-                     + live4[0].flow_topk.evicted)
-        kinds = {n: _device_leaf_check(torch, n, a, b, mass) for n, a, b in
-                 zip(snames + dnames,
-                     tree_leaves(live4[0]) + tree_leaves(live4[1]),
-                     tree_leaves(s_state) + tree_leaves(s_dep))}
-        close = sorted(n for n, k in kinds.items() if k == "close")
-        bad = {n: k for n, k in kinds.items() if k not in ("exact",
-                                                           "close")}
-        perf["shard_leaves_exact"] = len(kinds) - len(close) - len(bad)
-        perf["shard_leaves_close"] = close
-        log(f"  shard vs live, leaves within the float-sum rule: {close}")
-        check(len(kinds) == 85 + 29 and not bad,
-              f"shard at tick {ent['tick1']} = the live state then: "
-              f"{perf['shard_leaves_exact']} of 114 leaves exact, "
-              f"{len(close)} within the float-sum rule; differing: {bad}")
-        del s_state, s_dep, data, live4
-
-        # ---- historical queries, each group from a cold snapshot LRU
-        # (its first request loads the shards from disk)
-        rt.timeview._snaps.clear()
-        perf["window_ms"] = {}
-        for name, req in HIST_WINDOW_REQS.items():
-            t0 = time.perf_counter()
-            first = rt.query(dict(req))
-            t1 = time.perf_counter()
-            again = rt.query(dict(req))
-            t2 = time.perf_counter()
-            check(again == first and first["nrecs"] > 0
-                  and first["shards"] == 2,
-                  f"window= {name}: {first['nrecs']} rows over 2 shards, "
-                  f"first {(t1 - t0) * 1e3:.1f} ms, cached "
-                  f"{(t2 - t1) * 1e3:.1f} ms")
-            perf["window_ms"][name] = {"first": (t1 - t0) * 1e3,
-                                       "cached": (t2 - t1) * 1e3}
-        rt.timeview._snaps.clear()
-        n_q = [0, 0]
-        perf["at_ms"] = {}
-        for name, (req, keys) in HIST_AT_REQS.items():
-            req = dict(req, at=f"tick:{2 * HIST_WINDOW}")
-            t0 = time.perf_counter()
-            got = rt.query(dict(req))
-            t1 = time.perf_counter()
-            again = rt.query(dict(req))
-            perf["at_ms"][name] = {
-                "first": (t1 - t0) * 1e3,
-                "cached": (time.perf_counter() - t1) * 1e3}
-            check(again == got, f"at= {name}: the cached answer equal")
-            ref = live4_json[name]
-            check(got["nrecs"] == ref["nrecs"] > 0,
-                  f"at=tick:4 {name}: {got['nrecs']} rows, as live")
-            _sum_json_diff(_keyed(ref["recs"], keys),
-                           _keyed(got["recs"], keys), f"at {name}", n_q,
-                           mass)
-        perf["at_json_sum_apart"], perf["at_json_rounding_apart"] = n_q
-        # a second materialised snapshot: the state at the first window
         t0 = time.perf_counter()
-        got = rt.query({"subsys": "topk", "at": f"tick:{HIST_WINDOW}"})
-        perf["at_ms"]["topk tick 2"] = {
-            "first": (time.perf_counter() - t0) * 1e3}
-        check(got["nrecs"] > 0 and got["tick"] == HIST_WINDOW,
-              f"at=tick:{HIST_WINDOW} topk: {got['nrecs']} rows")
-        log(f"  at= ms: {perf['at_ms']}; JSON equal to the live JSON at "
-            f"tick 4 but {n_q[0]} values within rtol 1e-6 (float sums) "
-            f"and {n_q[1]} one unit apart in the third decimal")
-        perf["peak_gib_two_snapshots"] = \
-            torch.cuda.max_memory_allocated() / 2**30
-        perf["allocated_gib_two_snapshots"] = \
-            torch.cuda.memory_allocated() / 2**30
-        log(f"  device memory with the compactor's replay runtime and two "
-            f"materialised snapshots alive: "
-            f"{perf['allocated_gib_two_snapshots']:.3f} GiB allocated, "
-            f"peak {perf['peak_gib_two_snapshots']:.3f} GiB")
-        perf["tstart_ms"] = {}
-        for name, req in {
-                "hoststate": {"subsys": "hoststate", "tstart": 0,
-                              "maxrecs": 100000},
-                "svcstate filter": {"subsys": "svcstate", "tstart": 0,
-                                    "filter": "{ svcstate.qps5s > 40 }",
-                                    "maxrecs": 1000000}}.items():
-            t0 = time.perf_counter()
-            got = rt.query(dict(req))
-            perf["tstart_ms"][name] = (time.perf_counter() - t0) * 1e3
-            subsys = req["subsys"]
-            where = "WHERE qps5s > 40" if "filter" in req else ""
-            with sqlite3.connect(tmp / "history.db") as db:
-                tabs = [r[0] for r in db.execute(
-                    "SELECT name FROM sqlite_master WHERE type='table' "
-                    "AND name LIKE ?", (f"{subsys}tbl_%",))]
-                want = sum(db.execute(f"SELECT COUNT(*) FROM {t} {where}")
-                           .fetchone()[0] for t in tabs)
-            check(len(got["recs"]) == want > 0,
-                  f"tstart {name}: {len(got['recs'])} rows = sqlite's "
-                  f"count, {perf['tstart_ms'][name]:.1f} ms")
-
-        # ---- the db-mode and windowed alertdefs fire at the next tick
-        rt.feed(sweeps[1])
+        rt.feed(sweeps[1 + tick % (len(sweeps) - 1)])
+        torch.cuda.synchronize()
+        perf["sweep_s"].append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        rep = rt.run_tick()
-        perf["alert_tick_ms"] = (time.perf_counter() - t0) * 1e3
-        fired = {a.alertname for a in rt.alerts.alert_log}
-        perf["alerts"] = dict(rt.alerts.stats)
-        check({"host_issue_db", "svc_busy_1h"} <= fired
-              and rt.alerts.stats["ndbchecks"] >= 1
-              and rt.alerts.stats["nwindow_skipped"] == 0,
-              f"the db-mode and the windowed alertdef fired "
-              f"({rep['alerts_fired']} alerts at tick {rep['tick']}, "
-              f"{perf['alert_tick_ms']:.1f} ms)")
-        comp.close()
-        rt.close()
-        del rt, comp
-        gc.collect()
-        torch.cuda.empty_cache()
+        for _ in range(HIST_BUFFERS):
+            rt.feed(bufs[j % RT_DISTINCT][0])
+            j += 1
+        torch.cuda.synchronize()
+        perf["buffer_ms"].append((time.perf_counter() - t0)
+                                 / HIST_BUFFERS * 1e3)
+        t0 = time.perf_counter()
+        with tick_parts:
+            rep = rt.run_tick()
+        torch.cuda.synchronize()
+        perf["tick_ms"].append((time.perf_counter() - t0) * 1e3)
+        perf["tick_parts_ms"].append(dict(tick_parts.ms))
+        tick_parts.ms = {}
+        perf["history_rows"].append(rep["history_rows"])
+        if rep["tick"] == 2 * HIST_WINDOW:
+            # the live state and JSON at the newest window's end
+            live4 = (tree_map(torch.clone, rt.state),
+                     tree_map(torch.clone, rt.dep))
+            live4_json = {k: rt.query(dict(r))
+                          for k, (r, _) in HIST_AT_REQS.items()}
+    check(live4 is not None, f"ticks ran to {rt._tick_no}, past the "
+          f"window end at tick {2 * HIST_WINDOW}")
+    log(f"  ms per feed buffer with the journal on, by tick: "
+        f"{', '.join(f'{m:.3f}' for m in perf['buffer_ms'])} (phase 8, "
+        f"no journal: {', '.join(f'{m:.3f}' for m in rt_perf)})")
+    log(f"  sweep feed (s): "
+        f"{', '.join(f'{s:.3f}' for s in perf['sweep_s'])}")
+    log(f"  ms per run_tick: "
+        f"{', '.join(f'{m:.2f}' for m in perf['tick_ms'])}; parts "
+        "(synchronised): " + " | ".join(
+            ", ".join(f"{k} {v:.2f}" for k, v in p.items())
+            for p in perf["tick_parts_ms"])
+        + f"; history_rows {perf['history_rows']}")
+    check(all(r > n_svcs for r in perf["history_rows"]),
+          f"each tick's history sweep wrote svcstate, taskstate and "
+          f"the rest: {perf['history_rows']} rows")
+    rt.journal.fsync()
+    g = rt.journal.gauges()
+    c = rt.stats.counters
+    perf["journal"] = g | {k: c.get(k, 0) for k in (
+        "wal_appended_chunks", "wal_appended_bytes", "wal_fsyncs",
+        "wal_rotations", "wal_backlog_dropped")}
+    log(f"  journal: {perf['journal']}")
+    check(perf["journal"]["wal_backlog_dropped"] == 0
+          and g["journal_segments"] >= 1,
+          "no WAL chunk dropped from the writer's backlog")
+    replies = [rt.query(dict(o)) for o in HIST_ALERT_OPS]
+    check(all(r.get("ok") for r in replies),
+          "a db-mode and a windowed alertdef installed through \"op\"")
+
+    # ---- compaction: the replay runtime re-folds the WAL, counted
+    mods = sketch_modules()
+    connresp = [0]
+    fold_all = step.fold_all
+
+    def counting_fold_all(*a, **kw):
+        connresp[0] += kw.get("connresp") is not None
+        return fold_all(*a, **kw)
+
+    comp = Compactor(cfg, opts, journal=rt.journal, stats=rt.stats,
+                     device=DEV)
+    emit0 = rt.stats.timing_totals().get("compact_emit", (0, 0.0))
+    reset_launches(scatter, mods)
+    step.fold_all = counting_fold_all
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        crep = comp.compact_once(seal=True, upto_tick=rt._tick_no)
+        torch.cuda.synchronize()
+        perf["compact_s"] = time.perf_counter() - t0
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        step.fold_all = fold_all
+    launches = read_launches(scatter, mods)
+    n_emit, emit_ms = rt.stats.timing_totals()["compact_emit"]
+    shards = comp.store.shards("raw")
+    perf["compact"] = crep
+    perf["compact_replay_ev_per_sec"] = \
+        rt.stats.gauges["compact_replay_ev_per_sec"]
+    perf["compact_emit_ms"] = (emit_ms - emit0[1]) / max(
+        n_emit - emit0[0], 1)
+    perf["shard_bytes"] = [e["bytes"] for e in shards]
+    perf["launches"] = launches
+    perf["replay_connresp_dispatches"] = connresp[0]
+    log(f"  compaction: {crep}; {perf['compact_s']:.2f}s, "
+        f"compact_replay_ev_per_sec "
+        f"{perf['compact_replay_ev_per_sec']}, compact_emit "
+        f"{perf['compact_emit_ms']:.1f} ms a window, shard bytes "
+        f"{perf['shard_bytes']}")
+    log(f"  kernel launches during the compaction: {launches}")
+    check(crep["windows"] == 2 and len(shards) == 2,
+          f"two raw shards emitted (ticks {[e['tick1'] for e in shards]})")
+    check(launches == {"hll_update": 2 * connresp[0],
+                       "cms_update": connresp[0],
+                       "inv_update": connresp[0],
+                       "scatter_max": 0, "scatter_add": 0}
+          and connresp[0] > 0,
+          f"each of the replay's {connresp[0]} conn/resp dispatches "
+          "launched hll_update 2x, cms_update 1x and inv_update 1x")
+
+    # ---- the newest raw shard against the live state, on the card
+    ent = [e for e in shards if e["tick1"] == 2 * HIST_WINDOW][0]
+    data = comp.store.load(ent)
+    perf["deflate"] = deflate_rates(data["state"] + data["dep"])
+    log(f"  deflate over a 1/16 block sample of the shard's leaves "
+        f"({perf['deflate']['sample_mb']:.0f} MB): level 6 (the "
+        f"reference's savez_compressed) "
+        f"{perf['deflate'][6]['mb_per_s']:.0f} MB/s, ratio "
+        f"{perf['deflate'][6]['ratio']:.0f}; level 1 (the port's "
+        f"shards) {perf['deflate'][1]['mb_per_s']:.0f} MB/s, ratio "
+        f"{perf['deflate'][1]['ratio']:.0f}")
+    s_state = aggstate.state_from_numpy(data["state"], DEV)
+    s_dep = depgraph.dep_from_numpy(data["dep"], DEV)
+    snames = tree_paths(aggstate.init(cfg, "meta"))
+    dnames = tree_paths(depgraph.init(1, 1, "meta"))
+    mass = float(live4[0].flow_topk.counts.sum()
+                 + live4[0].flow_topk.evicted)
+    kinds = {n: _device_leaf_check(torch, n, a, b, mass) for n, a, b in
+             zip(snames + dnames,
+                 tree_leaves(live4[0]) + tree_leaves(live4[1]),
+                 tree_leaves(s_state) + tree_leaves(s_dep))}
+    close = sorted(n for n, k in kinds.items() if k == "close")
+    bad = {n: k for n, k in kinds.items() if k not in ("exact",
+                                                       "close")}
+    perf["shard_leaves_exact"] = len(kinds) - len(close) - len(bad)
+    perf["shard_leaves_close"] = close
+    log(f"  shard vs live, leaves within the float-sum rule: {close}")
+    check(len(kinds) == 85 + 29 and not bad,
+          f"shard at tick {ent['tick1']} = the live state then: "
+          f"{perf['shard_leaves_exact']} of 114 leaves exact, "
+          f"{len(close)} within the float-sum rule; differing: {bad}")
+    del s_state, s_dep, data, live4
+
+    # ---- historical queries, each group from a cold snapshot LRU
+    # (its first request loads the shards from disk)
+    rt.timeview._snaps.clear()
+    perf["window_ms"] = {}
+    for name, req in HIST_WINDOW_REQS.items():
+        t0 = time.perf_counter()
+        first = rt.query(dict(req))
+        t1 = time.perf_counter()
+        again = rt.query(dict(req))
+        t2 = time.perf_counter()
+        check(again == first and first["nrecs"] > 0
+              and first["shards"] == 2,
+              f"window= {name}: {first['nrecs']} rows over 2 shards, "
+              f"first {(t1 - t0) * 1e3:.1f} ms, cached "
+              f"{(t2 - t1) * 1e3:.1f} ms")
+        perf["window_ms"][name] = {"first": (t1 - t0) * 1e3,
+                                   "cached": (t2 - t1) * 1e3}
+    rt.timeview._snaps.clear()
+    n_q = [0, 0]
+    perf["at_ms"] = {}
+    for name, (req, keys) in HIST_AT_REQS.items():
+        req = dict(req, at=f"tick:{2 * HIST_WINDOW}")
+        t0 = time.perf_counter()
+        got = rt.query(dict(req))
+        t1 = time.perf_counter()
+        again = rt.query(dict(req))
+        perf["at_ms"][name] = {
+            "first": (t1 - t0) * 1e3,
+            "cached": (time.perf_counter() - t1) * 1e3}
+        check(again == got, f"at= {name}: the cached answer equal")
+        ref = live4_json[name]
+        check(got["nrecs"] == ref["nrecs"] > 0,
+              f"at=tick:4 {name}: {got['nrecs']} rows, as live")
+        _sum_json_diff(_keyed(ref["recs"], keys),
+                       _keyed(got["recs"], keys), f"at {name}", n_q,
+                       mass)
+    perf["at_json_sum_apart"], perf["at_json_rounding_apart"] = n_q
+    # a second materialised snapshot: the state at the first window
+    t0 = time.perf_counter()
+    got = rt.query({"subsys": "topk", "at": f"tick:{HIST_WINDOW}"})
+    perf["at_ms"]["topk tick 2"] = {
+        "first": (time.perf_counter() - t0) * 1e3}
+    check(got["nrecs"] > 0 and got["tick"] == HIST_WINDOW,
+          f"at=tick:{HIST_WINDOW} topk: {got['nrecs']} rows")
+    log(f"  at= ms: {perf['at_ms']}; JSON equal to the live JSON at "
+        f"tick 4 but {n_q[0]} values within rtol 1e-6 (float sums) "
+        f"and {n_q[1]} one unit apart in the third decimal")
+    perf["peak_gib_two_snapshots"] = \
+        torch.cuda.max_memory_allocated() / 2**30
+    perf["allocated_gib_two_snapshots"] = \
+        torch.cuda.memory_allocated() / 2**30
+    log(f"  device memory with the compactor's replay runtime and two "
+        f"materialised snapshots alive: "
+        f"{perf['allocated_gib_two_snapshots']:.3f} GiB allocated, "
+        f"peak {perf['peak_gib_two_snapshots']:.3f} GiB")
+    perf["tstart_ms"] = {}
+    for name, req in {
+            "hoststate": {"subsys": "hoststate", "tstart": 0,
+                          "maxrecs": 100000},
+            "svcstate filter": {"subsys": "svcstate", "tstart": 0,
+                                "filter": "{ svcstate.qps5s > 40 }",
+                                "maxrecs": 1000000}}.items():
+        t0 = time.perf_counter()
+        got = rt.query(dict(req))
+        perf["tstart_ms"][name] = (time.perf_counter() - t0) * 1e3
+        subsys = req["subsys"]
+        where = "WHERE qps5s > 40" if "filter" in req else ""
+        with sqlite3.connect(tmp / "history.db") as db:
+            tabs = [r[0] for r in db.execute(
+                "SELECT name FROM sqlite_master WHERE type='table' "
+                "AND name LIKE ?", (f"{subsys}tbl_%",))]
+            want = sum(db.execute(f"SELECT COUNT(*) FROM {t} {where}")
+                       .fetchone()[0] for t in tabs)
+        check(len(got["recs"]) == want > 0,
+              f"tstart {name}: {len(got['recs'])} rows = sqlite's "
+              f"count, {perf['tstart_ms'][name]:.1f} ms")
+
+    # ---- the db-mode and windowed alertdefs fire at the next tick
+    rt.feed(sweeps[1])
+    t0 = time.perf_counter()
+    rep = rt.run_tick()
+    perf["alert_tick_ms"] = (time.perf_counter() - t0) * 1e3
+    fired = {a.alertname for a in rt.alerts.alert_log}
+    perf["alerts"] = dict(rt.alerts.stats)
+    check({"host_issue_db", "svc_busy_1h"} <= fired
+          and rt.alerts.stats["ndbchecks"] >= 1
+          and rt.alerts.stats["nwindow_skipped"] == 0,
+          f"the db-mode and the windowed alertdef fired "
+          f"({rep['alerts_fired']} alerts at tick {rep['tick']}, "
+          f"{perf['alert_tick_ms']:.1f} ms)")
+    comp.close()
+    rt.close()
+    del rt, comp
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- card vs CPU, the history tests' stream
     log("  tiny history stream, card vs CPU")
-    tmp = Path(tempfile.mkdtemp(prefix="gyt_smoke_tiny_hist_"))
+    tiny = Path(tempfile.mkdtemp(prefix="gyt_smoke_tiny_hist_"))
     try:
-        g = tiny_hist_run(DEV, tmp / "card")
-        c = tiny_hist_run("cpu", tmp / "cpu")
+        g = tiny_hist_run(DEV, tiny / "card")
+        c = tiny_hist_run("cpu", tiny / "cpu")
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(tiny, ignore_errors=True)
     tcfg = aggstate.EngineCfg(**TINY_HIST_CFG)
     check(g["reports"] == c["reports"]
           and all(r["history_rows"] > 0 for r in c["reports"]),
@@ -3424,7 +3444,7 @@ def history_phase(torch, scatter, frames, rt_perf):
     perf["tiny_json_sum_fields_apart"] = n_sum[0]
     perf["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 10: {perf['phase_s']:.1f}s")
-    return perf, launches
+    return perf, launches, opts
 
 
 # ----------------------------------------------------------- phase 11
@@ -3950,6 +3970,11 @@ async def serving_run(torch, scatter, frames, rt_perf) -> tuple:
             torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"  max_memory_allocated: "
             f"{perf['max_memory_allocated_gib']:.3f} GiB")
+        # ---- phase 12b: the fabric gateway in front of this server and
+        # a second one over the same runtime (the agents stay silent
+        # from here: no idle deadline)
+        srv.idle_timeout = None
+        perf["fabric"] = await fabric_run(torch, rt, srv, host, port)
     finally:
         if qc is not None:
             await qc.close()
@@ -4012,6 +4037,195 @@ async def serving_run(torch, scatter, frames, rt_perf) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     return perf, launches
+
+
+FAB_CONCURRENT = 32         # identical svcstate requests on a fresh tick
+FAB_DOWN_AFTER = 3          # the breaker's consecutive-failure threshold
+FAB_DOWN_ROUNDS = 8         # query rounds with one replica's listener shut
+FAB_Q = {"subsys": "svcstate", "maxrecs": 100}
+
+
+async def fabric_run(torch, rt, srv, host, port) -> dict:
+    """Phase 12b: a port ``FabricGateway`` in front of two replicas: the
+    phase's ``GytServer`` and a second ``GytServer`` over the same ns
+    ``Runtime`` with no tick loop of its own (one runtime ticks once a
+    tick; every tick here is a manual ``run_tick``). The 43 served
+    subsystems through the gateway's GYT front and 8 each through its
+    REST and NM fronts, each body equal to ``rt.query`` on the same
+    snapshot, first and cached latency; 32 concurrent identical
+    svcstate requests on a fresh tick → one upstream render; an SSE
+    subscription's push after a tick, reassembled equal to a fresh
+    render; then the second replica's listener shut: every query still
+    answers, and its breaker opens after ``FAB_DOWN_AFTER`` failures,
+    not one."""
+    import asyncio
+
+    from gyeeta_tpu_torch.ingest import refproto as RP
+    from gyeeta_tpu_torch.ingest import refquery as RQ
+    from gyeeta_tpu_torch.net.agent import QueryClient
+    from gyeeta_tpu_torch.net.gateway import FabricGateway
+    from gyeeta_tpu_torch.net.server import GytServer
+    from gyeeta_tpu_torch.net.subs import read_sse_events
+    from gyeeta_tpu_torch.query import delta as D
+
+    log("phase 12b: the fabric gateway in front of two GytServers over "
+        "the card's Runtime")
+    t_phase = time.perf_counter()
+    perf = {}
+    srv2 = GytServer(rt, host="127.0.0.1", port=0, tick_interval=None,
+                     idle_timeout=0)
+    gw = qc = nm = sse_w = sse_task = None
+    gctr = {}
+    try:
+        h2, p2 = await _w(srv2.start())
+        gw = FabricGateway([(host, port), (h2, p2)], host="127.0.0.1",
+                           port=0, poll_s=0.05, down_after=FAB_DOWN_AFTER)
+        gctr = gw.stats.counters
+        gh, gp = await _w(gw.start())
+        await _until(lambda: gw.fabric_tick >= rt.snapshot.tick,
+                     "the gateway's tick discovery")
+        served = RT_SERVED + RT_NEW
+        direct = {n: json.loads(json.dumps(rt.query(
+            {"subsys": n, "consistency": "snapshot"}))) for n in served}
+        lat = {e: {"first": [], "cached": []} for e in ("gyt", "nm",
+                                                        "rest")}
+
+        async def timed(edge, names, ask):
+            rounds = -(-SRV_CACHED_MIN // len(names))
+            for rnd in range(1 + rounds):
+                kind = "first" if rnd == 0 else "cached"
+                for name in names:
+                    t0 = time.perf_counter()
+                    out = await ask(name)
+                    lat[edge][kind].append(
+                        (time.perf_counter() - t0) * 1e3)
+                    if json.loads(json.dumps(out)) != direct[name]:
+                        raise AssertionError(
+                            f"gateway {edge} {name}: the body differs "
+                            "from rt.query on the same snapshot")
+        qc = QueryClient(request_timeout=SRV_TIMEOUT)
+        await _w(qc.connect(gh, gp))
+        await timed("gyt", served,
+                    lambda name: _w(qc.query({"subsys": name})))
+        nm = NMClient(RP, RQ)
+        await nm.connect(gh, gp)
+        await timed("nm", SRV_NM, nm.query)
+        await timed("rest", SRV_REST,
+                    lambda name: _http_query(gh, gp, {"subsys": name}))
+        perf["query_ms"] = {e: {k: _pcts(v) for k, v in d.items()}
+                            for e, d in lat.items()}
+        check(True, f"through the gateway: {len(served)} subsystems over "
+              f"GYT, {len(SRV_NM)} over NM, {len(SRV_REST)} over REST, "
+              "each body equal to rt.query on the same snapshot")
+        for e, d in perf["query_ms"].items():
+            log(f"  gateway {e} ms: first {_fmt_pcts(d['first'])}; cached "
+                f"{_fmt_pcts(d['cached'])}")
+
+        # ---- single-flight on a fresh tick
+        srv._feed_barrier()
+        rt.run_tick()
+        await _until(lambda: gw.fabric_tick >= rt.snapshot.tick,
+                     "the fresh tick at the gateway")
+        r0 = gctr.get("gw_renders_upstream", 0)
+        w0 = gctr.get("gw_singleflight_waits", 0)
+        t0 = time.perf_counter()
+        outs = await asyncio.gather(*(_http_query(gh, gp, dict(FAB_Q))
+                                      for _ in range(FAB_CONCURRENT)))
+        perf["stampede_ms"] = (time.perf_counter() - t0) * 1e3
+        perf["stampede_renders"] = gctr.get("gw_renders_upstream", 0) - r0
+        perf["stampede_waits"] = gctr.get("gw_singleflight_waits", 0) - w0
+        check(perf["stampede_renders"] == 1
+              and len({o["snaptick"] for o in outs}) == 1
+              and all(o == outs[0] for o in outs),
+              f"{FAB_CONCURRENT} concurrent identical svcstate requests on "
+              f"a fresh tick: {perf['stampede_renders']} upstream render, "
+              f"{perf['stampede_waits']} single-flight waits, "
+              f"{perf['stampede_ms']:.1f} ms")
+
+        # ---- an SSE subscription's push after a tick
+        sse_r, sse_w = await _w(asyncio.open_connection(gh, gp))
+        sse_w.write(b"GET /v1/subscribe?subsys=svcstate&maxrecs=100 "
+                    b"HTTP/1.1\r\nHost: gyt\r\n\r\n")
+        await _w(sse_w.drain())
+        head = await _w(sse_r.readuntil(b"\r\n\r\n"))
+        check(b" 200 " in head.split(b"\r\n")[0], "SSE subscribe accepted")
+        events = []
+
+        async def sse_loop():
+            async for ev in read_sse_events(sse_r):
+                events.append(ev)
+        sse_task = asyncio.create_task(sse_loop())
+        await _until(lambda: events, "the SSE subscription's full")
+        srv._feed_barrier()
+        t0 = time.perf_counter()
+        rt.run_tick()
+        await _until(lambda: len(events) > 1, "the SSE push after a tick")
+        perf["sse_push_ms"] = (time.perf_counter() - t0) * 1e3
+        held = D.apply_event(D.apply_event(None, events[0]), events[-1])
+        fresh = json.loads(json.dumps(rt.query(
+            dict(FAB_Q, consistency="snapshot"))))
+        check(events[0]["t"] == "full" and held == fresh,
+              f"SSE: {[e['t'] for e in events]} after a tick, "
+              f"{perf['sse_push_ms']:.1f} ms from run_tick to the push; "
+              "the reassembled view equals rt.query on the new snapshot")
+
+        # ---- one replica's listener shut: every query answers, the
+        # breaker opens after FAB_DOWN_AFTER failures
+        u2 = [u for u in gw.upstreams if u.port == p2][0]
+        trail = []
+        record_fail = u2.record_fail
+
+        def traced_fail():
+            record_fail()
+            trail.append((u2.fails, u2.state))
+        u2.record_fail = traced_fail
+        srv2._server.close()
+        for w in list(srv2._open_conns):
+            w.close()
+        await _w(srv2._server.wait_closed())
+        srv2._server = None
+        n_ok = 0
+        for rnd in range(FAB_DOWN_ROUNDS):
+            for name in ("svcstate", "hoststate", "serverstatus"):
+                req = {"subsys": name, "maxrecs": 100}
+                if rnd % 2:
+                    req["consistency"] = "strong"   # past the edge cache
+                out = await _w(qc.query(req))
+                n_ok += out.get("nrecs", 0) > 0
+        await _until(lambda: u2.state == "down", "the breaker opening")
+        first_down = [f for f, st in trail if st == "down"][0]
+        perf["breaker"] = {"trail": trail[:8], "answered": n_ok,
+                           "errors": gctr.get("gw_upstream_errors", 0),
+                           "flaps": gctr.get(
+                               f"gw_upstream_flaps|upstream={u2.label}")}
+        check(n_ok == 3 * FAB_DOWN_ROUNDS and trail[0] == (1, "up")
+              and first_down == FAB_DOWN_AFTER
+              and perf["breaker"]["flaps"] == 1
+              and gw.upstreams[0].state == "up",
+              f"one replica's listener shut: {n_ok} of "
+              f"{3 * FAB_DOWN_ROUNDS} queries answered, no error "
+              f"surfaced; its breaker opened at failure {first_down} "
+              f"(trail {trail[:4]}), the other replica up")
+    finally:
+        if sse_task is not None:
+            sse_task.cancel()
+        if sse_w is not None:
+            sse_w.close()
+        if qc is not None:
+            await qc.close()
+        if nm is not None:
+            nm.close()
+        if gw is not None:
+            await _w(gw.stop())
+        # srv2.stop closes the shared runtime: the phase's server is
+        # done with it (its own stop closes it again, a no-op)
+        await _w(srv2.stop())
+    perf["counters"] = {k: v for k, v in gctr.items()
+                        if k.startswith("gw_")}
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"  gateway counters: {perf['counters']}")
+    log(f"  phase 12b: {perf['phase_s']:.1f}s")
+    return perf
 
 
 async def tiny_server_run(device) -> dict:
@@ -4098,11 +4312,264 @@ def serving_phase(torch, scatter, frames, rt_perf):
     return perf, launches
 
 
+# ----------------------------------------------------------- phase 12
+REGION_SHIPPER = "chip-smoke-source"
+REGION_INTERVAL_S = 0.5     # the staging loop's cadence
+REGION_TIMEOUT = 600.0      # the ship pass, and the region's compaction
+REGION_AT = {"svcstate": HIST_AT_REQS["svcstate"],
+             "topk": HIST_AT_REQS["topk"]}
+
+
+def _shards_equal(torch, local, remote, cfg) -> tuple:
+    """The region's raw shards against the local ones on the card →
+    (per-shard leaf counts, the top-K mass of the newest local shard)."""
+    from gyeeta_tpu_torch.engine import aggstate
+    from gyeeta_tpu_torch.parallel import depgraph
+    from gyeeta_tpu_torch.utils.tensor import tree_leaves, tree_paths
+
+    ticks = [e["tick1"] for e in local.shards("raw")]
+    check(ticks == [e["tick1"] for e in remote.shards("raw")]
+          == [HIST_WINDOW, 2 * HIST_WINDOW],
+          f"the region emitted the local windows: raw shards at {ticks}")
+    names = tree_paths(aggstate.init(cfg, "meta")) + \
+        tree_paths(depgraph.init(1, 1, "meta"))
+    out, mass = {}, 0.0
+    for el, er in zip(local.shards("raw"), remote.shards("raw")):
+        a, b = local.load(el), remote.load(er)
+        sa = aggstate.state_from_numpy(a["state"], DEV)
+        sb = aggstate.state_from_numpy(b["state"], DEV)
+        mass = float(sa.flow_topk.counts.sum() + sa.flow_topk.evicted)
+        kinds = {n: _device_leaf_check(torch, n, x, y, mass)
+                 for n, x, y in zip(
+                     names,
+                     tree_leaves(sa) + [torch.as_tensor(v).to(DEV)
+                                        for v in a["dep"]],
+                     tree_leaves(sb) + [torch.as_tensor(v).to(DEV)
+                                        for v in b["dep"]])}
+        close = sorted(n for n, k in kinds.items() if k == "close")
+        bad = {n: k for n, k in kinds.items() if k not in ("exact",
+                                                           "close")}
+        n_exact = len(kinds) - len(close) - len(bad)
+        out[el["tick1"]] = {"exact": n_exact, "close": close}
+        check(len(kinds) == 85 + 29 and not bad,
+              f"region shard at tick {el['tick1']} = the local one: "
+              f"{n_exact} of 114 leaves exact, {len(close)} within the "
+              f"float-sum rule {close}; differing: {bad}")
+        del a, b, sa, sb
+    return out, mass
+
+
+async def region_run(torch, scatter, hist_dir, opts) -> tuple:
+    """Phase 10's WAL through the remote compaction region (see
+    region_phase) → (perf, launches)."""
+    import threading
+
+    from gyeeta_tpu_torch.engine import aggstate, step
+    from gyeeta_tpu_torch.history.shards import ShardStore
+    from gyeeta_tpu_torch.history.shipper import SegmentShipper, seg_info
+    from gyeeta_tpu_torch.history.timeview import TimeView
+    from gyeeta_tpu_torch.net.segship import SegmentReceiver, key_of
+    from gyeeta_tpu_torch.server_main import _StagingCompactLoop
+    from gyeeta_tpu_torch.utils import journal as J
+    from gyeeta_tpu_torch.utils.selfstats import Stats
+
+    wal, stage, region = hist_dir / "wal", hist_dir / "stage", \
+        hist_dir / "region"
+    segs = J.dir_segments(wal)
+    src = {q: seg_info(wal / J._SEG_FMT.format(q)) for q in segs}
+    total = sum(size for size, _, _ in src.values())
+    log(f"  source WAL: {len(segs)} segments, {total / 2**20:.1f} MiB, "
+        "all sealed")
+    cfg = aggstate.EngineCfg(**NS_CFG)
+    ropts = opts._replace(journal_dir=None, hist_shard_dir=None,
+                          history_db=None,
+                          hist_compact_interval_s=REGION_INTERVAL_S)
+    rstats = Stats()
+    loop = _StagingCompactLoop(cfg, ropts, str(stage), str(region),
+                               stats=rstats, device=DEV)
+    rcv = SegmentReceiver(stage, stats=rstats, host="127.0.0.1", port=0,
+                          floors_fn=loop.floors)
+    mods = sketch_modules()
+    connresp = [0]
+    fold_all = step.fold_all
+
+    def counting_fold_all(*a, **kw):
+        connresp[0] += kw.get("connresp") is not None
+        return fold_all(*a, **kw)
+
+    perf = {"segments": len(segs), "wal_mib": total / 2**20}
+    shipper = th = None
+    reset_launches(scatter, mods)
+    step.fold_all = counting_fold_all
+    try:
+        h, p = await _w(rcv.start())
+        shipper = SegmentShipper({"target": (h, p), "dir": str(wal),
+                                  "shipper_id": REGION_SHIPPER,
+                                  "stats": Stats(), "once": True,
+                                  "scan_s": 0.05, "hb_s": 0.05})
+        th = threading.Thread(target=shipper.run, daemon=True,
+                              name="smoke-shipper")
+        t0 = time.perf_counter()
+        th.start()
+        await _until(lambda: not th.is_alive(), "the shipper's pass",
+                     timeout=REGION_TIMEOUT)
+        t_landed = time.perf_counter()
+        # the loop starts on the landed WAL: each pass ends in a flush
+        # (the reference's compactor too), so a pass that stops inside
+        # a window folds its last slab at another boundary than the
+        # local compaction, and order-dependent state (the budgeted
+        # top-K, the invertible buckets, split-half pairing) differs
+        loop.start()
+
+        def compacted():
+            c = loop.compactor
+            return c is not None and len(c.store.shards("raw")) >= 2
+        await _until(compacted, "the region's two windows",
+                     timeout=REGION_TIMEOUT)
+        t_done = time.perf_counter()
+        loop.stop()
+        loop.pass_once()              # what the last pass left, if any
+        torch.cuda.synchronize()
+        launches = read_launches(scatter, mods)
+        step.fold_all = fold_all
+        perf["ship_s"] = t_landed - t0
+        perf["ship_mb_per_s"] = total / 2**20 / perf["ship_s"]
+        perf["landed_to_compacted_s"] = t_done - t_landed
+        perf["replay_connresp_dispatches"] = connresp[0]
+        perf["compact_replay_ev_per_sec"] = \
+            rstats.gauges["compact_replay_ev_per_sec"]
+        n_emit, emit_ms = rstats.timing_totals()["compact_emit"]
+        perf["compact_emit_ms"] = emit_ms / max(n_emit, 1)
+        c = rstats.counters
+        sealed = rstats.gauges.get(
+            f"ship_sealed_segments|shipper={REGION_SHIPPER}")
+        perf["ledger"] = {k: c.get(k, 0) for k in (
+            "ship_shipped_segments", "ship_dropped_segments",
+            "ship_shipped_bytes", "ship_hash_mismatches",
+            "ship_staged_swept", "compact_passes", "compact_errors")}
+        perf["ledger"]["sealed"] = sealed
+        log(f"  shipped {len(segs)} segments in {perf['ship_s']:.2f}s "
+            f"({perf['ship_mb_per_s']:.1f} MB/s over 127.0.0.1; every "
+            "segment was sealed before the shipper started, so seal → "
+            f"landed is the ship pass); landed → compacted "
+            f"{perf['landed_to_compacted_s']:.2f}s; region replay "
+            f"{perf['compact_replay_ev_per_sec']} records/s, compact_emit "
+            f"{perf['compact_emit_ms']:.1f} ms a window; {perf['ledger']}")
+        check(sealed == c.get("ship_shipped_segments", 0)
+              + c.get("ship_dropped_segments", 0) == len(segs)
+              and c.get("ship_hash_mismatches", 0) == 0
+              and c.get("ship_dropped_segments", 0) == 0
+              and not c.get("compact_errors"),
+              f"ledger: sealed {sealed} == shipped "
+              f"{c.get('ship_shipped_segments', 0)} + dropped "
+              f"{c.get('ship_dropped_segments', 0)}, no hash mismatch, "
+              "no failed compaction pass")
+        # landed == source, byte for byte: the receiver verified each
+        # landed file's blake2b before publishing it; the files the
+        # staging sweep has not reclaimed yet are compared whole too
+        n_whole = 0
+        for q, (size, digest, nrec) in src.items():
+            ent = rcv.ledger.get(key_of(0, q)) or {}
+            if (ent.get("status"), ent.get("hash"), ent.get("size"),
+                    ent.get("nrec")) != ("landed", digest, size, nrec):
+                raise AssertionError(f"segment {q}: ledger {ent}")
+            landed = stage / J._SEG_FMT.format(q)
+            if landed.exists():
+                if landed.read_bytes() != \
+                        (wal / J._SEG_FMT.format(q)).read_bytes():
+                    raise AssertionError(f"segment {q}: landed bytes "
+                                         "differ")
+                n_whole += 1
+        check(True, f"{len(segs)} landed segments equal the source's "
+              f"(blake2b over the whole file; {n_whole} still staged "
+              f"compared byte for byte, {c.get('ship_staged_swept', 0)} "
+              "reclaimed by the staging sweep)")
+        check(launches == {"hll_update": 2 * connresp[0],
+                           "cms_update": connresp[0],
+                           "inv_update": connresp[0],
+                           "scatter_max": 0, "scatter_add": 0}
+              and connresp[0] > 0,
+              f"each of the region replay's {connresp[0]} conn/resp "
+              "dispatches launched hll_update 2x, cms_update 1x and "
+              f"inv_update 1x, the generic kernels never: {launches}")
+        perf["launches"] = launches
+        local, remote = ShardStore(hist_dir / "shards"), ShardStore(region)
+        perf["shards"], mass = _shards_equal(torch, local, remote, cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # at= JSON of both stores, through the region's replay runtime
+        rrt = loop.compactor._rt
+        views = {"local": TimeView(rrt, local),
+                 "region": TimeView(rrt, remote)}
+        n_q = [0, 0]
+        perf["at_ms"] = {}
+        for name, (req, keys) in REGION_AT.items():
+            req = dict(req, at=f"tick:{2 * HIST_WINDOW}")
+            out = {}
+            for w, tv in views.items():
+                t1 = time.perf_counter()
+                out[w] = tv.query(dict(req))
+                perf["at_ms"][f"{name} {w}"] = \
+                    (time.perf_counter() - t1) * 1e3
+            check(out["region"]["nrecs"] == out["local"]["nrecs"] > 0
+                  and out["region"]["tick"] == 2 * HIST_WINDOW,
+                  f"at=tick:{2 * HIST_WINDOW} {name}: "
+                  f"{out['region']['nrecs']} rows from the region's "
+                  "store, as from the local one")
+            _sum_json_diff(_keyed(out["local"]["recs"], keys),
+                           _keyed(out["region"]["recs"], keys),
+                           f"region at {name}", n_q, mass)
+        perf["at_json_sum_apart"], perf["at_json_rounding_apart"] = n_q
+        log(f"  at= JSON, region store vs local store: equal but "
+            f"{n_q[0]} values within rtol 1e-6 and {n_q[1]} one unit "
+            f"apart in the third decimal; ms {perf['at_ms']}")
+        del views, rrt
+    finally:
+        step.fold_all = fold_all
+        if shipper is not None:
+            shipper.stop()
+        if th is not None:
+            th.join(timeout=SRV_TIMEOUT)
+        loop.final_pass()
+        await _w(rcv.stop())
+    return perf, launches
+
+
+def region_phase(torch, scatter, hist_dir, opts):
+    """Phase 12a: the remote compaction region at ns geometry. Phase
+    10's WAL (every segment sealed) ships with the port's
+    ``SegmentShipper`` over 127.0.0.1 to a ``SegmentReceiver``; a
+    ``_StagingCompactLoop`` on the card compacts the staging dir into a
+    fresh shard dir, the receiver's staging sweep fed its floors, as the
+    daemon wires them. Checks: the ledger closes (sealed == shipped +
+    dropped, no hash mismatch), the landed segments equal the source's,
+    2/1/1 launches a replayed conn/resp dispatch with no generic launch,
+    the region's two shards equal phase 10's local ones (integer and max
+    leaves exact, float sums rtol 1e-6), and at=tick:4 svcstate and topk
+    JSON equal from both stores."""
+    import asyncio
+
+    t_phase = time.perf_counter()
+    log("phase 12a: the remote compaction region at north-star geometry: "
+        "phase 10's WAL → SegmentShipper → 127.0.0.1 → SegmentReceiver → "
+        "staging → the staging loop's compaction on the card → shards")
+    perf, launches = asyncio.run(region_run(torch, scatter, hist_dir,
+                                            opts))
+    gc.collect()
+    torch.cuda.empty_cache()
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 12a: {perf['phase_s']:.1f}s")
+    return perf, launches
+
+
 def _no_lookup(*a, **kw):
     raise OSError("chip_smoke resolves no names")
 
 
 def main(argv) -> int:
+    import shutil
+    import tempfile
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4145,10 +4612,16 @@ def main(argv) -> int:
     dp, d_launches, d_sites = delta_phase(torch, scatter)
     gc.collect()
     torch.cuda.empty_cache()
-    hp, h_launches = history_phase(torch, scatter, frames,
-                                   rtp["buffer_ms"])
-    gc.collect()
-    torch.cuda.empty_cache()
+    # phase 10 writes its WAL and shards here; phase 12a ships them
+    hist_dir = Path(tempfile.mkdtemp(prefix="gyt_smoke_hist_"))
+    try:
+        hp, h_launches, h_opts = history_phase(
+            torch, scatter, frames, rtp["buffer_ms"], hist_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rp, r_launches = region_phase(torch, scatter, hist_dir, h_opts)
+    finally:
+        shutil.rmtree(hist_dir, ignore_errors=True)
     sp, s_launches = serving_phase(torch, scatter, frames, rtp)
     del frames
     for k in kernels:
@@ -4157,6 +4630,7 @@ def main(argv) -> int:
         k["launches_delta"] = d_launches[k["name"]]
         k["launches_history"] = h_launches[k["name"]]
         k["launches_serving"] = s_launches[k["name"]]
+        k["launches_region"] = r_launches[k["name"]]
         cs = d_sites.get(k["name"])
         if cs:
             k["delta"] = {f: sum(c[f] for c in cs) for f in (
@@ -4184,6 +4658,7 @@ def main(argv) -> int:
     log(json.dumps({"delta": dp}, default=float))
     log(json.dumps({"history": hp}, default=float))
     log(json.dumps({"serving": sp}, default=float))
+    log(json.dumps({"region": rp}, default=float))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

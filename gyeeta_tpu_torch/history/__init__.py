@@ -14,8 +14,7 @@ add/drop partition jobs).
 
 Counterpart of ``gyeeta_tpu/history/``. The parted shard store, its
 snapshots and the parallel compactor (``compactproc``) come with the
-sharded tier (ROADMAP.md queue 1, item 6); the remote compaction
-region (``shipper``) with the serving edges (item 5).
+sharded tier (ROADMAP.md queue 1, item 6).
 """
 
 from gyeeta_tpu_torch.history.store import HistoryStore, to_sql
@@ -30,4 +29,5 @@ __all__ = ["HistoryStore", "PgHistoryStore", "open_store", "to_sql"]
 #   history/timeview.py  — at=/window= query materialization
 #   history/winquant.py  — per-window sketch deltas, windowed quantiles
 #   history/histwriter.py — batched single-writer thread for this store
+#   history/shipper.py   — sealed WAL segments → a remote region's staging
 # (imported lazily by the runtimes to keep cold-start imports light)

@@ -1,6 +1,7 @@
 """The serving edge of the port: ``GytServer`` (``server.py``), the query
 executor (``qexec.py``), subscriptions (``subs.py``), the stock node-
-webserver edge (``nmhandle.py``), the REST gateway (``webgw.py``) and the
-client half of the agent tier (``agent.py``). Counterpart of
-``gyeeta_tpu/net``; the fan-in gateway, the relay and the multi-process
-ingest edge are not ported yet (``unported.py``)."""
+webserver edge (``nmhandle.py``), the REST gateway (``webgw.py``), the
+fan-in fabric gateway (``gateway.py``), the segment-ship receiver of the
+remote compaction region (``segship.py``) and the client half of the
+agent tier (``agent.py``). Counterpart of ``gyeeta_tpu/net``; the relay
+and the multi-process ingest edge are not ported yet (``unported.py``)."""

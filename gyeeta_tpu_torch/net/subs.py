@@ -17,9 +17,9 @@ render + one diff per tick, not thousands of polls.
 
 :class:`SubscriptionHub` is the shared server half — the SAME hub runs
 inside :class:`~gyeeta_tpu_torch.net.server.GytServer` (fetching from the
-local snapshot tier) and, in the reference, inside the fan-in gateway
-(``net/gateway.py``, not ported yet), so both edges push identical
-event streams. Subscriptions group by the
+local snapshot tier) and inside the fan-in gateway
+(``net/gateway.py``, fetching through the distributed edge cache), so
+both edges push identical event streams. Subscriptions group by the
 NORMALIZED request key (``query/normalize.py`` — the cache-key
 function), which is what makes "thousands of dashboards, one render"
 literal: every subscriber of a semantically-equal query lands in one
@@ -198,7 +198,8 @@ class SubscriptionHub:
                  max_ratio: Optional[float] = None,
                  max_subs: int = 4096,
                  persist_path: Optional[str] = None,
-                 retain: Optional[int] = None):
+                 retain: Optional[int] = None,
+                 persist_max: Optional[int] = None):
         self._fetch = fetch
         self.stats = stats
         self.history = sub_history() if history is None else int(history)
@@ -222,7 +223,8 @@ class SubscriptionHub:
         self._cq_panels: dict[str, _CQPanel] = {}
         self._persist_path = persist_path
         self._persist_f = None
-        self._persist_max = persist_max_bytes()
+        self._persist_max = persist_max_bytes() if persist_max is None \
+            else int(persist_max)
         if persist_path:
             self._load_persist()
 

@@ -2,18 +2,23 @@
 
 Counterpart of ``gyeeta_tpu/server_main.py``: config layering (defaults
 ≺ file ≺ ``GYT_<FIELD>`` environment ≺ flags; this module is the one
-place that hands ``os.environ`` to the loaders), structured startup
-logging, checkpoint restore and WAL replay, the history compactor,
-SIGTERM/SIGINT graceful shutdown (drain staged slabs, final checkpoint),
-SIGHUP hot-reload of runtime knobs, and a periodic self-stats report.
-Run as ``python -m gyeeta_tpu_torch serve --device cuda --port 10038``.
+place that hands ``os.environ`` to the loaders, the segment shipper and
+the receiver), structured startup logging, checkpoint restore and WAL
+replay, the history compactor, the remote compaction region (a segment
+receiver landing shipped WAL segments in ``--ship-staging`` and the
+staging compaction loop replaying them into ``--shard-dir``) and the
+source side's segment shipper (``--ship-to``), SIGTERM/SIGINT graceful
+shutdown (drain staged slabs, final checkpoint), SIGHUP hot-reload of
+runtime knobs, and a periodic self-stats report. Run as
+``python -m gyeeta_tpu_torch serve --device cuda --port 10038``.
 
-The runtime lives on ``--device`` (CUDA by default; without a GPU the
-daemon raises unless ``--device cpu`` is given). Flags of tiers the port
-does not have yet raise :class:`~gyeeta_tpu_torch.unported.NotPortedError`
-naming ROADMAP.md's item: ``--shards`` above 1 and ``--compact-procs``
-(the sharded tier), ``--ship-to``, ``--ship-staging`` and ``--ship-port``
-(the segment shipper and the remote compaction region).
+The runtime, and every compactor's replay runtime, lives on ``--device``
+(CUDA by default; without a GPU the daemon raises unless ``--device cpu``
+is given). Flags of tiers the port does not have yet raise
+:class:`~gyeeta_tpu_torch.unported.NotPortedError` naming ROADMAP.md's
+item: ``--shards`` above 1 and ``--compact-procs`` (the sharded tier); a
+staging dir whose landed segments are ``shard_NN/`` is refused by the
+staging loop's pass, logged and counted in ``compact_errors``.
 
 Single-controller design: one asyncio loop owns the Runtime; the device
 stream is the concurrency.
@@ -31,7 +36,7 @@ from typing import Optional
 
 from gyeeta_tpu_torch.net.server import GytServer
 from gyeeta_tpu_torch.runtime import Runtime
-from gyeeta_tpu_torch.unported import SERVING_REST, SHARDED, refuse
+from gyeeta_tpu_torch.unported import SHARDED, refuse
 from gyeeta_tpu_torch.utils import config as C
 
 log = logging.getLogger("gyeeta_tpu_torch.daemon")
@@ -45,20 +50,117 @@ def _refuse_unported(args) -> None:
                      SHARDED)
     if int(getattr(args, "compact_procs", 0) or 0) >= 1:
         raise refuse("--compact-procs (distributed compaction)", SHARDED)
-    for flag in ("ship_to", "ship_staging", "ship_port"):
-        if getattr(args, flag, None) is not None:
-            raise refuse(f"--{flag.replace('_', '-')} (the segment "
-                         "shipper and the remote compaction region)",
-                         SERVING_REST)
+
+
+class _StagingCompactLoop:
+    """Compaction-region replay loop over a ship staging directory.
+
+    Segments land in ``staging`` via net/segship.py and are replayed by
+    the port's ``Compactor`` (journal_dir mode) exactly as if local, its
+    replay runtime on ``device`` (the daemon's). The layout is
+    discovered from what actually lands, so the daemon can boot on an
+    empty staging dir before the first segment arrives: construction of
+    the compactor is deferred to the first pass that finds segments. A
+    sharded layout (``shard_NN/``) raises ``NotPortedError`` naming the
+    sharded tier from that pass."""
+
+    def __init__(self, cfg, opts, staging: str, shard_dir: str,
+                 stats=None, device=None):
+        self.cfg = cfg
+        self.opts = opts
+        self.staging = staging
+        self.shard_dir = shard_dir
+        self.stats = stats
+        self.device = device
+        self.compactor = None
+        self._stop = None           # threading.Event, set in start()
+        self._thread = None
+
+    def _ensure(self):
+        if self.compactor is not None:
+            return self.compactor
+        from gyeeta_tpu_torch.utils import journal as J
+        if J.sharded_subdirs(self.staging):
+            raise refuse("compaction of a sharded staging dir "
+                         "(shard_NN/)", SHARDED)
+        if J.dir_segments(self.staging):
+            from gyeeta_tpu_torch.history.compactor import Compactor
+            self.compactor = Compactor(self.cfg, self.opts,
+                                       journal_dir=self.staging,
+                                       shard_dir=self.shard_dir,
+                                       stats=self.stats,
+                                       device=self.device)
+        return self.compactor
+
+    def pass_once(self) -> None:
+        c = self._ensure()
+        if c is None:
+            return                  # nothing landed yet
+        c.compact_once()
+
+    def floors(self):
+        """The compacted floor for SegmentReceiver.sweep_below: a
+        staged segment below it is fully represented in the shard store
+        and safe to delete locally (the ship ledger keeps answering
+        "done" for it)."""
+        c = self.compactor
+        if c is None:
+            return None
+        try:
+            pos = c.store.position()
+        except Exception:           # noqa: BLE001 — sweep is best-effort
+            return None
+        if not pos:
+            return None
+        from gyeeta_tpu_torch.utils import journal as J
+        return J.floors_of(pos)
+
+    def start(self) -> None:
+        import threading
+        self._stop = threading.Event()
+        interval = max(float(self.opts.hist_compact_interval_s), 0.2)
+
+        def _loop():
+            while not self._stop.wait(interval):
+                try:
+                    self.pass_once()
+                except Exception:   # noqa: BLE001 — keep the loop alive
+                    if self.stats is not None:
+                        self.stats.bump("compact_errors")
+                    log.exception("staging compaction pass failed")
+
+        self._thread = threading.Thread(target=_loop, daemon=True,
+                                        name="gyt-staging-compact")
+        self._thread.start()
+
+    def stop(self) -> None:
+        if self._stop is not None:
+            self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30.0)
+            self._thread = None
+
+    def final_pass(self) -> None:
+        """Stop the loop and run one last replay so a clean stop leaves
+        the shard store current with everything already landed."""
+        self.stop()
+        try:
+            self.pass_once()
+        except Exception:           # noqa: BLE001 — never block shutdown
+            log.exception("final staging compaction pass failed")
+        if self.compactor is not None:
+            self.compactor.close()
 
 
 class Daemon:
     def __init__(self, args: argparse.Namespace, env=None):
-        """``env``: the environment layer of the config loaders
+        """``env``: the environment layer of the config loaders and the
+        ``GYT_SHIP_*`` knobs of the shipper and the receiver
         (``os.environ`` unless given)."""
         self.args = args
         _refuse_unported(args)
         env = os.environ if env is None else env
+        self.env = env
         cfg = C.load_engine_cfg(args.config, env=env)
         opts = C.load_runtime_opts(
             args.config, env=env,
@@ -140,7 +242,21 @@ class Daemon:
         # snapshot shards (the time-travel tier's writer). Runs only
         # with BOTH a journal (the source) and a shard dir (the sink).
         self.compactor = None
-        if opts.hist_shard_dir and self.rt.journal is not None:
+        # remote compaction region pieces: receiver + staging replay
+        # loop on the compaction side, shipper thread on the source side
+        self._ship_loop = None
+        self.ship_recv = None
+        self.shipper = None
+        self._ship_thread = None
+        if opts.hist_shard_dir and getattr(args, "ship_staging", None):
+            # compaction-region mode: the WAL source is the SHIP STAGING
+            # dir (segments landed by net/segship.py), not this
+            # process's own journal; replayed on the runtime's device
+            self._ship_loop = _StagingCompactLoop(
+                self.rt.cfg, opts, args.ship_staging,
+                opts.hist_shard_dir, stats=self.rt.stats,
+                device=self.rt.device)
+        elif opts.hist_shard_dir and self.rt.journal is not None:
             # its replay runtime runs on the serving runtime's device
             from gyeeta_tpu_torch.history.compactor import Compactor
             self.compactor = Compactor(self.rt.cfg, opts,
@@ -188,6 +304,7 @@ class Daemon:
                      "-> %s", self.rt.opts.hist_window_ticks,
                      self.rt.opts.hist_compact_interval_s,
                      self.rt.opts.hist_shard_dir)
+        await self._start_ship()
         stats_task = asyncio.create_task(self._stats_loop())
         try:
             await self.stop_event.wait()
@@ -196,6 +313,48 @@ class Daemon:
                 watchdog.stop()
             stats_task.cancel()
             await self.shutdown()
+
+    async def _start_ship(self) -> None:
+        """The remote compaction region's receiver and staging loop,
+        and the source side's shipper thread, as the flags ask."""
+        args = self.args
+        if getattr(args, "ship_staging", None) \
+                and getattr(args, "ship_port", None) is not None:
+            from gyeeta_tpu_torch.net.segship import SegmentReceiver
+            self.ship_recv = SegmentReceiver(
+                args.ship_staging, stats=self.rt.stats,
+                host=args.ship_listen_host, port=args.ship_port,
+                floors_fn=(self._ship_loop.floors
+                           if self._ship_loop is not None else None),
+                notifylog=self.rt.notifylog, env=self.env)
+            sh, sp = await self.ship_recv.start()
+            # machine-parsable bind line for harnesses scripting
+            # ephemeral ports
+            print(f"SHIP_LISTEN {sh} {sp}", flush=True)
+        if self._ship_loop is not None:
+            self._ship_loop.start()
+            log.info("staging compactor over %s every %.0fs -> %s",
+                     args.ship_staging,
+                     self.rt.opts.hist_compact_interval_s,
+                     self.rt.opts.hist_shard_dir)
+        if getattr(args, "ship_to", None) and self.rt.journal is not None:
+            import threading
+
+            from gyeeta_tpu_torch.history.shipper import SegmentShipper
+            th, _, tp = args.ship_to.rpartition(":")
+            self.shipper = SegmentShipper({
+                "target": (th or "127.0.0.1", int(tp)),
+                "shipper_id": getattr(args, "ship_id", None),
+                "journal": self.rt.journal, "stats": self.rt.stats,
+                "env": self.env})
+            self._ship_thread = threading.Thread(
+                target=self.shipper.run, daemon=True, name="gyt-shipper")
+            self._ship_thread.start()
+            log.info("segment shipper -> %s (id=%s)", args.ship_to,
+                     self.shipper.shipper_id)
+        elif getattr(args, "ship_to", None):
+            log.warning("--ship-to without --journal-dir: nothing to "
+                        "ship (the WAL is the shipped source)")
 
     async def _stats_loop(self) -> None:
         while True:
@@ -253,6 +412,19 @@ class Daemon:
         of the reference's init proc). A clean shutdown therefore
         leaves an EMPTY WAL window: the respawn replays zero chunks."""
         log.info("shutting down: draining staged slabs")
+        if self.shipper is not None:
+            # stop BEFORE the journal closes; the ship floor it
+            # registered stays in force for the final truncation, so
+            # a not-yet-landed segment survives this shutdown
+            self.shipper.stop()
+            if self._ship_thread is not None:
+                self._ship_thread.join(timeout=10.0)
+        if self._ship_loop is not None:
+            # final staging pass so a clean stop leaves the shard store
+            # current with everything already landed
+            self._ship_loop.final_pass()
+        if self.ship_recv is not None:
+            await self.ship_recv.stop()
         if self.compactor is not None:
             # final pass BEFORE the journal closes: seal + compact the
             # shutdown window so a clean stop leaves history current
@@ -480,18 +652,31 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     ap.add_argument("--compact-interval", type=float, default=None,
                     help="compaction daemon cadence in seconds "
                     "(default 30)")
-    # flags of tiers not ported yet: each raises NotPortedError
     ap.add_argument("--compact-procs", type=int, default=0,
                     help="distributed compaction: not ported yet, "
                     "N >= 1 raises (0 = the in-process compactor)")
+    # remote compaction region (history/shipper.py + net/segship.py):
+    # sealed WAL segments ship content-hashed to a peer region's
+    # staging dir, where the port's compactor replays them on the
+    # region's device exactly as if local
     ap.add_argument("--ship-to", metavar="HOST:PORT",
-                    help="the segment shipper: not ported yet, raises")
+                    help="ship this server's sealed WAL segments to a "
+                    "remote compaction region's segment receiver "
+                    "(needs --journal-dir; the ship truncate floor "
+                    "pins unshipped segments against checkpoint "
+                    "truncation)")
+    ap.add_argument("--ship-id", default=None,
+                    help="stable shipper identity for --ship-to "
+                    "(provenance key; default ship-<hostname>)")
     ap.add_argument("--ship-staging",
-                    help="the remote compaction region: not ported "
-                    "yet, raises")
+                    help="run the COMPACTION-REGION side: accept "
+                    "shipped segments into this staging dir (with "
+                    "--ship-port) and compact it into --shard-dir")
     ap.add_argument("--ship-port", type=int, default=None,
-                    help="the remote compaction region's listen port: "
-                    "not ported yet, raises")
+                    help="listen port for shipper uplinks into "
+                    "--ship-staging (0 = ephemeral; prints "
+                    "SHIP_LISTEN host port)")
+    ap.add_argument("--ship-listen-host", default="0.0.0.0")
     ap.add_argument("--log-level", default="INFO")
     return ap.parse_args(argv)
 

@@ -7,12 +7,8 @@ dropped, no section skipped, no empty answer served in its place.
 
 from __future__ import annotations
 
-# ROADMAP.md, queue 1: the items that port what is still missing
+# ROADMAP.md, queue 1: the item that ports what is still missing
 SHARDED = "item 6, the sharded tier"
-# what remains of item 5 (the serving edges): the fan-in gateway, the
-# segment shipper with the remote compaction region, and the agent-side
-# subcommands
-SERVING_REST = "item 5, what remains of the serving edges"
 
 
 class NotPortedError(NotImplementedError, ValueError):

@@ -39,7 +39,9 @@ Durability contract:
 
 The sharded runtime's per-shard journal (``ShardedJournal``) and its
 tick-merged readers are not here: they come with ROADMAP.md queue 1,
-item 6.
+item 6. :func:`sharded_subdirs` (a directory listing) is, since the
+segment shipper and the staging compaction loop detect the layout
+with it.
 """
 
 from __future__ import annotations
@@ -516,6 +518,24 @@ def dir_segments(path) -> list[int]:
         except ValueError:
             continue
     return sorted(out)
+
+
+def sharded_subdirs(path) -> list:
+    """``shard_NN`` subdirectories of a sharded WAL root, shard-index
+    order; empty for a flat (single-journal) dir. The segment shipper
+    and the staging compaction loop detect the layout with it, without
+    a live journal object."""
+    d = pathlib.Path(path)
+    if not d.is_dir():
+        return []
+    out = []
+    for p in sorted(d.glob("shard_*")):
+        if p.is_dir():
+            try:
+                out.append((int(p.name.split("_")[-1]), p))
+            except ValueError:
+                continue
+    return [p for _i, p in sorted(out)]
 
 
 def read_entries(path, off: int = len(MAGIC), stats=None

@@ -2,7 +2,14 @@
 
 - ``parse_args`` gives the reference's defaults (and ``--device cuda``);
   every flag of an unported tier raises ``NotPortedError`` naming its
-  ROADMAP.md item, as do the CLI subcommands of those tiers.
+  ROADMAP.md item, as do ``relay``, ``compact --procs`` and ``compact
+  list`` on a parted store.
+- ``compact run`` equals ``Compactor.compact_once``; ``gateway``,
+  ``ship``, ``shiprecv`` and ``compact`` parse as the reference's do,
+  and ``ship --once`` ships a WAL dir to a receiver.
+- An in-process ``Daemon`` pair, one with ``--ship-to`` and one with
+  ``--ship-staging --ship-port 0 --shard-dir``, ships, lands and
+  compacts, and stops its shipper, receiver and staging loop.
 - ``Daemon(--device cpu --restore-latest)`` over a checkpoint and the
   WAL written after it restores and replays to the state of the runtime
   that wrote them, leaf for leaf; its checkpoint discovery equals the
@@ -16,6 +23,9 @@
   stops it with a final checkpoint.
 """
 
+import asyncio
+import contextlib
+import io
 import json
 import os
 import re
@@ -28,6 +38,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from gyeeta_tpu import cli as j_cli
 from gyeeta_tpu import server_main as j_main
 from gyeeta_tpu.utils import config as j_conf
 from gyeeta_tpu.utils import crashguard as j_guard
@@ -63,16 +74,15 @@ def test_config_file_builds_the_test_geometry(tmp_path):
     assert t_conf.load_engine_cfg(_config(tmp_path)) == t_cfg()
 
 
-_UNPORTED_TUNING = ("shard_queue_mb", "throttle_ring_frac", "ship_id",
-                    "ship_listen_host")
+_UNPORTED_TUNING = ("shard_queue_mb", "throttle_ring_frac")
 
 
 def test_parse_args_defaults_match_reference():
     j, t = vars(j_main.parse_args([])), vars(t_main.parse_args([]))
     assert t.pop("device") == "cuda"
     assert t.pop("preagg") is False
-    # flags that only tune the unported sharded, multi-process and
-    # shipping tiers are left out until those tiers land
+    # flags that only tune the unported sharded and multi-process tiers
+    # are left out until those tiers land
     for k in _UNPORTED_TUNING:
         assert k in j and k not in t
         del j[k]
@@ -82,9 +92,6 @@ def test_parse_args_defaults_match_reference():
 _UNPORTED_FLAGS = {
     "shards": (["--shards", "2"], "item 6"),
     "compact_procs": (["--compact-procs", "1"], "item 6"),
-    "ship_to": (["--ship-to", "127.0.0.1:9"], "item 5"),
-    "ship_staging": (["--ship-staging", "x"], "item 5"),
-    "ship_port": (["--ship-port", "0"], "item 5"),
     "ingest_procs": (["--ingest-procs", "2"], "item 6"),
     "relay_port": (["--relay-port", "0"], "item 6"),
 }
@@ -99,14 +106,215 @@ def test_unported_flag_raises(name, tmp_path):
         t_main.Daemon(args, env={})
 
 
-@pytest.mark.parametrize("cmd,item", [("gateway", "item 5"),
-                                      ("ship", "item 5"),
-                                      ("shiprecv", "item 5"),
-                                      ("relay", "item 6"),
-                                      ("compact", "item 6")])
+@pytest.mark.parametrize("cmd,item", [("relay", "item 6")])
 def test_unported_subcommand_raises(cmd, item):
     with pytest.raises(unported.NotPortedError, match=item):
         t_cli.main([cmd])
+
+
+def test_compact_procs_raises_item_6(tmp_path):
+    with pytest.raises(unported.NotPortedError, match="item 6"):
+        t_cli.main(["compact", "run", "--procs", "1", "--journal-dir",
+                    str(tmp_path / "wal"), "--shard-dir",
+                    str(tmp_path / "shards")])
+
+
+def test_compact_list_on_parted_store_raises_item_6(tmp_path):
+    (tmp_path / "parts" / "part_00").mkdir(parents=True)
+    with pytest.raises(unported.NotPortedError, match="item 6"):
+        t_cli.main(["compact", "list", "--shard-dir",
+                    str(tmp_path / "parts")])
+
+
+def _no_gyt_env(monkeypatch):
+    for k in list(os.environ):
+        if k.startswith("GYT_"):
+            monkeypatch.delenv(k)
+
+
+def test_compact_run_equals_compactor(tmp_path, monkeypatch, capsys):
+    """``compact run`` over a WAL dir reports and writes what
+    ``Compactor.compact_once`` does over the same dir."""
+    from gyeeta_tpu_torch.history.compactor import Compactor
+    _no_gyt_env(monkeypatch)
+    wal = tmp_path / "wal"
+    opts = dict(OPTS, journal_dir=str(wal), hist_window_ticks=1)
+    now = [1.7e9]
+    rt = TRuntime(t_cfg(), t_conf.RuntimeOpts(**opts),
+                  clock=lambda: now[0], device="cpu")
+    try:
+        for buf in tick_buffers(TSim, t_wire)[:3]:
+            rt.feed(buf)
+            now[0] += 5.0
+            rt.run_tick()
+        rt.flush()
+    finally:
+        rt.close()
+    t_cli.main(["compact", "run", "--journal-dir", str(wal),
+                "--shard-dir", str(tmp_path / "cli"), "--config",
+                _config(tmp_path, **opts), "--device", "cpu",
+                "--upto-tick", "3"])
+    got = json.loads(capsys.readouterr().out)
+    c = Compactor(t_cfg(), t_conf.RuntimeOpts(**opts),
+                  journal_dir=str(wal), shard_dir=str(tmp_path / "lib"),
+                  device="cpu")
+    try:
+        want = c.compact_once(upto_tick=3)
+        ents = c.store.shards("raw")
+        lib = [c.store.load(e)["state"] for e in ents]
+    finally:
+        c.close()
+    for k in ("ev_per_sec", "secs"):
+        got.pop(k), want.pop(k)
+    assert got == want and want["windows"] == 3
+    t_cli.main(["compact", "list", "--shard-dir", str(tmp_path / "cli")])
+    listed = json.loads(capsys.readouterr().out)
+    assert [e["tick1"] for e in listed["shards"]] == \
+        [e["tick1"] for e in ents]
+    assert "shipped_segments" not in listed
+    from gyeeta_tpu_torch.history.shards import ShardStore
+    store = ShardStore(tmp_path / "cli")
+    for ent, leaves in zip(store.shards("raw"), lib):
+        for a, b in zip(store.load(ent)["state"], leaves):
+            assert a.tobytes() == b.tobytes()
+
+
+def _help_flags(main, argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), pytest.raises(SystemExit) as e:
+        main(argv + ["--help"])
+    assert e.value.code == 0
+    return set(re.findall(r"(?<![\w-])--[a-z][a-z-]*", out.getvalue()))
+
+
+@pytest.mark.parametrize("cmd", ["gateway", "ship", "shiprecv",
+                                 "compact"])
+def test_subcommand_parses_as_reference(cmd, capsys):
+    """The same flags as the reference's subcommand (``compact`` adds
+    ``--device``), and the same exit on a missing required flag."""
+    t, j = _help_flags(t_cli.main, [cmd]), _help_flags(j_cli.main, [cmd])
+    assert t - ({"--device"} if cmd == "compact" else set()) == j
+    with pytest.raises(SystemExit) as te:
+        t_cli.main([cmd] if cmd != "compact" else [cmd, "list"])
+    with pytest.raises(SystemExit) as je:
+        j_cli.main([cmd] if cmd != "compact" else [cmd, "list"])
+    assert te.value.code == je.value.code == 2
+    capsys.readouterr()
+
+
+def test_gateway_without_upstreams_exits_like_reference(capsys):
+    with pytest.raises(SystemExit) as te:
+        t_cli.main(["gateway", "--peer", "127.0.0.1:9"])
+    t_err = capsys.readouterr().err
+    with pytest.raises(SystemExit) as je:
+        j_cli.main(["gateway", "--peer", "127.0.0.1:9"])
+    j_err = capsys.readouterr().err
+    assert te.value.code == je.value.code == 2
+    # the usage wraps at the program's name; the error line is the same
+    assert t_err.splitlines()[-1].replace("gyeeta_tpu_torch",
+                                          "gyeeta_tpu") \
+        == j_err.splitlines()[-1]
+    assert "need --upstream" in t_err
+
+
+def test_ship_once_ships_a_wal_dir(tmp_path, capsys):
+    """``ship --once`` ships every segment of a WAL dir to a receiver
+    and reports it, as the reference's does."""
+    from gyeeta_tpu_torch.net.segship import SegmentReceiver
+    from gyeeta_tpu_torch.utils import journal as J
+    from gyeeta_tpu_torch.utils.selfstats import Stats
+    j = J.Journal(tmp_path / "wal", segment_max_bytes=1 << 12)
+    for i in range(40):
+        j.append(b"z" * 256, hid=1, conn_id=i, tick=i // 8)
+    j.close()
+    nsegs = len(J.dir_segments(tmp_path / "wal"))
+
+    async def go():
+        rcv = SegmentReceiver(tmp_path / "stage", stats=Stats(),
+                              host="127.0.0.1")
+        h, p = await asyncio.wait_for(rcv.start(), 30)
+        try:
+            await asyncio.wait_for(asyncio.to_thread(
+                t_cli.main, ["ship", "--once", "--dir",
+                             str(tmp_path / "wal"), "--to", f"{h}:{p}",
+                             "--id", "src", "--scan-s", "0.05"]), 60)
+        finally:
+            await asyncio.wait_for(rcv.stop(), 30)
+        return rcv
+
+    rcv = asyncio.run(go())
+    out = capsys.readouterr().out
+    assert "SHIP_RUN id=src layout=flat shards=1" in out
+    assert f"SHIP_DONE shipped={nsegs} dropped=0" in out
+    assert len(rcv.ledger) == nsegs
+
+
+def test_daemon_pair_ships_lands_and_compacts(tmp_path, monkeypatch):
+    """A region daemon (``--ship-staging --ship-port 0 --shard-dir``)
+    and a source daemon (``--journal-dir --ship-to``), in one process:
+    the source's sealed segments land in the region's staging dir, the
+    staging loop compacts them on the region's device, and both stop
+    their shipper, receiver and loop."""
+    from gyeeta_tpu_torch.utils import crashguard, journal as J
+    monkeypatch.setattr(crashguard, "enable_crash_dumps", lambda p: None)
+    cfgf = _config(tmp_path)
+    common = ["--device", "cpu", "--config", cfgf, "--host", "127.0.0.1",
+              "--port", "0", "--tick-interval", "0"]
+    stage = tmp_path / "stage"
+
+    async def until(pred, what):
+        async def spin():
+            while not pred():
+                await asyncio.sleep(0.02)
+        try:
+            await asyncio.wait_for(spin(), 60)
+        except asyncio.TimeoutError:
+            raise AssertionError(f"timed out waiting for {what}") from None
+
+    async def go():
+        region = t_main.Daemon(t_main.parse_args(common + [
+            "--ship-staging", str(stage), "--ship-port", "0",
+            "--ship-listen-host", "127.0.0.1", "--shard-dir",
+            str(tmp_path / "shards"), "--compact-interval", "0.2"]),
+            env={})
+        rtask = asyncio.create_task(region.run())
+        stask = source = None
+        try:
+            await until(lambda: region.ship_recv is not None
+                        and region.ship_recv._server is not None,
+                        "the receiver")
+            port = region.ship_recv.port
+            source = t_main.Daemon(t_main.parse_args(common + [
+                "--journal-dir", str(tmp_path / "wal"),
+                "--ship-to", f"127.0.0.1:{port}", "--ship-id", "src"]),
+                env={"GYT_SHIP_SCAN_S": "0.05"})
+            stask = asyncio.create_task(source.run())
+            await until(lambda: source.shipper is not None, "the shipper")
+            assert source.shipper.scan_s == 0.05
+            for buf in tick_buffers(TSim, t_wire)[:2]:
+                source.rt.feed(buf)
+                source.rt.run_tick()
+            source.rt.flush()
+            source.rt.journal.seal_active()
+            sealed = source.rt.journal.sealed_upto()
+            await until(lambda: len(J.dir_segments(stage)) >= sealed,
+                        "the landed segments")
+            await until(lambda: region.rt.stats.counters.get(
+                "compact_passes", 0) >= 1, "a staging compaction pass")
+            assert region._ship_loop.compactor.device.type == "cpu"
+            assert region.rt.stats.counters["ship_shipped_segments"] \
+                == sealed
+        finally:
+            for d, task in ((source, stask), (region, rtask)):
+                if d is not None and task is not None:
+                    d.stop_event.set()
+                    await asyncio.wait_for(task, 60)
+        assert not source._ship_thread.is_alive()
+        assert region.ship_recv._server is None
+        assert region._ship_loop._thread is None
+        assert not region.rt.stats.counters.get("compact_errors")
+
+    asyncio.run(go())
 
 
 def _leaves(rt):

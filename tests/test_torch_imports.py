@@ -40,8 +40,9 @@ def test_no_jax_or_reference_import(path):
 
 
 # modules of the edge pre-aggregation and snapshot slice, of the
-# registries and alert slice, of the history and journal slice and of
-# the serving edge, each of which the AST check above must cover
+# registries and alert slice, of the history and journal slice, of the
+# serving edge and of the fabric gateway and the remote compaction
+# region, each of which the AST check above must cover
 SLICE_MODULES = ("sketch/edgefold.py", "query/snapshot.py",
                  "query/normalize.py", "query/crud.py", "obs/prom.py",
                  "obs/spans.py", "utils/selfstats.py", "ingest/decode.py",
@@ -66,7 +67,10 @@ SLICE_MODULES = ("sketch/edgefold.py", "query/snapshot.py",
                  "utils/config.py", "net/__init__.py", "net/agent.py",
                  "net/qexec.py", "net/subs.py", "net/nmhandle.py",
                  "net/server.py", "net/webgw.py", "server_main.py",
-                 "cli.py", "__main__.py", "unported.py")
+                 "cli.py", "__main__.py", "unported.py",
+                 # the fabric gateway and the remote compaction region
+                 "net/gateway.py", "net/segship.py",
+                 "history/shipper.py")
 
 
 @pytest.mark.parametrize("mod", SLICE_MODULES)
