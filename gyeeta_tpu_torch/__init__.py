@@ -3,7 +3,9 @@
 A second package beside the JAX one, with the same module layout and
 names, so each counterpart is easy to find: ``runtime.py`` (``Runtime``:
 ``feed`` → ``run_tick`` → ``query``), ``ingest/{wire,decode}.py``,
-``sim/partha.py``, ``sketch/*``, ``engine/*``, ``parallel/depgraph.py``,
+``sim/partha.py``, ``sketch/*``, ``engine/*``, ``parallel/*`` (the
+dependency graph and the sharded tier: ``ShardedRuntime`` over a mesh of
+per-shard states driven from one process),
 ``semantic/*``, ``query/*`` (readbacks, criteria, aggregation, the
 JSON query API, the CRUD channel, continuous queries), ``alerts/*``
 (the alert manager and webhook delivery), ``trace/defs.py``,

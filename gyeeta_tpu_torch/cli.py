@@ -19,7 +19,7 @@ Counterpart of the serving half of ``gyeeta_tpu/cli.py``; a bare
 does. This module and ``server_main`` are the ones that hand
 ``os.environ`` to the modules' knob readers. The tier the port does not
 have yet raises :class:`~gyeeta_tpu_torch.unported.NotPortedError`
-naming ROADMAP.md's item 6: ``relay``, ``compact --procs`` ≥ 1 and a
+naming ROADMAP.md's item 7: ``relay``, ``compact --procs`` ≥ 1 and a
 parted shard store. The agent-side subcommands (``agent``, ``replay``,
 ``obs``, ``nm``, ``chaos``) are not carried.
 """
@@ -32,9 +32,9 @@ import json
 import os
 import sys
 
-from gyeeta_tpu_torch.unported import SHARDED, refuse
+from gyeeta_tpu_torch.unported import SHARDED_PROCS, refuse
 
-_UNPORTED = {"relay": ("the remote ingest relay", SHARDED)}
+_UNPORTED = {"relay": ("the remote ingest relay", SHARDED_PROCS)}
 _AGENT_SIDE = ("agent", "replay", "obs", "nm", "chaos")
 
 
@@ -151,7 +151,7 @@ def _cmd_compact(argv) -> None:
     args = ap.parse_args(argv)
     if args.procs >= 1:
         raise refuse(f"compact --procs {args.procs} (parallel "
-                     "compaction)", SHARDED)
+                     "compaction)", SHARDED_PROCS)
 
     from gyeeta_tpu_torch.utils import config as C
     if args.what == "list":

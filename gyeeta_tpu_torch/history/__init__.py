@@ -14,7 +14,7 @@ add/drop partition jobs).
 
 Counterpart of ``gyeeta_tpu/history/``. The parted shard store, its
 snapshots and the parallel compactor (``compactproc``) come with the
-sharded tier (ROADMAP.md queue 1, item 6).
+sharded tier's worker processes (ROADMAP.md queue 1, item 7).
 """
 
 from gyeeta_tpu_torch.history.store import HistoryStore, to_sql

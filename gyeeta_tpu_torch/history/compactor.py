@@ -39,23 +39,24 @@ Counterpart of ``gyeeta_tpu/history/compactor.py``. The replay
 CUDA every replayed conn/resp slab launches the fused sketch kernels,
 and shards carry the reference's leaf order and dtypes
 (``aggstate.state_to_numpy``). A journal dir with ``shard_NN/``
-subdirectories (the sharded runtime's WAL) is refused with
-``NotPortedError`` naming ROADMAP.md queue 1, item 6, which also brings
-the reference's ``runtime_factory`` (a sharded replay runtime) and
-``upto_seq`` (the parallel compactor's workers).
+subdirectories (the sharded runtime's per-shard WAL) is read by a walk
+that merges the shards' sealed segments by window tick into the same
+flat replay runtime, and the resume position is then per shard
+(``[shard, seg, off]`` triples), as the reference's in-process
+compactor does. The reference's ``upto_seq`` and ``runtime_factory``
+serve its parallel compactor's worker processes, ROADMAP.md queue 1,
+item 7.
 """
 
 from __future__ import annotations
 
 import logging
-import pathlib
 import threading
 import time
 from typing import Optional
 
 import numpy as np
 
-from gyeeta_tpu_torch import unported
 from gyeeta_tpu_torch.engine import aggstate
 from gyeeta_tpu_torch.history import shards as SH, winquant as WQ
 from gyeeta_tpu_torch.history.timeview import aggregate_window_columns
@@ -167,10 +168,10 @@ class Compactor:
         self._last_t = float(ent["t1"])
         wal = data["meta"].get("wal")
         if wal and isinstance(wal[0], (list, tuple)):
-            raise unported.refuse("a shard of the sharded WAL "
-                                  "(per-shard positions)",
-                                  unported.SHARDED)
-        self._pos = tuple(wal) if wal else None
+            # sharded WAL: [shard, seg, off] triples → per-shard map
+            self._pos = {int(e[0]): (int(e[1]), int(e[2])) for e in wal}
+        else:
+            self._pos = tuple(wal) if wal else None
 
     def _ensure_rt(self):
         if self._rt is not None:
@@ -199,19 +200,39 @@ class Compactor:
         with self._lock:
             return self._compact_once(seal, upto_tick)
 
+    def _pos_serial(self):
+        """JSON-stable resume position: the flat ``(seg, off)`` pair,
+        or ``[shard, seg, off]`` triples for the sharded WAL."""
+        if isinstance(self._pos, dict):
+            return [[int(s), int(p[0]), int(p[1])]
+                    for s, p in sorted(self._pos.items())]
+        return self._pos
+
     def _chunk_stream(self, upto):
         """Sealed-WAL chunks from the resume position → ``(pos_update_fn,
-        t, hid, tick, cid, chunk)``. A journal dir with ``shard_NN/``
-        subdirectories holds the sharded runtime's WAL: refused."""
-        d = pathlib.Path(self.journal_dir)
-        if d.is_dir() and any(p.is_dir() for p in d.glob("shard_*")):
-            raise unported.refuse("compaction of a sharded WAL "
-                                  "(shard_NN/)", unported.SHARDED)
+        t, hid, tick, cid, chunk)``: the flat-dir walk, or the tick-
+        merged walk over ``shard_NN/`` subdirs of a sharded WAL (the
+        merge keeps windows in order; within a tick the shards' records
+        are host-disjoint, so their interleave does not matter)."""
+        subdirs = J.sharded_subdirs(self.journal_dir)
+        if subdirs:
+            for s, seq, off, t, hid, tick, cid, chunk in \
+                    J.read_sealed_sharded(subdirs, self._pos_map(), upto,
+                                          stats=self.stats):
+                def upd(s=s, seq=seq, off=off):
+                    cur = self._pos_map()
+                    cur[s] = (seq, off)
+                    self._pos = cur
+                yield upd, t, hid, tick, cid, chunk
+            return
         for seq, off, t, hid, tick, cid, chunk in J.read_sealed(
                 self.journal_dir, self._pos, upto, stats=self.stats):
             def upd(seq=seq, off=off):
                 self._pos = (seq, off)
             yield upd, t, hid, tick, cid, chunk
+
+    def _pos_map(self) -> dict:
+        return dict(self._pos) if isinstance(self._pos, dict) else {}
 
     def _compact_once(self, seal, upto_tick) -> dict:
         t_wall = time.perf_counter()
@@ -222,6 +243,9 @@ class Compactor:
         # offline dir (no writer) is read whole
         upto = self.journal.sealed_upto() \
             if self.journal is not None else None
+        if upto is not None and not isinstance(upto, (list, tuple)) \
+                and J.sharded_subdirs(self.journal_dir):
+            upto = None                    # layout mismatch: read all
         nrec = nch = windows = 0
         with self.stats.timeit("compact_replay"):
             for upd, t, hid, tick, cid, chunk in self._chunk_stream(
@@ -310,7 +334,7 @@ class Compactor:
                 dep_leaves=dg.dep_to_numpy(rt.dep),
                 columns=columns,
                 cfg_fp=_cfg_fingerprint(self.cfg),
-                wal_pos=self._pos,
+                wal_pos=self._pos_serial(),
                 deltas=deltas)
         self.stats.gauge("compact_shard_bytes", float(ent["bytes"]))
         self._last_t = t1

@@ -431,5 +431,5 @@ def open_shard_store(path, stats=None):
     root raises :class:`~gyeeta_tpu_torch.unported.NotPortedError`."""
     if is_parted(path):
         raise unported.refuse("a parted shard store (part_NN/)",
-                              unported.SHARDED)
+                              unported.SHARDED_PROCS)
     return ShardStore(path, stats=stats)

@@ -38,12 +38,13 @@ outage), the OLDEST unshipped segment is announced as a permanent
 ``T_SDROP`` — a counted ledger drop, never silence — and the floor
 advances. Default 0 = unbounded: disk pays for exactness.
 
-Both WAL layouts ship byte for byte in offline dir mode (a flat dir as
-shard 0, a ``shard_NN/`` root shard by shard). A live journal is the
-port's flat :class:`~gyeeta_tpu_torch.utils.journal.Journal`; the
-reference's live ``ShardedJournal`` and multi-process ``ProcWalView``
-have no object in the port yet and come with the sharded tier
-(ROADMAP.md queue 1, item 6). The knobs (``GYT_SHIP_SCAN_S``,
+Both WAL layouts ship byte for byte (a flat dir as shard 0, a
+``shard_NN/`` root shard by shard), from a live journal — a flat
+:class:`~gyeeta_tpu_torch.utils.journal.Journal` or the sharded
+runtime's :class:`~gyeeta_tpu_torch.utils.journal.ShardedJournal` — or
+from a dir in offline mode. The reference's multi-process
+``ProcWalView`` comes with the sharded tier's worker processes
+(ROADMAP.md queue 1, item 7). The knobs (``GYT_SHIP_SCAN_S``,
 ``GYT_SHIP_HB_S``, ``GYT_SHIP_CHUNK_KB``, ``GYT_SHIP_PIN_MB`` and the
 crash hook ``GYT_SHIP_DIE_AFTER_ACKS``) are read from ``cfg["env"]``;
 without one, the reference's defaults.
@@ -102,8 +103,8 @@ class SegmentShipper:
 
     - ``target``: (host, port) of the receiver,
     - ``shipper_id``: stable source identity (the provenance key),
-    - ``journal``: live flat Journal (ship floor + sealed bound), or
-      None with
+    - ``journal``: live Journal or ShardedJournal (ship floor +
+      sealed bound), or None with
     - ``dir``: offline WAL root (every segment treated as sealed),
     - ``stats``: source-side Stats registry (``ship_*`` rows),
     - ``scan_s`` / ``hb_s`` / ``chunk_bytes`` / ``pin_bytes`` knobs,
@@ -149,11 +150,15 @@ class SegmentShipper:
                               or 0)
         self._acks = 0
         # layout: a sharded WAL root owns shard_NN/ subdirs; a flat dir
-        # ships as shard 0 into the staging root. A live journal is the
-        # flat Journal (the sharded live journals come with item 6).
+        # ships as shard 0 into the staging root
         sharded = False
         if self.journal is not None:
-            self.subdirs = [self.dir]
+            shards = getattr(self.journal, "shards", None)
+            if shards is not None:         # ShardedJournal
+                self.subdirs = [pathlib.Path(j.dir) for j in shards]
+                sharded = True
+            else:
+                self.subdirs = [self.dir]
         else:
             subs = J.sharded_subdirs(self.dir)
             sharded = bool(subs)

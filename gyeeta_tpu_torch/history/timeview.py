@@ -19,7 +19,9 @@ reported value.
 
 Counterpart of ``gyeeta_tpu/history/timeview.py``. Its
 ``PartedSnapshot`` (the parted store's per-part snapshots) comes with
-the sharded tier, ROADMAP.md queue 1, item 6.
+the sharded tier's worker processes, ROADMAP.md queue 1, item 7. A
+sharded runtime reads a shard of stacked leaves back into its shards
+and the flat leaves of the compactor's replay as one plain state.
 """
 
 from __future__ import annotations
@@ -33,9 +35,9 @@ import numpy as np
 
 from gyeeta_tpu_torch.engine import aggstate
 from gyeeta_tpu_torch.history import winquant as WQ
-from gyeeta_tpu_torch.parallel import depgraph as dg
+from gyeeta_tpu_torch.parallel import depgraph as dg, sharded
 from gyeeta_tpu_torch.query import api, fieldmaps
-from gyeeta_tpu_torch.query.snapshot import recover
+from gyeeta_tpu_torch.query.snapshot import recover, recover_state
 from gyeeta_tpu_torch.utils.checkpoint import _ref_dtype
 from gyeeta_tpu_torch.utils.colcache import ColumnCache
 from gyeeta_tpu_torch.utils.tensor import tree_leaves
@@ -84,9 +86,13 @@ def plain_recover(cfg, state) -> dict:
 
 def hist_recover(rt, state) -> dict:
     """Heavy-hitter key recovery from an arbitrary state of ``rt``'s
-    geometry (the reference's entry point, which also serves its mesh
-    tier; here it is :func:`plain_recover` over ``rt.cfg``)."""
-    return plain_recover(rt.cfg, state)
+    geometry: :func:`plain_recover` of one state, or the rollup of a
+    sharded runtime's per-shard state list (candidates estimated
+    against the merged CMS)."""
+    rec = recover_state(rt, state)
+    return {"flows": rec["flows"], "err_term": rec["err_term"],
+            "total_mass": rec["total_mass"], "evicted": rec["evicted"],
+            "recovered_keys": len(rec["recovered"])}
 
 
 def _window_layout(subsys: str, parts: list):
@@ -305,10 +311,26 @@ class HistSnapshot:
 
     def _materialize(self) -> None:
         data = self.store.load(self.ent)
+        rt = self.rt
+        if not isinstance(rt.state, list):
+            self._state = aggstate.state_from_numpy(
+                self._check(data["state"], rt.state), rt.device)
+            self._dep = dg.dep_from_numpy(
+                self._check(data["dep"], rt.dep), rt.device)
+            return
+        # a sharded runtime reads stacked (n, ...) leaves back into its
+        # shards, and the flat leaves of a single-runtime replay (the
+        # compactor's) as one plain state of the shards' geometry
+        like = tree_leaves(rt.state[0])
+        first = np.asarray(data["state"][0])
+        if first.shape == (rt.n,) + tuple(like[0].shape):
+            self._state = sharded.state_from_numpy(data["state"], rt.mesh)
+            self._dep = sharded.dep_from_numpy(data["dep"], rt.mesh)
+            return
         self._state = aggstate.state_from_numpy(
-            self._check(data["state"], self.rt.state), self.rt.device)
+            self._check(data["state"], rt.state[0]), rt.device)
         self._dep = dg.dep_from_numpy(
-            self._check(data["dep"], self.rt.dep), self.rt.device)
+            self._check(data["dep"], rt.dep[0]), rt.device)
 
     @property
     def state(self):
@@ -357,6 +379,9 @@ class HistSnapshot:
                 rec["flows"], svc=self.columns("svcstate"),
                 trace=self.columns("tracereq"))
         rt = self.rt
+        if isinstance(self.state, list):
+            return rt._merged_columns_state(subsys, self.state, self.dep,
+                                            self._cols)
         if subsys in api._COLUMNS_OF or subsys in api._DEP_COLUMNS_OF:
             return api.columns_for(rt.cfg, self.state, subsys,
                                    names=rt.names, dep=self.dep)

@@ -61,7 +61,8 @@ The supervision shape, adapted to a file-granular unit of work:
   to reclaim staging space (``ship_staged_swept``).
 
 The receiver lands the sharded layout (``shard_NN/``) as the reference
-does; replaying it is the sharded tier's (ROADMAP.md queue 1, item 6).
+does, and the compaction region's staging loop replays it with the
+compactor's tick-merged walk.
 The source journal side of the contract lives in ``utils/journal.py``:
 the shipper registers a NAMED truncate floor
 (``set_truncate_floor(seq, name="ship")``) at the oldest unshipped

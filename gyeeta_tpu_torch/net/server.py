@@ -4,8 +4,11 @@ Counterpart of ``gyeeta_tpu/net/server.py`` over the port's
 :class:`~gyeeta_tpu_torch.runtime.Runtime`: the bytes agents stream go
 through ``Runtime.feed`` (the native deframer) into the fold on the
 runtime's device, queries on every edge read the runtime on the loop
-thread or its published snapshot on the executor's threads. The options
-of the sharded tier (``shard_ingest``, ``ingest_procs > 1``,
+thread or its published snapshot on the executor's threads. Over the
+sharded runtime, ``shard_ingest`` puts a bounded byte queue and a drain
+task a shard between the conns and the runtime
+(:class:`~gyeeta_tpu_torch.net.shardfeed.ShardFeeder`). The options of
+the sharded tier's worker processes (``ingest_procs > 1``,
 ``relay_port``) raise :class:`~gyeeta_tpu_torch.unported.NotPortedError`
 naming ROADMAP.md's item; the edge pre-aggregation advert is the
 explicit ``preagg`` argument.
@@ -46,8 +49,9 @@ import numpy as np
 
 from gyeeta_tpu_torch import version
 from gyeeta_tpu_torch.ingest import refproto, refquery, wire
+from gyeeta_tpu_torch.net.shardfeed import ShardFeeder
 from gyeeta_tpu_torch.runtime import Runtime
-from gyeeta_tpu_torch.unported import SHARDED, refuse
+from gyeeta_tpu_torch.unported import SHARDED_PROCS, refuse
 
 log = logging.getLogger("gyeeta_tpu_torch.net")
 
@@ -83,20 +87,19 @@ class GytServer:
                  query_queue_max: Optional[int] = None,
                  query_snapshot: bool = True,
                  shard_ingest: bool = False,
+                 shard_queue_mb: float = 8.0,
                  ingest_procs: int = 1,
                  sub_persist: Optional[str] = None,
                  relay_port: Optional[int] = None,
                  preagg: bool = False):
-        # the sharded tier's ingest paths are not ported: refuse them
+        # the worker-process ingest paths are not ported: refuse them
         # before any state is built
-        if shard_ingest:
-            raise refuse("shard_ingest (per-shard ingest loops)", SHARDED)
         if ingest_procs and int(ingest_procs) > 1:
             raise refuse(f"ingest_procs={ingest_procs} (multi-process "
-                         "ingest)", SHARDED)
+                         "ingest)", SHARDED_PROCS)
         if relay_port is not None:
             raise refuse("relay_port (the remote ingest relay hub)",
-                         SHARDED)
+                         SHARDED_PROCS)
         self.rt = rt
         self.host = host
         self.port = port
@@ -177,6 +180,16 @@ class GytServer:
             # decoded cleanly get recorded (replayability; see the
             # pipeline docstring for the poison-frame divergence)
             self._pipe = FeedPipeline(rt, recorder=self._recorder)
+        # --shards mode: per-shard ingest loops between the conn
+        # handlers and the sharded runtime (net/shardfeed.py), exclusive
+        # with the decode pipeline (the feeder owns the handoff)
+        self._feeder = None
+        if shard_ingest and getattr(rt, "n", 1) > 1:
+            if self._pipe is not None:
+                raise ValueError(
+                    "--feed-pipeline and shard ingest are mutually "
+                    "exclusive (the shard feeder owns the handoff)")
+            self._feeder = ShardFeeder(rt, queue_max_mb=shard_queue_mb)
         # stock-partha registration state: machine-id → the ident key
         # issued at PS_REGISTER (the SM_PARTHA_IDENT_NOTIFY flow,
         # gy_comm_proto.h:946 — shyama hands the key to madhava; the
@@ -347,13 +360,17 @@ class GytServer:
         """Ingest complete-frame bytes: through the decode pipeline
         when enabled, else directly. ``hid``/``conn_id`` attribute the
         bytes in the write-ahead journal."""
+        if self._feeder is not None:
+            return self._feeder.submit(buf, hid=hid, conn_id=conn_id)
         if self._pipe is not None:
             return self._pipe.feed(buf, hid=hid, conn_id=conn_id)
         return self.rt.feed(buf, hid=hid, conn_id=conn_id)
 
     def _feed_barrier(self) -> None:
-        """Make every submitted byte visible (the pipeline barrier)
-        before a tick or query reads state."""
+        """Make every submitted byte visible (the shard queues' and the
+        pipeline's barrier) before a tick or query reads state."""
+        if self._feeder is not None:
+            self._feeder.flush_pending()
         if self._pipe is not None:
             self._pipe.flush()
 
@@ -397,6 +414,8 @@ class GytServer:
             self._handle_conn, self.host, self.port)
         sock = self._server.sockets[0].getsockname()
         self.host, self.port = sock[0], sock[1]
+        if self._feeder is not None:
+            self._feeder.start()
         if self.tick_interval:
             self._tick_task = asyncio.create_task(self._tick_loop())
         log.info("gyt server on %s:%d", self.host, self.port)
@@ -420,6 +439,8 @@ class GytServer:
             rec, self._recorder = self._recorder, None
             rec.close()      # live conns see None, never a closed file
         self.subs.close()    # flush + close the continuation ring file
+        if self._feeder is not None:
+            await self._feeder.stop()    # drain queued runs, then fold
         if self._pipe is not None:
             self._pipe.close()           # barrier + worker shutdown
         self.qexec.close()   # query worker pool (no new snapshot reads)

@@ -1,7 +1,6 @@
 """Service dependency graph: paired flows → svc→svc edge slab → clusters.
 
-Counterpart of ``gyeeta_tpu/parallel/depgraph.py``, the single-device
-part (no collectives; the sharded tier comes later):
+Counterpart of ``gyeeta_tpu/parallel/depgraph.py``:
 
 - **half table**: flow-key-addressed slab of unpaired conn halves with
   their payloads (client entity id, server glob id, bytes). A row whose
@@ -12,6 +11,11 @@ part (no collectives; the sharded tier comes later):
   fold straight into it and skip pairing.
 - **cluster labels**: min-label propagation over the svc→svc edges, a
   fixed number of sweeps (:func:`mesh_clusters`).
+- **the sharded step** (:func:`dep_step_fn`): direct lanes fold into
+  the local shard's edge slab; one-sided halves ride the capacity-
+  bucketed ``all_to_all`` to their flow-owner shard
+  (:func:`_dispatch_halves`) and pair there. :func:`edge_rollup_fn`
+  merges every shard's edges into one view.
 
 Every function updates the graph's buffers in place and returns it (the
 reference donates them). Where the reference branches with
@@ -33,6 +37,8 @@ import torch
 
 from gyeeta_tpu_torch.device import resolve
 from gyeeta_tpu_torch.engine import table
+from gyeeta_tpu_torch.parallel.mesh import gather_all
+from gyeeta_tpu_torch.parallel.pairing import dispatch_fields, owner_shard
 from gyeeta_tpu_torch.utils import hashing as H
 from gyeeta_tpu_torch.utils.tensor import add_drop, compact_true, \
     reduce_drop, set_rows_drop, tree_leaves, tree_map, tree_unflatten
@@ -313,6 +319,42 @@ def dep_fold_many(dep: DepGraph, cbs, tick) -> DepGraph:
     return dep
 
 
+# ------------------------------------------------------------ sharded step
+def dep_step_fn(mesh, cap_per_dest: int):
+    """``(per-shard deps, per-shard conn batches, tick) → deps``: each
+    shard folds its direct lanes, its one-sided halves ride the
+    dispatch to their flow-owner shard and pair there."""
+
+    def step(deps: list, cbs: list, tick) -> list:
+        deps, hvs = list(deps), []
+        for s, cb in enumerate(cbs):
+            direct, hv = halves_from_conn(cb)
+            deps[s] = fold_edges(deps[s], *direct, tick)
+            hvs.append(hv)
+        routed, o_drop = _dispatch_halves(mesh, hvs, cap_per_dest)
+        return [pair_halves_cond(d._replace(n_dropped=d.n_dropped + od),
+                                 r, tick)
+                for d, r, od in zip(deps, routed, o_drop)]
+
+    return step
+
+
+def _dispatch_halves(mesh, hvs: list, cap: int):
+    """Capacity-bucketed dispatch of every shard's Halves to their
+    flow-owner shards → (received Halves a shard, dropped a shard)."""
+    owner = [owner_shard(hv.flow_hi, hv.flow_lo, mesh.n) for hv in hvs]
+    routed, r_val, dropped = dispatch_fields(
+        mesh, [{"fhi": (hv.flow_hi, 0), "flo": (hv.flow_lo, 0),
+                "cli": (hv.is_cli, False), "phi": (hv.pay_hi, 0),
+                "plo": (hv.pay_lo, 0), "psvc": (hv.pay_svc, False),
+                "byts": (hv.byts, 0.0)} for hv in hvs],
+        [hv.valid for hv in hvs], owner, cap)
+    return [Halves(flow_hi=r["fhi"], flow_lo=r["flo"], is_cli=r["cli"],
+                   pay_hi=r["phi"], pay_lo=r["plo"], pay_svc=r["psvc"],
+                   byts=r["byts"], valid=v)
+            for r, v in zip(routed, r_val)], dropped
+
+
 # ------------------------------------------------------------ edge views
 class EdgeSet(NamedTuple):
     """A dense merged edge view."""
@@ -361,6 +403,25 @@ def edges_local(dep: DepGraph) -> EdgeSet:
                        dep.e_cli_svc, dep.e_ser_hi, dep.e_ser_lo,
                        dep.e_nconn, dep.e_bytes,
                        table.live_mask(dep.edge_tbl))
+
+
+def edge_merge_shards(deps: list, out_capacity: int) -> EdgeSet:
+    """Every shard's live edges gathered in shard order and merged
+    (counts additive) into one dense view on the first shard's
+    device."""
+    def g(f):
+        return gather_all([f(d) for d in deps])
+
+    return _edge_merge(
+        out_capacity, g(lambda d: d.e_cli_hi), g(lambda d: d.e_cli_lo),
+        g(lambda d: d.e_cli_svc), g(lambda d: d.e_ser_hi),
+        g(lambda d: d.e_ser_lo), g(lambda d: d.e_nconn),
+        g(lambda d: d.e_bytes), g(lambda d: table.live_mask(d.edge_tbl)))
+
+
+def edge_rollup_fn(mesh, out_capacity: int):
+    """``per-shard deps → merged EdgeSet`` (:func:`edge_merge_shards`)."""
+    return lambda deps: edge_merge_shards(deps, out_capacity)
 
 
 # --------------------------------------------------------- mesh clustering

@@ -15,8 +15,9 @@ come from ``AggState``, the ``DepGraph`` or the host-side listener
 registry here, and those the runtime answers from its own providers
 (its registries, the alert manager, the notification log); plus the
 process-local ``selfstats`` and ``metrics`` (:func:`local_response`).
-``shardlist`` raises ``ValueError`` naming the ROADMAP.md item that
-ports it.
+The sharded runtime (``parallel/shardedrt.py``) also serves
+``shardlist``, one row a shard; a single runtime answers it as the
+reference's does, with ``ValueError("unknown subsystem")``.
 """
 
 from __future__ import annotations
@@ -458,7 +459,13 @@ def trace_columns(cfg: EngineCfg, st: AggState, names=None) -> dict:
 def cluster_columns(cfg: EngineCfg, st: AggState, names=None) -> dict:
     """clusterstate: hosts per state and the issue ratio, one row (the
     rollup runs on the host columns, in numpy, as the reference's)."""
-    hcols, reported = host_columns(cfg, st)
+    return cluster_from_hosts(*host_columns(cfg, st))
+
+
+def cluster_from_hosts(hcols, reported):
+    """hoststate columns and their reported mask → the clusterstate row
+    (shared with the sharded runtime, which merges hosts first)."""
+    reported = np.asarray(reported, bool)
     state = np.asarray(hcols["state"])
     counts = [int((reported & (state == s)).sum()) for s in range(6)]
     n_up = int(reported.sum())
@@ -854,9 +861,9 @@ RUNTIME_SUBSYS = (
 SERVED = (tuple(_COLUMNS_OF) + tuple(_DEP_COLUMNS_OF)
           + tuple(_SVCREG_COLUMNS_OF) + RUNTIME_SUBSYS)
 
-# the rest of fieldmaps.FIELDS_OF_SUBSYS, by the ROADMAP.md item that
-# ports it
-UNPORTED_SUBSYS = {fieldmaps.SUBSYS_SHARDLIST: unported.SHARDED}
+# the rest of fieldmaps.FIELDS_OF_SUBSYS but shardlist (the sharded
+# runtime's own view), by the ROADMAP.md item that ports it: none left
+UNPORTED_SUBSYS: dict = {}
 
 # top-N views: preset sort + limit over taskstate columns
 _TOP_PRESETS = {
@@ -893,6 +900,9 @@ def columns_for(cfg: EngineCfg, st: AggState, subsys: str, names=None,
                                           svcreg=svcreg)
     if subsys in _DEP_COLUMNS_OF:
         return _DEP_COLUMNS_OF[subsys](cfg, st, names=names, dep=dep)
+    if subsys == fieldmaps.SUBSYS_SHARDLIST:
+        # the sharded runtime's view: a single runtime has no shards
+        raise ValueError(f"unknown subsystem {subsys!r}")
     if subsys not in _COLUMNS_OF:
         raise ValueError(f"subsystem {subsys!r} is answered by the "
                          "runtime (Runtime.query)")

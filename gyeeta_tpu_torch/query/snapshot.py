@@ -17,8 +17,12 @@ per-subsystem locks make concurrent identical misses on a fresh
 snapshot render once (single flight). Host-side registries stay shared
 with the live runtime: their renders run under the runtime's registry
 lock and are memoized per snapshot; a CRUD mutation clears this
-snapshot's caches (:meth:`EngineSnapshot.on_mutation`). ``shardlist``
-is refused by name (``api.check_served``), as on the strong path.
+snapshot's caches (:meth:`EngineSnapshot.on_mutation`).
+
+A snapshot of the sharded runtime (``parallel/shardedrt.py``) holds
+every shard's cloned state and graph as lists; its columns come from
+the runtime's merged-columns pipeline over them, its heavy hitters from
+the rollup of the frozen shards, and it serves ``shardlist``.
 """
 
 from __future__ import annotations
@@ -63,8 +67,36 @@ def recover(cfg, state) -> dict:
     the host merge of the exact top-K lanes and the verified candidates
     → {"flows", "recovered", "hot", "err_term", "total_mass",
     "evicted"}."""
-    out = {k: v.cpu().numpy()
-           for k, v in step.heavy_recover(cfg, state).items()}
+    return _merge_recovered(cfg, {
+        k: v.cpu().numpy()
+        for k, v in step.heavy_recover(cfg, state).items()})
+
+
+def recover_rollup(cfg, ru) -> dict:
+    """Heavy-hitter recovery from a sharded runtime's
+    ``rollup.GlobalRollup`` (candidates decoded on every shard and
+    estimated against the merged CMS, the merged exact top-K lanes),
+    read back once and merged on the host → the keys of
+    :func:`recover`."""
+    out = {
+        "topk_hi": ru.flow_topk.key_hi, "topk_lo": ru.flow_topk.key_lo,
+        "topk_counts": ru.flow_topk.counts, "topk_est": ru.hh_topk_est,
+        "hh_hi": ru.hh_hi, "hh_lo": ru.hh_lo, "hh_ok": ru.hh_ok,
+        "hh_est": ru.hh_est, "evicted": ru.flow_topk.evicted,
+        "total_mass": ru.hh_total_mass}
+    return _merge_recovered(cfg, {k: v.cpu().numpy()
+                                  for k, v in out.items()})
+
+
+def recover_state(rt, state) -> dict:
+    """:func:`recover` of one state, or :func:`recover_rollup` of a
+    sharded runtime's per-shard state list."""
+    if isinstance(state, list):
+        return recover_rollup(rt.cfg, rt._roll(state))
+    return recover(rt.cfg, state)
+
+
+def _merge_recovered(cfg, out: dict) -> dict:
     evicted = float(out["evicted"])
     total = float(out["total_mass"])
     err_term = invertible.cms_error_term(total, cfg.cms_width)
@@ -197,6 +229,11 @@ class EngineSnapshot:
             info_cols, _ = self._retry_aux(
                 lambda: rt.svcreg.columns(rt.names))
             return api.info_join(cols, live, info_cols, idcol=idcol)
+        if isinstance(self.state, list):            # sharded runtime
+            if subsys == "shardlist":
+                return rt._shardlist_columns(self.state)
+            return rt._merged_columns_state(subsys, self.state, self.dep,
+                                            self._cols, reg=True)
         out = api.columns_for(rt.cfg, self.state, subsys, names=rt.names,
                               dep=self.dep, svcreg=rt.svcreg)
         if subsys == "procinfo":
@@ -223,23 +260,29 @@ class EngineSnapshot:
     def _topk_columns(self):
         """Heavy-hitter recovery over the frozen state (read-only)."""
         rec = self._cols.get("__hh_recover",
-                             lambda: recover(self.rt.cfg, self.state))
+                             lambda: recover_state(self.rt, self.state))
         return api.heavy_topk_columns(
             rec["flows"], svc=self.columns("svcstate"),
             trace=self.columns("tracereq"))
 
-    def _host_last_ticks(self) -> np.ndarray:
-        return self.state.host_last_tick.cpu().numpy()
-
     def _hostlist_columns(self):
-        return api.hostlist_columns(self._host_last_ticks(), self.tick,
-                                    self.rt.names)
+        if isinstance(self.state, list):
+            return self.rt.hostlist_columns(self.state, self.tick)
+        return api.hostlist_columns(
+            self.state.host_last_tick.cpu().numpy(), self.tick,
+            self.rt.names)
 
     def _serverstatus_columns(self):
         """serverstatus over this snapshot's tick and host reports."""
-        return self.rt.serverstatus_columns(
+        rt = self.rt
+        if isinstance(self.state, list):
+            ru = self._cols.get("__rollup", lambda: rt._roll(self.state))
+            return rt.serverstatus_columns(
+                tick=self.tick, nhosts=rt.nhosts_reported(self.state),
+                nsvc=float(ru.n_svc_live))
+        return rt.serverstatus_columns(
             tick=self.tick,
-            nhosts=int((self._host_last_ticks() >= 0).sum()),
+            nhosts=int((self.state.host_last_tick >= 0).sum()),
             nsvc=float(self.state.tbl.n_live))
 
     def _svc_task_ids(self):

@@ -152,6 +152,41 @@ class Runtime:
                  opts: Optional[RuntimeOpts] = None, clock=None,
                  device=None, deframe: str = "native"):
         self.device = resolve(device)
+        self._init_host(cfg, opts, clock, deframe)
+        self.state = aggstate.init(self.cfg, self.device)
+        # pressure scalars of recent dispatches, read at lag 2
+        self._pressures: deque = deque()
+        self.dep = dg.init(self.opts.dep_pair_capacity,
+                           self.opts.dep_edge_capacity, self.device)
+        self._slab_lanes_cfg = _slab_lanes()
+        self._sect_builders = self._section_builders()
+        # per-section raw record backlogs that ride the next fold_all
+        # dispatch (drained at the end of every ingest_records call)
+        self._stage_recs = {k: [] for k in self._slab_lanes_cfg}
+        self._stage_n = {k: 0 for k in self._slab_lanes_cfg}
+        # conn/resp stage RAW record arrays; they decode once per slab
+        self._conn_raw: list = []
+        self._resp_raw: list = []
+        self._n_conn_raw = 0
+        self._n_resp_raw = 0
+        # double-buffered conn/resp staging slabs (pinned on CUDA): the
+        # host decodes into the idle buffer while the copies out of the
+        # other may still be in flight; "copied" is that buffer's copy
+        # event, waited on before the next decode into it
+        K = self.cfg.fold_k
+        pin = self.device.type == "cuda"
+        self._slab_bufs = [
+            {"conn": decode.alloc_conn_cols(K * self.cfg.conn_batch, pin),
+             "resp": decode.alloc_resp_cols(K * self.cfg.resp_batch, pin),
+             "hw_conn": 0, "hw_resp": 0, "copied": None}
+            for _ in range(2)]
+        self._slab_active = 0
+
+    def _init_host(self, cfg, opts, clock, deframe: str) -> None:
+        """The host side of a runtime, shared with the sharded one: the
+        decode path, configuration, counters, the alert manager, the
+        relational history, the journal and the time-travel tier, the
+        registries and the providers of the runtime-answered views."""
         # the host decode path: the native C++ deframer and columnar
         # decoders (built at first use; a failed build raises), or the
         # numpy path the tests hold it against
@@ -164,7 +199,6 @@ class Runtime:
             native.lib()
         self.cfg = cfg or EngineCfg()
         self.opts = opts or RuntimeOpts()
-        self.state = aggstate.init(self.cfg, self.device)
         self.stats = Stats()
         self.spans = SpanTracer()     # pipeline span ring (selfstats)
         self.alerts = AlertManager(self.cfg, clock=clock)
@@ -181,15 +215,8 @@ class Runtime:
         self._clock = clock or time.time
         # write-ahead event journal: every accepted byte run appends
         # after validation, before the fold
-        self.journal = None
-        if self.opts.journal_dir:
-            self.journal = J.Journal(
-                self.opts.journal_dir,
-                segment_max_bytes=self.opts.journal_segment_mb << 20,
-                fsync_bytes=self.opts.journal_fsync_kb << 10,
-                fsync_ms=self.opts.journal_fsync_ms,
-                backlog_max_bytes=self.opts.journal_backlog_mb << 20,
-                stats=self.stats, clock=clock)
+        self.journal = self._make_journal(clock) \
+            if self.opts.journal_dir else None
         self._journal_replaying = False
         # time-travel tier: at=/window= requests materialize compaction
         # shards. The journal's truncate floor starts at the compactor's
@@ -202,18 +229,16 @@ class Runtime:
             self.timeview = TimeView(self, store, clock=clock)
             if self.journal is not None:
                 pos = store.position()
-                self.journal.set_truncate_floor(
-                    J.floors_of(pos) if pos else 0)
+                fl = J.floors_of(pos) if pos else 0
+                if isinstance(fl, list) \
+                        and not hasattr(self.journal, "shards"):
+                    fl = min(fl) if fl else 0
+                self.journal.set_truncate_floor(fl)
         # per-host sweep-seq high-water marks (NOTIFY_SWEEP_SEQ),
         # checkpointed
         self._sweep_last_seq: dict[int, int] = {}
         self._tick_no = 0             # host-side mirror of the window tick
         self._pending = b""           # partial-frame resume buffer
-        # conn/resp stage RAW record arrays; they decode once per slab
-        self._conn_raw: list = []
-        self._resp_raw: list = []
-        self._n_conn_raw = 0
-        self._n_resp_raw = 0
         # last tick each host sent a native RESP_SAMPLE: the trace→resp
         # bridge skips hosts with a recent native stream
         self._host_resp_tick = np.full(self.cfg.n_hosts, -(10 ** 9),
@@ -223,38 +248,6 @@ class Runtime:
         # recovered-hot keys of the previous recovery (promotions count
         # keys newly recovered at/above the hot threshold)
         self._hh_prev_hot: set = set()
-        # pressure scalars of recent dispatches, read at lag 2
-        self._pressures: deque = deque()
-        self.dep = dg.init(self.opts.dep_pair_capacity,
-                           self.opts.dep_edge_capacity, self.device)
-        self._slab_lanes_cfg = _slab_lanes()
-        # delta decode geometry: payload indices outside it are dropped
-        # and counted at decode, never scattered out of range
-        dims = dict(resp_nbuckets=self.cfg.resp_spec.nbuckets,
-                    hll_m_svc=1 << self.cfg.hll_p_svc,
-                    hll_m_glob=1 << self.cfg.hll_p_global)
-        self._sect_builders = {
-            k: functools.partial(fn, stats=self.stats, native=self._native)
-            for k, fn in _SECTION_BUILDERS.items()}
-        self._sect_builders["trace"] = decode.trace_batch
-        self._sect_builders["delta"] = lambda r, sz: decode.delta_batch(
-            r, sz, stats=self.stats, **dims)
-        # per-section raw record backlogs that ride the next fold_all
-        # dispatch (drained at the end of every ingest_records call)
-        self._stage_recs = {k: [] for k in self._slab_lanes_cfg}
-        self._stage_n = {k: 0 for k in self._slab_lanes_cfg}
-        # double-buffered conn/resp staging slabs (pinned on CUDA): the
-        # host decodes into the idle buffer while the copies out of the
-        # other may still be in flight; "copied" is that buffer's copy
-        # event, waited on before the next decode into it
-        K = self.cfg.fold_k
-        pin = self.device.type == "cuda"
-        self._slab_bufs = [
-            {"conn": decode.alloc_conn_cols(K * self.cfg.conn_batch, pin),
-             "resp": decode.alloc_resp_cols(K * self.cfg.resp_batch, pin),
-             "hw_conn": 0, "hw_resp": 0, "copied": None}
-            for _ in range(2)]
-        self._slab_active = 0
         self.snapshot = None          # last published EngineSnapshot
         self._snap_version = 0
         # registry renders run on query threads in snapshot mode while
@@ -302,6 +295,32 @@ class Runtime:
                 self.natclusters.columns(self.names), self.dns),
             "tags": lambda: self.tags.columns(),
         }
+
+    def _make_journal(self, clock):
+        """The write-ahead journal of ``opts.journal_dir``."""
+        return J.Journal(
+            self.opts.journal_dir,
+            segment_max_bytes=self.opts.journal_segment_mb << 20,
+            fsync_bytes=self.opts.journal_fsync_kb << 10,
+            fsync_ms=self.opts.journal_fsync_ms,
+            backlog_max_bytes=self.opts.journal_backlog_mb << 20,
+            stats=self.stats, clock=clock)
+
+    def _section_builders(self) -> dict:
+        """Columnar builder a sweep-section kind, bound to this
+        runtime's counters, decode path and delta geometry (delta
+        payload indices outside it are dropped and counted at decode,
+        never scattered out of range)."""
+        dims = dict(resp_nbuckets=self.cfg.resp_spec.nbuckets,
+                    hll_m_svc=1 << self.cfg.hll_p_svc,
+                    hll_m_glob=1 << self.cfg.hll_p_global)
+        out = {k: functools.partial(fn, stats=self.stats,
+                                    native=self._native)
+               for k, fn in _SECTION_BUILDERS.items()}
+        out["trace"] = decode.trace_batch
+        out["delta"] = lambda r, sz: decode.delta_batch(
+            r, sz, stats=self.stats, **dims)
+        return out
 
     # ------------------------------------------------------------- ingest
     def feed(self, buf: bytes, hid: int = 0, conn_id: int = 0) -> int:
@@ -733,11 +752,12 @@ class Runtime:
         columns on this thread and hand it to the writer thread → rows
         written (the clusterstate row included)."""
         now = self._clock()
-        limits = (("svcstate", self.cfg.svc_capacity),
+        n = getattr(self, "n", 1)     # shards: a slab each
+        limits = (("svcstate", n * self.cfg.svc_capacity),
                   ("hoststate", self.cfg.n_hosts), ("clusterstate", None),
-                  ("taskstate", self.cfg.task_capacity),
+                  ("taskstate", n * self.cfg.task_capacity),
                   ("cpumem", self.cfg.n_hosts),
-                  ("tracereq", self.cfg.api_capacity))
+                  ("tracereq", n * self.cfg.api_capacity))
         if len(self.cgroups):
             limits += (("cgroupstate", 100_000),)
         sweep, nrows = [], 0

@@ -14,11 +14,13 @@ runtime knobs, and a periodic self-stats report. Run as
 
 The runtime, and every compactor's replay runtime, lives on ``--device``
 (CUDA by default; without a GPU the daemon raises unless ``--device cpu``
-is given). Flags of tiers the port does not have yet raise
-:class:`~gyeeta_tpu_torch.unported.NotPortedError` naming ROADMAP.md's
-item: ``--shards`` above 1 and ``--compact-procs`` (the sharded tier); a
-staging dir whose landed segments are ``shard_NN/`` is refused by the
-staging loop's pass, logged and counted in ``compact_errors``.
+is given). ``--shards N`` (N > 1) serves the sharded runtime
+(``parallel/shardedrt.py``) over an N-shard mesh on that device — N
+logical shards of one card, or one card a shard where there are N —
+with per-shard ingest queues (``--shard-queue-mb``) and a per-shard WAL
+under ``--journal-dir``. ``--compact-procs`` (the sharded tier's worker
+processes) raises :class:`~gyeeta_tpu_torch.unported.NotPortedError`
+naming ROADMAP.md's item.
 
 Single-controller design: one asyncio loop owns the Runtime; the device
 stream is the concurrency.
@@ -36,7 +38,7 @@ from typing import Optional
 
 from gyeeta_tpu_torch.net.server import GytServer
 from gyeeta_tpu_torch.runtime import Runtime
-from gyeeta_tpu_torch.unported import SHARDED, refuse
+from gyeeta_tpu_torch.unported import SHARDED_PROCS, refuse
 from gyeeta_tpu_torch.utils import config as C
 
 log = logging.getLogger("gyeeta_tpu_torch.daemon")
@@ -45,11 +47,26 @@ log = logging.getLogger("gyeeta_tpu_torch.daemon")
 def _refuse_unported(args) -> None:
     """Flags of tiers the port does not have yet raise, naming their
     ROADMAP.md item, before anything is built."""
-    if int(getattr(args, "shards", 0) or 0) > 1:
-        raise refuse(f"--shards {args.shards} (the sharded runtime)",
-                     SHARDED)
     if int(getattr(args, "compact_procs", 0) or 0) >= 1:
-        raise refuse("--compact-procs (distributed compaction)", SHARDED)
+        raise refuse("--compact-procs (distributed compaction)",
+                     SHARDED_PROCS)
+
+
+def _make_runtime(args, cfg, opts):
+    """``--shards N`` (N > 1): the sharded runtime over an N-shard mesh
+    on ``--device`` (per-shard folds, one fleet roll-up a tick,
+    per-shard WAL subdirs); else the single-device runtime."""
+    device = getattr(args, "device", None) or "cuda"
+    shards = int(getattr(args, "shards", 0) or 0)
+    if shards <= 1:
+        return Runtime(cfg, opts, device=device)
+    from gyeeta_tpu_torch.parallel.mesh import make_mesh
+    from gyeeta_tpu_torch.parallel.shardedrt import ShardedRuntime
+    mesh = make_mesh(shards, device=device)
+    log.info("sharded runtime: %d-shard mesh on %s, per-shard WAL %s",
+             shards, sorted({str(d) for d in mesh.devices}),
+             "on" if opts.journal_dir else "off")
+    return ShardedRuntime(cfg, mesh, opts)
 
 
 class _StagingCompactLoop:
@@ -58,11 +75,10 @@ class _StagingCompactLoop:
     Segments land in ``staging`` via net/segship.py and are replayed by
     the port's ``Compactor`` (journal_dir mode) exactly as if local, its
     replay runtime on ``device`` (the daemon's). The layout is
-    discovered from what actually lands, so the daemon can boot on an
+    discovered from what actually lands (flat, or ``shard_NN/`` read by
+    the compactor's tick-merged walk), so the daemon can boot on an
     empty staging dir before the first segment arrives: construction of
-    the compactor is deferred to the first pass that finds segments. A
-    sharded layout (``shard_NN/``) raises ``NotPortedError`` naming the
-    sharded tier from that pass."""
+    the compactor is deferred to the first pass that finds segments."""
 
     def __init__(self, cfg, opts, staging: str, shard_dir: str,
                  stats=None, device=None):
@@ -80,10 +96,8 @@ class _StagingCompactLoop:
         if self.compactor is not None:
             return self.compactor
         from gyeeta_tpu_torch.utils import journal as J
-        if J.sharded_subdirs(self.staging):
-            raise refuse("compaction of a sharded staging dir "
-                         "(shard_NN/)", SHARDED)
-        if J.dir_segments(self.staging):
+        if J.sharded_subdirs(self.staging) \
+                or J.dir_segments(self.staging):
             from gyeeta_tpu_torch.history.compactor import Compactor
             self.compactor = Compactor(self.cfg, self.opts,
                                        journal_dir=self.staging,
@@ -193,8 +207,7 @@ class Daemon:
             n = _ck.sweep_stale_tmp(opts.checkpoint_dir)
             if n:
                 log.info("swept %d stale .tmp.npz staging file(s)", n)
-        self.rt = Runtime(cfg, opts,
-                          device=getattr(args, "device", None) or "cuda")
+        self.rt = _make_runtime(args, cfg, opts)
         if args.restore:
             extra = self.rt.restore(args.restore)
             log.info("restored checkpoint %s (tick %s)", args.restore,
@@ -230,6 +243,9 @@ class Daemon:
                                  args, "query_queue_max", None),
                              query_snapshot=not getattr(
                                  args, "query_strong", False),
+                             shard_ingest=getattr(args, "shards", 0) > 1,
+                             shard_queue_mb=getattr(
+                                 args, "shard_queue_mb", 8.0),
                              ingest_procs=getattr(
                                  args, "ingest_procs", 1) or 1,
                              sub_persist=getattr(
@@ -557,9 +573,13 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     # deployment"): per-shard ingest loops + fused per-shard folds +
     # one collective roll-up per tick on an N-device mesh
     ap.add_argument("--shards", type=int, default=0,
-                    help="the sharded mesh runtime over N devices: not "
-                    "ported yet, N > 1 raises (0/1 = the single-device "
-                    "runtime)")
+                    help="run the sharded runtime over N shards on "
+                    "--device (hosts hash to shards by sticky hid; "
+                    "per-shard WAL subdirs under --journal-dir; 0/1 = "
+                    "the single-device runtime)")
+    ap.add_argument("--shard-queue-mb", type=float, default=8.0,
+                    help="per-shard ingest queue byte bound before "
+                    "counted oldest-first drops (--shards mode)")
     # multi-process ingest edge (net/ingestproc.py; OPERATIONS.md
     # "Multi-process deployment"): N worker processes own wire
     # validation + deframe/decode + per-shard WAL append off the fold

@@ -7,8 +7,10 @@ dropped, no section skipped, no empty answer served in its place.
 
 from __future__ import annotations
 
-# ROADMAP.md, queue 1: the item that ports what is still missing
-SHARDED = "item 6, the sharded tier"
+# ROADMAP.md, queue 1: the item that ports what is still missing — the
+# sharded tier's worker processes (the single-process sharded runtime
+# of item 6 is ported)
+SHARDED_PROCS = "item 7, the sharded tier's worker processes"
 
 
 class NotPortedError(NotImplementedError, ValueError):

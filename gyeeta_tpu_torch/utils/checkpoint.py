@@ -6,8 +6,10 @@ reference's order and dtypes: ``aggstate.state_to_numpy``) plus a
 ``__meta__`` JSON blob with ``nleaves``, the config fingerprint
 ``sha256(repr(cfg))[:16]`` and ``extra``. The port's ``EngineCfg`` has
 the reference's ``repr``, so a checkpoint written by either package
-restores in the other. Saves are atomic and durable: tmp → fsync →
-rename → fsync of the directory; each save sweeps stale tmp files.
+restores in the other. The sharded runtime's per-shard states (a list)
+save as the reference's mesh checkpoint: each leaf stacked over the
+shards, ``(n_shards, ...)``. Saves are atomic and durable: tmp → fsync
+→ rename → fsync of the directory; each save sweeps stale tmp files.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import numpy as np
 import torch
 
 from gyeeta_tpu_torch.engine import aggstate
+from gyeeta_tpu_torch.parallel.partition import stack_leaves, \
+    unstack_leaves
 from gyeeta_tpu_torch.utils.tensor import tree_leaves
 
 
@@ -29,10 +33,15 @@ def _cfg_fingerprint(cfg) -> str:
 
 
 def save(path, cfg, state, extra: dict | None = None) -> pathlib.Path:
-    """Write the state → ``path`` (npz), atomically and durably."""
+    """Write the state (one ``AggState``, or a list of per-shard ones)
+    → ``path`` (npz), atomically and durably."""
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    leaves = aggstate.state_to_numpy(state)
+    if isinstance(state, list):
+        leaves = stack_leaves([aggstate.state_to_numpy(st)
+                               for st in state])
+    else:
+        leaves = aggstate.state_to_numpy(state)
     payload = {f"leaf_{i}": x for i, x in enumerate(leaves)}
     payload["__meta__"] = np.frombuffer(json.dumps({
         "nleaves": len(leaves),
@@ -75,10 +84,14 @@ def sweep_stale_tmp(ckpt_dir) -> int:
 
 def restore(path, cfg, like, device=None):
     """Read a checkpoint with the leaf structure of ``like`` onto
-    ``device`` (``like``'s by default) → ``(state, extra)``. Raises
-    ValueError on a config-fingerprint, leaf-count or shape mismatch."""
+    ``device`` (``like``'s by default) → ``(state, extra)``. ``like`` a
+    list of per-shard states reads a stacked mesh checkpoint of that
+    many shards back onto each shard's device. Raises ValueError on a
+    config-fingerprint, leaf-count or shape mismatch."""
     path = pathlib.Path(path)
-    like_leaves = tree_leaves(like)
+    shards = like if isinstance(like, list) else None
+    like_leaves = tree_leaves(like[0] if shards is not None else like)
+    lead = (len(shards),) if shards is not None else ()
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         if meta["cfg"] != _cfg_fingerprint(cfg):
@@ -92,11 +105,17 @@ def restore(path, cfg, like, device=None):
         leaves = []
         for i, ref in enumerate(like_leaves):
             arr = z[f"leaf_{i}"]
-            if arr.shape != tuple(ref.shape):
+            if arr.shape != lead + tuple(ref.shape):
                 raise ValueError(
                     f"leaf {i}: checkpoint shape {arr.shape} != "
-                    f"state shape {tuple(ref.shape)}")
+                    f"state shape {lead + tuple(ref.shape)}")
             leaves.append(arr.astype(_ref_dtype(ref)))
+    if shards is not None:
+        return [aggstate.state_from_numpy(
+                    per, tree_leaves(st)[0].device if device is None
+                    else device)
+                for per, st in zip(unstack_leaves(leaves, len(shards)),
+                                   shards)], meta["extra"]
     dev = like_leaves[0].device if device is None else device
     return aggstate.state_from_numpy(leaves, dev), meta["extra"]
 

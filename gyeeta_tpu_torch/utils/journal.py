@@ -37,11 +37,11 @@ Durability contract:
   deleted after each successful save, except those a named consumer
   (the history compactor) has not consumed yet.
 
-The sharded runtime's per-shard journal (``ShardedJournal``) and its
-tick-merged readers are not here: they come with ROADMAP.md queue 1,
-item 6. :func:`sharded_subdirs` (a directory listing) is, since the
-segment shipper and the staging compaction loop detect the layout
-with it.
+The sharded runtime journals per shard: :class:`ShardedJournal` keeps
+one :class:`Journal` a ``shard_NN/`` subdir, placed by the host→shard
+hash the fold routes by, and its readers (:meth:`ShardedJournal
+.read_from`, :func:`read_sealed_sharded`) merge the shards' streams by
+window tick.
 """
 
 from __future__ import annotations
@@ -492,6 +492,144 @@ class Journal:
         self._f = None
 
 
+class ShardedJournal:
+    """Per-shard WAL: one :class:`Journal` per ``shard_NN/`` subdir,
+    placed by the SAME sticky hid→shard hash the fold routes by
+    (``parallel/partition.py``'s ``ShardLayout``). Journaling therefore
+    shards with the fold: a chunk journaled for host h replays into
+    exactly the shard that folded it live (stable across reconnect and
+    ``--restore-latest``).
+
+    Duck-type compatible with :class:`Journal` where the runtimes and
+    the checkpoint/replay helpers touch it; positions are PER SHARD
+    (a list of ``[seg_seq, byte_off]`` pairs, shard-indexed)."""
+
+    def __init__(self, path, n_shards: int, *,
+                 subdir_fmt: str = "shard_{:02d}",
+                 segment_max_bytes: int = 64 << 20,
+                 fsync_bytes: int = 1 << 20, fsync_ms: float = 50.0,
+                 backlog_max_bytes: int = 64 << 20,
+                 stats=None, clock=None):
+        self.dir = pathlib.Path(path)
+        self.n = int(n_shards)
+        self.subdir_fmt = subdir_fmt
+        self.stats = stats if stats is not None else _NullStats()
+        self._clock = clock or time.time
+        # counters accumulate correctly across sub-journals (shared
+        # registry); the per-sync lag gauge is last-writer-wins noise —
+        # gauges() computes the honest merge on demand
+        self.shards = [
+            Journal(self.dir / subdir_fmt.format(s),
+                    segment_max_bytes=segment_max_bytes,
+                    fsync_bytes=fsync_bytes, fsync_ms=fsync_ms,
+                    backlog_max_bytes=backlog_max_bytes,
+                    stats=self.stats, clock=clock)
+            for s in range(self.n)]
+
+    def shard_of(self, hid: int) -> int:
+        return int(hid) % self.n
+
+    # ------------------------------------------------------------- append
+    def append(self, buf: bytes, hid: int = 0, conn_id: int = 0,
+               tick: int = 0) -> None:
+        self.shards[self.shard_of(hid)].append(
+            buf, hid=hid, conn_id=conn_id, tick=tick)
+
+    # ----------------------------------------------------------- barriers
+    def poll(self) -> None:
+        for j in self.shards:
+            j.poll()
+
+    def fsync(self) -> None:
+        for j in self.shards:
+            j.fsync()
+
+    def seal_active(self) -> list:
+        return [j.seal_active() for j in self.shards]
+
+    def sealed_upto(self) -> list:
+        return [j.sealed_upto() for j in self.shards]
+
+    def set_truncate_floor(self, seq, name: str = "compact") -> None:
+        """Per-shard floors (a list), or one floor broadcast; ``name``
+        scopes the floor to one consumer (see :meth:`Journal
+        .set_truncate_floor`)."""
+        if isinstance(seq, (list, tuple)):
+            for j, s in zip(self.shards, seq):
+                j.set_truncate_floor(int(s), name=name)
+        else:
+            for j in self.shards:
+                j.set_truncate_floor(int(seq), name=name)
+
+    # ----------------------------------------------------------- position
+    def position(self) -> list:
+        """Per-shard ``[seg_seq, byte_off]`` durable ends (call
+        :meth:`fsync` first, as checkpoint metadata does)."""
+        return [list(j.position()) for j in self.shards]
+
+    def gauges(self) -> dict:
+        out: dict = {}
+        for j in self.shards:
+            for k, v in j.gauges().items():
+                if k == "journal_fsync_lag_seconds":
+                    out[k] = max(out.get(k, 0.0), v)    # worst shard
+                else:
+                    out[k] = out.get(k, 0.0) + v
+        return out
+
+    def truncate_upto(self, bounds) -> int:
+        """Per-shard checkpoint truncation (``bounds``: shard-indexed
+        segment floors, the checkpoint's recorded per-shard positions)."""
+        n = 0
+        if isinstance(bounds, (list, tuple)):
+            for j, b in zip(self.shards, bounds):
+                n += j.truncate_upto(
+                    int(b[0]) if isinstance(b, (list, tuple)) else int(b))
+        else:
+            for j in self.shards:
+                n += j.truncate_upto(int(bounds))
+        return n
+
+    # --------------------------------------------------------------- read
+    def read_from(self, pos=None
+                  ) -> Iterator[tuple[int, int, int, bytes]]:
+        """Yield ``(hid, tick, conn_id, chunk)`` across every shard's
+        journal from per-shard positions, k-way-merged by window tick
+        (each shard's stream is tick-monotone, so the merged replay
+        folds windows in order — the cross-shard interleave within a
+        tick is irrelevant: records are host-disjoint by construction).
+        ``pos``: shard-indexed pairs from :meth:`position`, or None."""
+        import heapq
+
+        if pos is not None:
+            pos = list(pos)
+            if not pos or not isinstance(pos[0], (list, tuple)):
+                # a flat (seg, off) from a pre-shard checkpoint cannot
+                # be mapped onto subdirs — replay everything, loudly
+                self.stats.bump("wal_position_gap")
+                pos = None
+
+        def stream(s):
+            p = tuple(pos[s]) if pos is not None and s < len(pos) \
+                else None
+            for hid, tick, cid, chunk in self.shards[s].read_from(p):
+                yield (tick, s, hid, cid, chunk)
+
+        for tick, _s, hid, cid, chunk in heapq.merge(
+                *(stream(s) for s in range(self.n)),
+                key=lambda e: e[0]):
+            yield hid, tick, cid, chunk
+
+    # -------------------------------------------------------------- close
+    def close(self) -> None:
+        for j in self.shards:
+            j.close()
+
+    def abort(self) -> None:
+        for j in self.shards:
+            j.abort()
+
+
 # ---------------------------------------------------- sealed-segment read
 # Position-yielding walkers over WAL segment FILES, usable without a
 # live Journal instance (the history compactor reads sealed segments of
@@ -603,6 +741,31 @@ def read_sealed(path, pos: Optional[tuple] = None,
             yield s, nxt, t, hid, tick, cid, chunk
 
 
+def read_sealed_sharded(subdirs, pos_map=None, uptos=None, stats=None
+                        ) -> Iterator[tuple]:
+    """Walk every shard subdir's sealed segments, k-way-merged by
+    window tick (each shard's stream is tick-monotone), yielding
+    ``(shard, seg_seq, next_off, t_epoch, hid, tick, conn_id, chunk)``
+    — the sharded twin of :func:`read_sealed`, with the shard index
+    prepended so the caller can keep per-shard resume positions.
+    ``pos_map``: {shard: (seg, off)}; ``uptos``: per-shard exclusive
+    segment bounds (a live ``ShardedJournal.sealed_upto()`` list), or
+    None for offline dirs."""
+    import heapq
+
+    def stream(s, d):
+        p = (pos_map or {}).get(s)
+        u = uptos[s] if uptos is not None else None
+        for seq, nxt, t, hid, tick, cid, chunk in read_sealed(
+                d, p, u, stats=stats):
+            yield (tick, s, seq, nxt, t, hid, cid, chunk)
+
+    for tick, s, seq, nxt, t, hid, cid, chunk in heapq.merge(
+            *(stream(s, d) for s, d in enumerate(subdirs)),
+            key=lambda e: e[0]):
+        yield s, seq, nxt, t, hid, tick, cid, chunk
+
+
 # ------------------------------------------------------- runtime helpers
 # Duck-typed over a runtime (rt.journal, rt.feed, rt.flush, rt.stats,
 # rt._sweep_last_seq, rt._journal_replaying) so the durability contract
@@ -626,11 +789,16 @@ def checkpoint_extra(rt, tick: int) -> dict:
 
 def post_checkpoint_truncate(rt, extra: dict) -> int:
     """After a successful checkpoint save: drop journal segments the
-    checkpoint supersedes (bounds WAL disk to ~one interval)."""
+    checkpoint supersedes (bounds WAL disk to ~one interval). Handles
+    both position shapes: flat ``(seg, off)`` and the sharded journal's
+    per-shard pair list."""
     j = getattr(rt, "journal", None)
     if j is None or "wal" not in extra:
         return 0
-    return j.truncate_upto(int(extra["wal"][0]))
+    wal = extra["wal"]
+    if wal and isinstance(wal[0], (list, tuple)):
+        return j.truncate_upto(wal)
+    return j.truncate_upto(int(wal[0]))
 
 
 def replay_journal(rt, pos: Optional[tuple] = None) -> dict:

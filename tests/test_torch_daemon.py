@@ -74,15 +74,15 @@ def test_config_file_builds_the_test_geometry(tmp_path):
     assert t_conf.load_engine_cfg(_config(tmp_path)) == t_cfg()
 
 
-_UNPORTED_TUNING = ("shard_queue_mb", "throttle_ring_frac")
+_UNPORTED_TUNING = ("throttle_ring_frac",)
 
 
 def test_parse_args_defaults_match_reference():
     j, t = vars(j_main.parse_args([])), vars(t_main.parse_args([]))
     assert t.pop("device") == "cuda"
     assert t.pop("preagg") is False
-    # flags that only tune the unported sharded and multi-process tiers
-    # are left out until those tiers land
+    # flags that only tune the unported multi-process tier are left
+    # out until it lands
     for k in _UNPORTED_TUNING:
         assert k in j and k not in t
         del j[k]
@@ -90,10 +90,9 @@ def test_parse_args_defaults_match_reference():
 
 
 _UNPORTED_FLAGS = {
-    "shards": (["--shards", "2"], "item 6"),
-    "compact_procs": (["--compact-procs", "1"], "item 6"),
-    "ingest_procs": (["--ingest-procs", "2"], "item 6"),
-    "relay_port": (["--relay-port", "0"], "item 6"),
+    "compact_procs": (["--compact-procs", "1"], "item 7"),
+    "ingest_procs": (["--ingest-procs", "2"], "item 7"),
+    "relay_port": (["--relay-port", "0"], "item 7"),
 }
 
 
@@ -106,14 +105,16 @@ def test_unported_flag_raises(name, tmp_path):
         t_main.Daemon(args, env={})
 
 
-@pytest.mark.parametrize("cmd,item", [("relay", "item 6")])
+@pytest.mark.parametrize("cmd,item", [("relay", "item 7")])
 def test_unported_subcommand_raises(cmd, item):
     with pytest.raises(unported.NotPortedError, match=item):
         t_cli.main([cmd])
 
 
 def test_compact_procs_raises_item_6(tmp_path):
-    with pytest.raises(unported.NotPortedError, match="item 6"):
+    # the item of the sharded tier's worker processes, 7 since the
+    # single-process sharded runtime (item 6) is ported
+    with pytest.raises(unported.NotPortedError, match="item 7"):
         t_cli.main(["compact", "run", "--procs", "1", "--journal-dir",
                     str(tmp_path / "wal"), "--shard-dir",
                     str(tmp_path / "shards")])
@@ -121,7 +122,7 @@ def test_compact_procs_raises_item_6(tmp_path):
 
 def test_compact_list_on_parted_store_raises_item_6(tmp_path):
     (tmp_path / "parts" / "part_00").mkdir(parents=True)
-    with pytest.raises(unported.NotPortedError, match="item 6"):
+    with pytest.raises(unported.NotPortedError, match="item 7"):
         t_cli.main(["compact", "list", "--shard-dir",
                     str(tmp_path / "parts")])
 

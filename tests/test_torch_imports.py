@@ -41,8 +41,8 @@ def test_no_jax_or_reference_import(path):
 
 # modules of the edge pre-aggregation and snapshot slice, of the
 # registries and alert slice, of the history and journal slice, of the
-# serving edge and of the fabric gateway and the remote compaction
-# region, each of which the AST check above must cover
+# serving edge, of the fabric gateway and the remote compaction region
+# and of the sharded tier, each of which the AST check above must cover
 SLICE_MODULES = ("sketch/edgefold.py", "query/snapshot.py",
                  "query/normalize.py", "query/crud.py", "obs/prom.py",
                  "obs/spans.py", "utils/selfstats.py", "ingest/decode.py",
@@ -70,7 +70,12 @@ SLICE_MODULES = ("sketch/edgefold.py", "query/snapshot.py",
                  "cli.py", "__main__.py", "unported.py",
                  # the fabric gateway and the remote compaction region
                  "net/gateway.py", "net/segship.py",
-                 "history/shipper.py")
+                 "history/shipper.py",
+                 # the sharded tier's single-process mesh
+                 "parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/partition.py", "parallel/pairing.py",
+                 "parallel/sharded.py", "parallel/rollup.py",
+                 "parallel/shardedrt.py", "net/shardfeed.py")
 
 
 @pytest.mark.parametrize("mod", SLICE_MODULES)

@@ -7,8 +7,9 @@ floats rtol 1e-6): every subsystem the port serves, and request
 variants — filters, sorts, ``maxrecs``, aggregation with group-by, and
 projections that load the lazy svcstate groups over just the result
 rows. The 43 served subsystems take in those of the host-side
-registries and the alert tier. ``shardlist`` raises, naming its
-ROADMAP item. The host
+registries and the alert tier. ``shardlist`` raises as the
+reference's single runtime raises it (the sharded runtime serves it).
+The host
 modules the port copies (``criteria``, ``aggr``, ``fieldmaps``) are
 held against the reference on filter and aggregation strings over the
 same columns, and each device readback returns the reference's dtypes.
@@ -111,18 +112,26 @@ _UNPORTED = sorted(set(j_fm.FIELDS_OF_SUBSYS) - set(SERVED))
 
 
 def test_subsystem_split_covers_fieldmaps():
+    # a single runtime serves 43; shardlist is the sharded runtime's
+    # (tests/test_torch_shardedrt.py), and nothing is left unported
     assert len(j_fm.FIELDS_OF_SUBSYS) == 44 and len(SERVED) == 43
     assert sorted(t_api.SERVED) == sorted(SERVED)
-    assert sorted(t_api.UNPORTED_SUBSYS) == _UNPORTED == ["shardlist"]
+    assert _UNPORTED == ["shardlist"] and t_api.UNPORTED_SUBSYS == {}
 
 
 @pytest.mark.parametrize("subsys", _UNPORTED)
 def test_unported_subsystem_raises(runs, subsys):
-    with pytest.raises(ValueError, match="ROADMAP.md") as e:
-        runs["tr"].query({"subsys": subsys})
-    assert subsys in str(e.value)
-    assert t_api.UNPORTED_SUBSYS[subsys] in str(e.value)
-    assert isinstance(e.value, unported.NotPortedError)
+    """A single runtime has no shards: it refuses ``shardlist`` as the
+    reference's does, on both consistency paths."""
+    for req in ({"subsys": subsys},
+                {"subsys": subsys, "consistency": "snapshot"}):
+        msgs = []
+        for rt in (runs["jr"], runs["tr"]):
+            with pytest.raises(ValueError) as e:
+                rt.query(dict(req))
+            assert not isinstance(e.value, unported.NotPortedError)
+            msgs.append(str(e.value))
+        assert msgs[1] == msgs[0] == f"unknown subsystem {subsys!r}"
 
 
 def test_unknown_request_errors_match_reference(runs):

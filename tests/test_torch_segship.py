@@ -10,9 +10,9 @@ staging-bound sheds, source sheds through ``pin_bytes``, epochs, owner
 binding and the staging sweep, ``compact list`` provenance, the floor
 pinning truncation, and ``seg_info`` against the receiver's hash —
 with the global invariant ``sealed == shipped + counted drops`` held
-throughout. The port has no live sharded journal (ROADMAP.md queue 1,
-item 6), so the sharded layout ships in offline dir mode from a
-``shard_NN/`` root of flat journals.
+throughout. The sharded layout ships in offline dir mode from a
+``shard_NN/`` root of flat journals, and from the sharded runtime's
+live ``ShardedJournal``.
 
 Across packages, in both directions (reference shipper → port receiver,
 port shipper → reference receiver), each layout lands the same bytes as
@@ -24,16 +24,16 @@ journal runs four ticks at ``tests/test_torch_history.py``'s geometry;
 its sealed WAL ships, and ``_StagingCompactLoop(device="cpu")`` compacts
 the staging dir. The region's shards equal a local ``Compactor``'s over
 the same WAL, 114/114 leaves bit for bit, and the ``at=``/``window=``
-JSON served from either store is equal. A ``shard_NN/`` staging dir is
-refused, naming item 6. No reference ``Runtime`` is started: the
-reference's shipper and receiver import no JAX.
+JSON served from either store is equal. A ``shard_NN/`` staging dir of
+a 2-shard runtime compacts to the same shards as a local compactor over
+its WAL. No reference ``Runtime`` is started: the reference's shipper
+and receiver import no JAX.
 """
 
 import asyncio
 import json
 import socket
 import threading
-import time
 
 import pytest
 
@@ -41,7 +41,6 @@ from gyeeta_tpu.history import shipper as j_ship
 from gyeeta_tpu.net import segship as j_seg
 from gyeeta_tpu.utils.selfstats import Stats as JStats
 from gyeeta_tpu_torch import cli as t_cli
-from gyeeta_tpu_torch import unported
 from gyeeta_tpu_torch.engine.aggstate import EngineCfg as TCfg
 from gyeeta_tpu_torch.history import shipper as t_ship
 from gyeeta_tpu_torch.history.compactor import Compactor as TCompactor
@@ -601,30 +600,63 @@ def test_remote_region_equals_local_compaction(tmp_path):
         assert_json_equal(want[k], got[k])
 
 
-def test_sharded_staging_refused_naming_item_6(tmp_path, caplog):
-    _mk_sharded(tmp_path / "wal", nrec=40)
-    _run_pair(tmp_path / "stage", wal_dir=tmp_path / "wal")
-    stats = Stats()
-    loop = _StagingCompactLoop(TCfg(**GEOM),
-                               TOpts(**OPTS, hist_compact_interval_s=0.2),
-                               str(tmp_path / "stage"),
-                               str(tmp_path / "region"), stats=stats,
-                               device="cpu")
-    with pytest.raises(unported.NotPortedError, match="item 6"):
-        loop.pass_once()
-    # the loop's own passes log it at error level and count it
-    loop.start()
+def test_sharded_staging_refused_naming_item_6(tmp_path):
+    """No longer refused since the sharded runtime is ported: a 2-shard
+    runtime's live per-shard WAL (``shard_NN/``) ships, lands byte for
+    byte, and the staging loop replays it with the compactor's
+    tick-merged walk into shards equal, leaf for leaf, to a local
+    ``Compactor``'s over the same WAL, with per-shard positions."""
+    from gyeeta_tpu_torch.parallel.mesh import make_mesh
+    from gyeeta_tpu_torch.parallel.shardedrt import ShardedRuntime
+    now = [T0]
+    opts = TOpts(**OPTS, journal_dir=str(tmp_path / "wal"))
+    src = ShardedRuntime(TCfg(**GEOM), make_mesh(2, device="cpu"), opts,
+                         clock=lambda: now[0])
+    loop = local = None
     try:
-        deadline = time.monotonic() + TIMEOUT
-        while not stats.counters.get("compact_errors") \
-                and time.monotonic() < deadline:
-            time.sleep(0.05)
+        names, bufs = tick_buffers(TSim, t_wire)
+        src.feed(names)
+        for i, buf in enumerate(bufs):
+            src.feed(buf, hid=i % 2, conn_id=11)
+            now[0] += TICK_SECONDS
+            src.run_tick()
+        src.feed(bufs[0], hid=0, conn_id=11)
+        src.feed(bufs[1], hid=1, conn_id=12)
+        src.flush()
+        src.journal.seal_active()
+        src.journal.fsync()
+        upto = src.journal.sealed_upto()
+        assert len(upto) == 2 and min(upto) >= 1
+        _run_pair(tmp_path / "stage", journal=src.journal)
+        _landed_identical(tmp_path / "wal", tmp_path / "stage", 2, upto)
+        hopts = opts._replace(journal_dir=None)
+        loop = _StagingCompactLoop(src.cfg, hopts, str(tmp_path / "stage"),
+                                   str(tmp_path / "region"),
+                                   stats=Stats(), device="cpu")
+        loop.pass_once()
+        local = TCompactor(src.cfg, hopts, journal_dir=str(tmp_path / "wal"),
+                           shard_dir=str(tmp_path / "local"), device="cpu")
+        local.compact_once()
+        rs, ls = loop.compactor.store, local.store
+        assert [e["tick1"] for e in rs.shards("raw")] == \
+            [e["tick1"] for e in ls.shards("raw")] == [2, 4]
+        assert rs.position() == ls.position()
+        assert [p[0] for p in rs.position()] == [0, 1]   # per shard
+        assert loop.floors() == J.floors_of(rs.position())
+        for ent_r, ent_l in zip(rs.shards("raw"), ls.shards("raw")):
+            got, want = rs.load(ent_r), ls.load(ent_l)
+            leaves = [(a, b) for part in ("state", "dep")
+                      for a, b in zip(got[part], want[part])]
+            assert len(leaves) == 114
+            for i, (a, b) in enumerate(leaves):
+                assert a.dtype == b.dtype and a.shape == b.shape, i
+                assert a.tobytes() == b.tobytes(), i
     finally:
-        loop.stop()
-    assert stats.counters["compact_errors"] >= 1
-    assert any(r.levelname == "ERROR" and r.exc_info
-               and "item 6" in str(r.exc_info[1]) for r in caplog.records)
-    assert loop.compactor is None
+        if loop is not None:
+            loop.final_pass()
+        if local is not None:
+            local.close()
+        src.close()
 
 
 def test_staging_loop_waits_for_segments_and_runs_on_its_device(tmp_path):

@@ -18,8 +18,8 @@ the NM edge (the reference's ``NodeWebSim``) and over each package's
 ``WebGateway`` HTTP, each equal across the three edges. A port server
 with ``feed_pipeline=True`` fed the same agents answers the same JSON;
 the host map survives a restart; the handshake and idle reaps are
-counted; the sharded tier's options raise ``NotPortedError`` naming
-item 6.
+counted; the options of the sharded tier's worker processes raise
+``NotPortedError`` naming item 7.
 """
 
 import asyncio
@@ -421,14 +421,15 @@ def test_handshake_and_idle_reaps_are_counted():
     assert ctr["conn_timeouts|kind=idle"] == 1
 
 
-@pytest.mark.parametrize("kw", [dict(shard_ingest=True),
-                                dict(ingest_procs=2),
+# shard_ingest is served since the sharded runtime is ported
+# (tests/test_torch_shardfeed.py); the worker-process options stay
+@pytest.mark.parametrize("kw", [dict(ingest_procs=2),
                                 dict(relay_port=0)],
-                         ids=["shard_ingest", "ingest_procs", "relay_port"])
+                         ids=["ingest_procs", "relay_port"])
 def test_sharded_options_raise_not_ported(kw):
     rt = TRuntime(t_cfg(), TOpts(**OPTS), device="cpu")
     try:
-        with pytest.raises(unported.NotPortedError, match="item 6"):
+        with pytest.raises(unported.NotPortedError, match="item 7"):
             TGytServer(rt, tick_interval=None, **kw)
     finally:
         rt.close()
