@@ -41,8 +41,9 @@ checkout of the repository. Phases:
    time from torch.profiler's CUDA events, and the host's issue rate
    from CUDA events around back-to-back calls.
 7. ``fold_all`` at north-star geometry on a fresh state (dep capacities
-   65,536 pairs / 524,288 edges, the runtime's section lanes): four
-   ticks, each 64 dispatches of a K=16 conn/resp slab (one conn lane in
+   65,536 pairs / 524,288 edges, the runtime's section lanes): two
+   ticks (a warm one, then the measured one), each 64 dispatches of a
+   K=16 conn/resp slab (one conn lane in
    eight a split half) carrying that tick's sweep (65,536 listeners,
    4,096 process groups, 512 hosts' state and cpu/mem, pings, traces of
    256 services), then the tick's upkeep, each step timed. The kernels'
@@ -90,11 +91,12 @@ checkout of the repository. Phases:
    may sit one loghist bucket apart, counted).
 9. Edge pre-aggregation through the ``Runtime`` at ns geometry: one
    agent-side ``EdgeFold`` turns each tick's records (16 feed buffers'
-   worth of plain conn and resp records, 2 for the warm-up tick) into
+   worth of plain conn and resp records, 1 for the warm-up tick) into
    SKETCH_DELTA records on the host before any timer starts; a warm-up
-   tick and two ticks, each the raw 5 s state sweep and the delta
+   tick and a measured tick, each the raw 5 s state sweep and the delta
    records in ~1 MB buffers, then ``run_tick`` (which publishes the
-   snapshot). The launch counters are zeroed before the two ticks: each
+   snapshot). The launch counters are zeroed before the measured tick:
+   each
    delta dispatch launches ``cms_update`` and ``inv_update`` once, the
    generic ``scatter_max`` twice (the per-service and global HLL
    registers) and ``scatter_add`` once (the loghist buckets), and no
@@ -111,7 +113,7 @@ checkout of the repository. Phases:
 10. History and the journal through the ``Runtime`` at ns geometry:
    phase 8's frames into a runtime with a write-ahead journal, snapshot
    shards (two ticks a window), a sqlite history store and the history
-   sweep every tick: a warm-up tick and four ticks of 8 feed buffers
+   sweep every tick: a warm-up tick and four ticks of 4 feed buffers
    (ms a buffer beside phase 8's, the journal's gauges, ``run_tick``
    with the sweep's render synchronised, ``history_rows``); a db-mode
    and a windowed alertdef through ``"op"``; a ``Compactor`` whose
@@ -190,18 +192,47 @@ checkout of the repository. Phases:
    buffers, queries first and cached, peak memory; then a single
    ``Runtime`` at ns fed the same frames: svcstate, hoststate,
    taskstate and clusterstate equal row for row, svcdependency the same
-   edges with each edge short only by the pairs still waiting (their
-   halves met in other slab dispatches), flowstate's heaviest flow
+   edges with each edge short only by the pairs the single runtime made
+   and it did not (halves of one flow that met in one sharded dispatch
+   make one pair), flowstate's heaviest flow
    equal. 13c: ``serve --shards 4`` (the daemon in this process, on the
    card) over 127.0.0.1: two GYT conns feed 4,096 services, the tick
    loop runs 3.5 s at 1 s, ``shardlist`` and ``svcstate`` answer over
    GYT, ``--journal-dir`` holds ``shard_00/``–``shard_03/``, one
    compaction of that WAL on the card writes shards an ``at=`` query
    reads.
+14. The sharded tier's worker processes, four on the card. 14a: 13b's
+   frames to its tick 2 as a per-shard WAL (each buffer's records split
+   by ``host_id % 4`` into ``shard_00/``–``shard_03/``, the names to
+   every shard), compacted by ``ParallelCompactor`` with 4 and with 2
+   spawned replay workers, each a CUDA context on the card: records/s,
+   each part's wall and CPU s, ``compact_emit`` ms and peak device
+   memory, the workers' launch counts (``launches_part_slab``: 2/1/1 a
+   replayed conn/resp dispatch); the two passes' parts held to each
+   other (integer and max leaves exact, float sums rtol 1e-6, the root
+   windows equal), ``at=tick:2`` svcstate over the parted store against
+   13b's live runtime at tick 2 row for row, ``compact list`` on the
+   parted root. 14b: ``serve --shards 4 --ingest-procs 4`` (the daemon
+   in this process, manual ticks) over 127.0.0.1: one GYT conn a worker
+   sends 13b's frames a buffer at a time, each drained through the
+   shared-memory rings before the next (ms a buffer wire → fold beside
+   13b's), ``run_tick`` and its parts, the launch counters
+   (``launches_ring_slab``: 8/4/4 a ring-drained dispatch), ring
+   backlog, drops and the ledger; svcstate, hoststate, taskstate and
+   clusterstate equal 13b's runtime at tick 3 row for row,
+   svcdependency on the same edges, apart in one direction by the pairs
+   one run made and the other did not; a worker SIGKILLed mid-stream respawns onto its shard
+   group, its agent reconnects to the same host id, and the ledger
+   stays exact. 14c: a ``relay`` process on 127.0.0.1 uplinks into
+   ``serve --shards 4 --relay-port``; two agents register through it
+   and send 13c-width frames (4,096 services): the hub's ledger exact
+   with no gap, the four state views equal an in-process sharded
+   runtime fed the same frames; the relay is SIGKILLed and restarted
+   twice, each restart's epoch finalised with its loss counted.
 6. Fold rate and device ops a dispatch, memory, the card's name and
    power limit, the JSON lines (fold, fold_all, runtime, delta,
-   history, serving, region, sharded, kernels), and last the result
-   line.
+   history, serving, region, sharded, workers, kernels), and last the
+   result line.
 """
 
 from __future__ import annotations
@@ -216,6 +247,7 @@ import subprocess
 import sys
 import time
 from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -231,6 +263,10 @@ N_DISTINCT = 16        # distinct staged slabs cycled by the main path:
 N_DISPATCH = 64        # main-path fold_many dispatches
 MAX_WARMUP = 64        # conn-only warm-up folds before giving up
 REPS = 100             # launches per kernel timing
+# calls per timing of a fused kernel's plain version and of the route it
+# replaced: hundreds of device ops a call, whose profiler trace takes
+# seconds to read back at REPS
+PLAIN_REPS = 20
 # H100 SXM data-sheet peaks
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -969,12 +1005,13 @@ def fused_call(torch, scatter, kind, mod, fn, generic, sk, args, kw):
     err = _same_sketch(torch, kind, got, want)
     work = _clone(sk)
     ms, issue_ms = timed(torch, lambda: kernel(work, *args, **kw))
-    plain_ms, plain_issue_ms = timed(torch, lambda: plain(work, *args, **kw))
+    plain_ms, plain_issue_ms = timed(
+        torch, lambda: plain(work, *args, **kw), PLAIN_REPS)
     chain_ms = None
     if mod != "invertible":
         gen = getattr(scatter, generic)
         chain_ms, _ = timed(torch, lambda: gen(work[0], *generic_lanes(
-            torch, mods, mod, fn, work[0], args, kw)[:2]))
+            torch, mods, mod, fn, work[0], args, kw)[:2]), PLAIN_REPS)
     c = {"site": f"{mod}.{fn}", "target": list(sk[0].shape),
          "dtype": str(sk[0].dtype).split(".")[1],
          "lanes": args[-1].numel(),
@@ -1084,7 +1121,9 @@ NS_DEP = (65536, 524288)    # bench.py:_geometry("ns") pair/edge capacity
 # section lanes of the runtime's fused slab (runtime.py:_slab_lanes)
 NS_LANES = dict(listener=1024, host=4096, task=2400, cpumem=4096,
                 trace=4096, ping=2048)
-NS_TICKS = 4
+# a warm tick and a measured one, no more, to keep the script inside its
+# time limit; each tick's 64 dispatches cycle every distinct slab
+NS_TICKS = 2
 TICK_DISPATCHES = 64        # 65,536 listeners at 1,024 lanes a dispatch
 SPLIT_FLOWS = 128           # split flows a microbatch: 256 of its 2,048
 #                             conn lanes are halves (one in eight)
@@ -1262,8 +1301,8 @@ def count_syncs(torch, fn) -> list:
 
 
 def fold_all_phase(torch, scatter):
-    """fold_all at north-star geometry on a fresh state: four ticks of
-    TICK_DISPATCHES dispatches, each a conn/resp K-slab with split
+    """fold_all at north-star geometry on a fresh state: NS_TICKS ticks
+    of TICK_DISPATCHES dispatches, each a conn/resp K-slab with split
     halves plus that dispatch's share of the tick's sweep, then the
     tick's upkeep; checks, then where the time goes."""
     from gyeeta_tpu_torch.engine import aggstate, compact, step
@@ -2286,9 +2325,11 @@ def runtime_phase(torch, scatter):
 
 
 # ----------------------------------------------------------- phase 9
-DELTA_TICKS = 2             # measured ticks
+# one measured tick at a tick's full load (16 buffers), to keep the
+# script inside its time limit
+DELTA_TICKS = 1             # measured ticks
 DELTA_BUFFERS = 16          # phase-8 feed buffers' worth of records a tick
-DELTA_WARM_BUFFERS = 2      # ... of the warm-up tick
+DELTA_WARM_BUFFERS = 1      # ... of the warm-up tick
 DELTA_FEED_BYTES = 1 << 20  # SKETCH_DELTA frames fed in ~1 MB buffers
 DELTA_PROFILED = 4          # delta dispatches under torch.profiler
 # launches of each kernel in a delta-only dispatch (hh_width > 0)
@@ -2856,7 +2897,9 @@ def delta_phase(torch, scatter):
 
 # ----------------------------------------------------------- phase 10
 HIST_TICKS = 4              # measured ticks
-HIST_BUFFERS = 8            # feed buffers a measured tick
+# feed buffers a measured tick: 4 since phase 14 came (8 before), which
+# halves the WAL that phases 10 and 12a replay
+HIST_BUFFERS = 4
 HIST_WINDOW = 2             # hist_window_ticks: shards at ticks 2 and 4
 HIST_ALERT_OPS = (
     {"op": "add", "objtype": "alertdef", "alertname": "host_issue_db",
@@ -2996,7 +3039,7 @@ def _settle_sum_fields(ref, got, mass, n_apart):
     return got
 
 
-def deflate_rates(leaves, stride: int = 16, block: int = 1 << 20) -> dict:
+def deflate_rates(leaves, stride: int = 64, block: int = 1 << 20) -> dict:
     """zlib's deflate at level 6 (``np.savez_compressed``'s, the
     reference's shard writer) and level 1 (the port's) over a sample of
     a shard's leaves: every ``stride``-th ``block`` bytes of each leaf →
@@ -3299,7 +3342,7 @@ def history_phase(torch, scatter, frames, rt_perf, tmp):
     ent = [e for e in shards if e["tick1"] == 2 * HIST_WINDOW][0]
     data = comp.store.load(ent)
     perf["deflate"] = deflate_rates(data["state"] + data["dep"])
-    log(f"  deflate over a 1/16 block sample of the shard's leaves "
+    log(f"  deflate over a 1/64 block sample of the shard's leaves "
         f"({perf['deflate']['sample_mb']:.0f} MB): level 6 (the "
         f"reference's savez_compressed) "
         f"{perf['deflate'][6]['mb_per_s']:.0f} MB/s, ratio "
@@ -4379,8 +4422,10 @@ def _shards_equal(torch, local, remote, cfg) -> tuple:
     names = tree_paths(aggstate.init(cfg, "meta")) + \
         tree_paths(depgraph.init(1, 1, "meta"))
     out, mass = {}, 0.0
+    pool = ThreadPoolExecutor(2)      # zlib inflates without the GIL
     for el, er in zip(local.shards("raw"), remote.shards("raw")):
-        a, b = local.load(el), remote.load(er)
+        fa, fb = pool.submit(local.load, el), pool.submit(remote.load, er)
+        a, b = fa.result(), fb.result()
         sa = aggstate.state_from_numpy(a["state"], DEV)
         sb = aggstate.state_from_numpy(b["state"], DEV)
         mass = float(sa.flow_topk.counts.sum() + sa.flow_topk.evicted)
@@ -4401,6 +4446,7 @@ def _shards_equal(torch, local, remote, cfg) -> tuple:
               f"{n_exact} of 114 leaves exact, {len(close)} within the "
               f"float-sum rule {close}; differing: {bad}")
         del a, b, sa, sb
+    pool.shutdown()
     return out, mass
 
 
@@ -4620,10 +4666,11 @@ SH_QUERIES = ("svcstate", "hoststate", "svcdependency", "flowstate",
 # tests/test_shardfeed.py): rows equal to a single runtime's fold of the
 # same frames. flowstate's top-K keeps per-shard survivors, so only its
 # heaviest flow is held (as the reference's test holds it); the feed
-# buffers repeat flow keys, so a split flow's halves can meet in other
-# slab dispatches than the single runtime's and pair otherwise:
-# svcdependency is held to the same edges, with each edge's nconn short
-# by the pairs still waiting (see sharded_ns_run)
+# buffers repeat flow keys, and the halves of one flow that meet on its
+# pair-table row in one dispatch make one pair, so runs whose slab
+# boundaries differ pair a flow a different number of times:
+# svcdependency is held to the same edges, each edge's nconn short by
+# the pairs the other run made (see sharded_ns_run)
 SH_EXACT = ("svcstate", "hoststate", "taskstate", "clusterstate")
 TINY_SH_CFG = dict(n_hosts=16, svc_capacity=256, task_capacity=256,
                    conn_batch=256, resp_batch=512, listener_batch=64,
@@ -4831,10 +4878,13 @@ def _rows_by_identity(out) -> list:
         sort_keys=True, default=str))
 
 
-def sharded_ns_run(torch, scatter, frames, rt_perf):
+def sharded_ns_run(torch, scatter, frames, rt_perf, oracle):
     """13b: phase 8's frames through a 4-shard ``ShardedRuntime`` on the
     card at ns ÷ 4 a shard, then the same frames through a single
-    ``Runtime`` at ns geometry, held row for row (see sharded_phase)."""
+    ``Runtime`` at ns geometry, held row for row (see sharded_phase).
+    ``oracle`` gets phase 14's live answers: svcstate at tick 2, the
+    exact views and svcdependency at tick 3 (before any other frame),
+    the pairs made and ms a feed buffer."""
     from gyeeta_tpu_torch.engine import aggstate
     from gyeeta_tpu_torch.ingest import wire
     from gyeeta_tpu_torch.parallel import depgraph, sharded
@@ -4917,8 +4967,16 @@ def sharded_ns_run(torch, scatter, frames, rt_perf):
             perf["tick_ms"].append((time.perf_counter() - t0) * 1e3)
             perf["tick_parts_ms"].append(dict(tick_parts.ms))
             tick_parts.ms = {}
+            if rt._tick_no == WK_WINDOW:      # phase 14a's window
+                oracle["svcstate_t2"] = rt.query(
+                    {"subsys": "svcstate", "maxrecs": 200000})
     finally:
         depgraph._dispatch_halves = dispatch
+    # phase 14b's oracle: the same frames over its worker rings
+    oracle["t3"] = {name: rt.query({"subsys": name, "maxrecs": 200000})
+                    for name in SH_EXACT + ("svcdependency",)}
+    oracle["n_paired"] = sum(float(d.n_paired) for d in rt.dep)
+    oracle["buffer_ms"] = list(perf["buffer_ms"])
     launches = read_launches(scatter, mods)
     disp = rt.stats.counters["fold_dispatches"] - d0
     slabs = rt.stats.counters.get("slab_dispatches", 0) - s0
@@ -5075,9 +5133,10 @@ def sharded_ns_run(torch, scatter, frames, rt_perf):
           f"13b: svcdependency holds the single runtime's {len(theirs)} "
           f"edges; {len(same)} equal, {len(short) - len(same)} short by "
           f"{sum(short.values()):.0f} conns = the {unpaired:.0f} pairs "
-          "whose halves met in other slab dispatches (still waiting)")
+          "the single runtime made and this one did not (halves of one "
+          "flow that met in one sharded dispatch make one pair)")
     perf["dep_edges_short"] = len(short) - len(same)
-    perf["pairs_waiting"] = unpaired
+    perf["pairs_apart"] = unpaired
     ref = one.query({"subsys": "flowstate", "maxrecs": 200000})
     top = (ref["recs"][0]["flowid"], ref["recs"][0]["bytes"])
     got = (outs["flowstate"]["recs"][0]["flowid"],
@@ -5149,12 +5208,17 @@ async def sharded_serve_run(torch, scatter, tmp) -> dict:
         await _until(lambda: ctr.get("conn_events", 0) >= want,
                      "the frames folded")
         perf["feed_s"] = time.perf_counter() - t0
-        ticks0 = d.rt._tick_no
+        ticks0, t1 = d.rt._tick_no, time.perf_counter()
         await asyncio.sleep(SRV_SH_LOOP_S)
+        # a slower host's ticks take longer: the stretch lasts until the
+        # loop has ticked twice, as phase 11's does
+        await _until(lambda: d.rt._tick_no - ticks0 >= 2,
+                     "two ticks of the server's loop")
         perf["loop_ticks"] = d.rt._tick_no - ticks0
+        perf["loop_s"] = time.perf_counter() - t1
         check(perf["loop_ticks"] >= 2 and not tick_log.records,
               f"13c: the server's tick loop ran {perf['loop_ticks']} ticks "
-              f"in {SRV_SH_LOOP_S} s, none failed")
+              f"in {perf['loop_s']:.1f} s, none failed")
         await _w(qc.connect(host, port))
         t1 = time.perf_counter()
         sl = await _w(qc.query({"subsys": "shardlist"}))
@@ -5217,7 +5281,8 @@ def sharded_phase(torch, scatter, frames, rt_perf):
     out = {"tiny": tiny_sharded_phase(torch)}
     gc.collect()
     torch.cuda.empty_cache()
-    out["ns"] = sharded_ns_run(torch, scatter, frames, rt_perf)
+    oracle = {}
+    out["ns"] = sharded_ns_run(torch, scatter, frames, rt_perf, oracle)
     gc.collect()
     torch.cuda.empty_cache()
     tmp = Path(tempfile.mkdtemp(prefix="gyt_smoke_shard_"))
@@ -5229,7 +5294,658 @@ def sharded_phase(torch, scatter, frames, rt_perf):
     torch.cuda.empty_cache()
     out["s"] = time.perf_counter() - t0
     log(f"  phase 13: {out['s']:.1f} s")
-    return out, out["ns"]["launches_per_slab"]
+    return out, out["ns"]["launches_per_slab"], oracle
+
+
+# ----------------------------------------------------------- phase 14
+WK_PROCS = 4                # compaction and ingest worker processes
+WK_WINDOW = 2               # 14a: hist_window_ticks, 13b's tick 2
+WK_PROCS_2 = 2              # the second compaction pass, held to the first
+WK_TIMEOUT = 300.0          # a barrier of the worker phases, seconds
+WK_KILL_BUFFERS = 4         # buffers sent to a worker as it is SIGKILLed
+RELAY_CONNS = 2             # agents behind the relay
+RELAY_BUFFERS = 4           # 13c-width feed buffers through the relay
+RELAY_RESTARTS = 2          # relay process kills and restarts
+
+
+def shard_split(wire, buf: bytes, n: int) -> list:
+    """A multi-host frame buffer → one buffer a shard: records routed by
+    ``host_id % n`` as the ingest workers route them, records with no
+    host column (the names) to every shard."""
+    recs, _, _ = wire.drain2(buf)
+    parts = [[] for _ in range(n)]
+    for sub, arr in recs.items():
+        if "host_id" not in (arr.dtype.names or ()):
+            for p in parts:
+                p.append(wire.encode_frames_chunked(sub, arr))
+            continue
+        dest = arr["host_id"].astype(np.int64) % n
+        for s in range(n):
+            sel = arr[dest == s]
+            if len(sel):
+                parts[s].append(wire.encode_frames_chunked(sub, sel))
+    return [b"".join(p) for p in parts]
+
+
+def _n_records(wire, buf: bytes) -> int:
+    return sum(len(a) for a in wire.drain2(buf)[0].values())
+
+
+def parted_run(torch, scatter, frames, oracle, tmp) -> tuple:
+    """14a: phase 13b's frames up to its tick 2 as a per-shard WAL, one
+    shard's records a subdir, compacted by ``ParallelCompactor`` with 4
+    and with 2 replay workers on the card (see worker_phase)."""
+    import contextlib
+    import io
+
+    from gyeeta_tpu_torch import cli
+    from gyeeta_tpu_torch.engine import aggstate
+    from gyeeta_tpu_torch.history import shards as SH
+    from gyeeta_tpu_torch.history.compactproc import ParallelCompactor
+    from gyeeta_tpu_torch.ingest import wire
+    from gyeeta_tpu_torch.runtime import Runtime
+    from gyeeta_tpu_torch.sketch import loghist
+    from gyeeta_tpu_torch.utils import journal as J
+    from gyeeta_tpu_torch.utils.config import RuntimeOpts
+    from gyeeta_tpu_torch.utils.selfstats import Stats
+    from gyeeta_tpu_torch.utils.tensor import tree_paths
+
+    names, sweeps, bufs, n_svcs = frames
+    scfg = aggstate.EngineCfg(**SH_CFG)
+    opts = RuntimeOpts(**RT_OPTS, hist_window_ticks=WK_WINDOW)
+    perf = {}
+    wal = tmp / "wal"
+    feeds = [[names, sweeps[0]] + [bufs[i % RT_DISTINCT][0]
+                                   for i in range(RT_WARM_BUFFERS)],
+             [sweeps[1]] + [bufs[(RT_WARM_BUFFERS + i) % RT_DISTINCT][0]
+                            for i in range(SH_BUFFERS)]]
+    t0 = time.perf_counter()
+    js = [J.Journal(wal / f"shard_{s:02d}") for s in range(SH_N)]
+    try:
+        for tick, chunks in enumerate(feeds):
+            for buf in chunks:
+                for s, part in enumerate(shard_split(wire, buf, SH_N)):
+                    if part:
+                        js[s].append(part, hid=s, tick=tick)
+    finally:
+        for j in js:
+            j.close()
+    perf["wal_s"] = time.perf_counter() - t0
+    perf["wal_bytes"] = sum(p.stat().st_size for p in wal.rglob("*.gytwal"))
+    log(f"  14a: per-shard WAL of 13b's frames to its tick {WK_WINDOW}: "
+        f"{perf['wal_bytes'] / 2**20:.1f} MiB in {SH_N} subdirs, "
+        f"{perf['wal_s']:.1f} s")
+
+    reps = {}
+    for procs in (WK_PROCS, WK_PROCS_2):
+        pc = ParallelCompactor(scfg, opts, procs, journal_dir=str(wal),
+                               shard_dir=str(tmp / f"parts_{procs}"),
+                               stats=Stats(), device=DEV)
+        t0 = time.perf_counter()
+        try:
+            reps[procs] = pc.compact_once(upto_tick=WK_WINDOW)
+        finally:
+            pc.close()
+        reps[procs]["pass_s"] = time.perf_counter() - t0
+    rep = reps[WK_PROCS]
+    per = rep["per_shard"]
+    perf["records"] = rep["records"]
+    perf["records_per_s"] = {p: r["records"] / r["pass_s"]
+                             for p, r in reps.items()}
+    perf["pass_s"] = {p: r["pass_s"] for p, r in reps.items()}
+    perf["per_shard"] = {p: {s: {k: v for k, v in ps.items()
+                                 if k != "launches"}
+                             for s, ps in r["per_shard"].items()}
+                         for p, r in reps.items()}
+    log(f"  14a: {rep['records']} records compacted by {WK_PROCS} workers "
+        f"in {rep['pass_s']:.1f} s ({perf['records_per_s'][WK_PROCS]:.0f}"
+        f" records/s, worker start included), by {WK_PROCS_2} in "
+        f"{reps[WK_PROCS_2]['pass_s']:.1f} s; per shard (4 workers): "
+        + "; ".join(f"{s}: wall {ps['wall_s']:.2f} s, cpu "
+                    f"{ps['cpu_s']:.2f} s, compact_emit "
+                    f"{ps['emit_ms']:.0f} ms, peak "
+                    f"{ps['peak_device_bytes'] / 2**30:.2f} GiB"
+                    for s, ps in per.items()))
+    check(rep["workers"] == WK_PROCS and rep["windows"] == SH_N
+          and reps[WK_PROCS_2]["workers"] == WK_PROCS_2
+          and reps[WK_PROCS_2]["records"] == rep["records"] > 0,
+          f"14a: {WK_PROCS} and {WK_PROCS_2} workers each emitted one "
+          f"window a part over {rep['records']} records")
+    tot = {k: sum(ps["launches"][k] for ps in per.values())
+           for k in rep["launches"]}
+    # each worker's replay runtime counts its conn/resp dispatches (the
+    # K-slabs and the (1, B) flushes): the launches' denominator
+    n_cr = sum(ps["dispatches"]["connresp_dispatches"]
+               for ps in per.values())
+    perf["launches"] = tot
+    perf["connresp_dispatches"] = n_cr
+    perf["launches_per_slab"] = {k: v / max(n_cr, 1)
+                                 for k, v in tot.items()}
+
+    def fused_only(ps):
+        n = ps["dispatches"]["connresp_dispatches"]
+        return n > 0 and ps["launches"] == {
+            "hll_update": 2 * n, "cms_update": n, "inv_update": n,
+            "scatter_max": 0, "scatter_add": 0}
+
+    check(all(fused_only(ps) for ps in per.values()),
+          f"14a: each of the workers' {n_cr} replayed conn/resp "
+          f"dispatches launched hll_update 2x, cms_update and inv_update "
+          f"once, no generic kernel: {tot}")
+
+    # the parts of the two passes against each other
+    a, b = (SH.open_shard_store(tmp / f"parts_{p}")
+            for p in (WK_PROCS, WK_PROCS_2))
+    keys = ("level", "tick0", "tick1", "t0", "t1")
+    check([{k: e[k] for k in keys} for e in a.shards()]
+          == [{k: e[k] for k in keys} for e in b.shards()]
+          and a.position() == b.position() and a.tick() == b.tick(),
+          f"14a: the root manifests of {WK_PROCS} and {WK_PROCS_2} workers "
+          f"publish the same windows {[e['tick1'] for e in a.shards()]} "
+          "and positions")
+    paths = tree_paths(aggstate.init(scfg, "meta"))
+    ev, cnt = paths.index("flow_topk.evicted"), \
+        paths.index("flow_topk.counts")
+    verdicts = {"exact": 0, "close": 0}
+    bad, close = [], set()
+    pool = ThreadPoolExecutor(SH_N)   # zlib inflates without the GIL
+    for ea, eb in zip(a.shards(), b.shards()):
+        loads = [(pool.submit(a.load_part, p, ea["parts"][p]),
+                  pool.submit(b.load_part, p, eb["parts"][p]))
+                 for p in range(SH_N)]
+        for p, (fa, fb) in enumerate(loads):
+            da, db = fa.result(), fb.result()
+            mass = float(da["state"][ev]) + float(da["state"][cnt].sum())
+            for name, x, y in list(zip(paths, da["state"], db["state"])) \
+                    + [(f"dep{i}", x, y) for i, (x, y) in
+                       enumerate(zip(da["dep"], db["dep"]))]:
+                v = _device_leaf_check(torch, name, torch.from_numpy(x),
+                                       torch.from_numpy(y), mass)
+                if v in verdicts:
+                    verdicts[v] += 1
+                    if v == "close":
+                        close.add(name)
+                else:
+                    bad.append(f"part {p} {name}: {v}")
+            loads[p] = da = db = None      # a part's leaves, released
+    pool.shutdown()
+    perf["parts_leaves"] = dict(verdicts, close_leaves=sorted(close))
+    check(not bad, f"14a: the parts of {WK_PROCS} and {WK_PROCS_2} "
+          f"workers: {verdicts['exact']} leaves bit-identical, "
+          f"{verdicts['close']} float sums within rtol 1e-6 "
+          f"({sorted(close)})"
+          + (f"; {bad[:4]}" if bad else ""))
+
+    # at= over the parted store against the live oracle at that tick
+    qrt = Runtime(scfg, RuntimeOpts(**RT_OPTS, hist_shard_dir=str(
+        tmp / f"parts_{WK_PROCS}")), device=DEV)
+    try:
+        t0 = time.perf_counter()
+        at = qrt.query({"subsys": "svcstate", "maxrecs": 200000,
+                        "at": f"tick:{WK_WINDOW}"})
+        perf["at_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        qrt.close()
+    ref = oracle["svcstate_t2"]
+    n_q = [0, 0]
+    _json_diff(torch, loghist, scfg, _rows_by_identity(ref),
+               _rows_by_identity(at), {}, "14a at= svcstate", n_q)
+    check(at["nrecs"] == ref["nrecs"] == n_svcs and at["tick"] == WK_WINDOW,
+          f"14a: at=tick:{WK_WINDOW} svcstate over the parted store "
+          f"({at['nrecs']} rows, {perf['at_ms']:.0f} ms) equals the live "
+          f"sharded runtime's at that tick, row for row (floats rtol "
+          f"1e-6; {n_q[1]} third-decimal roundings apart)")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["compact", "list", "--shard-dir",
+                  str(tmp / f"parts_{WK_PROCS}")])
+    listing = json.loads(buf.getvalue())
+    check([len(e["parts"]) for e in listing["shards"]] == [SH_N]
+          and listing["tick"] == WK_WINDOW,
+          f"14a: compact list reads the parted root: "
+          f"{[(e['tick0'], e['tick1']) for e in listing['shards']]}")
+    return perf, perf["launches_per_slab"]
+
+
+def _ring_ledger(sup, stats) -> dict:
+    c = stats.counters
+    return {"accepted": sum(h.shm.counter("accepted_records")
+                            for h in sup.workers),
+            "published": sum(h.shm.counter("published_records")
+                             for h in sup.workers),
+            "consumed": c.get("ingest_ring_consumed_records", 0),
+            "dropped": sum(v for k, v in c.items()
+                           if k.startswith("ingest_ring_dropped_records")),
+            "accepted_bytes": sum(h.shm.counter("accepted_bytes")
+                                  for h in sup.workers)}
+
+
+async def ingest_procs_run(torch, scatter, frames, oracle, rt_perf,
+                           tmp) -> tuple:
+    """14b: ``serve --shards 4 --ingest-procs 4`` on the card over
+    127.0.0.1 (see worker_phase)."""
+    import asyncio
+    import signal
+
+    from gyeeta_tpu_torch import server_main
+    from gyeeta_tpu_torch.engine import aggstate
+    from gyeeta_tpu_torch.ingest import wire
+    from gyeeta_tpu_torch.net.agent import register
+    from gyeeta_tpu_torch.sketch import loghist
+
+    names, sweeps, bufs, n_svcs = frames
+    scfg = aggstate.EngineCfg(**SH_CFG)
+    cfgf = tmp / "gyt_ingest.json"
+    cfgf.write_text(json.dumps({"engine": SH_CFG, "runtime": RT_OPTS}))
+    args = server_main.parse_args([
+        "--config", str(cfgf), "--host", "127.0.0.1", "--port", "0",
+        "--shards", str(SH_N), "--ingest-procs", str(WK_PROCS),
+        "--device", DEV, "--log-level", "WARNING"])
+    args.tick_interval = None                   # manual ticks
+    perf = {}
+    d = server_main.Daemon(args, env={})
+    rt, sup = d.rt, d.srv._ingest
+    check(sup is not None and sup.nprocs == WK_PROCS and rt.n == SH_N,
+          f"14b: serve --shards {SH_N} --ingest-procs {WK_PROCS} "
+          f"--device {DEV}: a supervisor of {WK_PROCS} ingest workers")
+    conns = []
+    sent = [0]
+    try:
+        host, port = await d.srv.start()
+        for i in range(WK_PROCS):
+            r, w, status, hid = await _w(register(
+                host, port, 0x5E1000 + i, wire.CONN_EVENT))
+            check(status == wire.REG_OK, f"14b: agent {i} registered")
+            conns.append([r, w, hid, 0x5E1000 + i])
+        check(sorted(sup.worker_of_hid(c[2]) for c in conns)
+              == list(range(WK_PROCS)),
+              f"14b: the {WK_PROCS} conns land on the {WK_PROCS} workers "
+              f"(hids {[c[2] for c in conns]})")
+
+        def settled():
+            lg = _ring_ledger(sup, rt.stats)
+            return (lg["accepted_bytes"] >= sent[0]
+                    and lg["published"] == lg["accepted"]
+                    and lg["consumed"] + lg["dropped"] == lg["published"])
+
+        async def send(i, buf):
+            conns[i % len(conns)][1].write(buf)
+            await _w(conns[i % len(conns)][1].drain())
+            sent[0] += len(buf)
+            await _until(settled, "the rings drained", timeout=WK_TIMEOUT)
+
+        def tick():
+            d.srv._feed_barrier()
+            rt.run_tick()
+            sup.broadcast_tick(rt._tick_no)
+
+        t0 = time.perf_counter()
+        await send(0, names)
+        await send(1, sweeps[0])
+        for i in range(RT_WARM_BUFFERS):
+            await send(i, bufs[i % RT_DISTINCT][0])
+        tick()
+        torch.cuda.synchronize()
+        perf["warm_s"] = time.perf_counter() - t0
+        mods = sketch_modules()
+        reset_launches(scatter, mods)
+        d0 = rt.stats.counters.get("fold_dispatches", 0)
+        perf["buffer_ms"], perf["tick_ms"] = [], []
+        perf["tick_parts_ms"] = []
+        from gyeeta_tpu_torch.parallel import sharded
+        tick_parts = SyncTimer(torch, (
+            (d.srv, "_feed_barrier", "feed_barrier"), (rt, "flush", "flush"),
+            (rt, "td_drain", "td_drain"),
+            (sharded, "classify_sharded", "classify"),
+            (rt, "publish_snapshot", "publish_snapshot"),
+            (rt, "_fleet_roll", "fleet_rollup"),
+            (rt, "heavy_recover", "heavy_recover"),
+            (rt.alerts, "check", "alert_check"),
+            (rt, "engine_health", "health"),
+            (sharded, "tick_5s_sharded", "tick_5s")))
+        j = RT_WARM_BUFFERS
+        for t in range(SH_TICKS):
+            await send(t, sweeps[t + 1])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SH_BUFFERS):
+                await send(j, bufs[j % RT_DISTINCT][0])
+                j += 1
+            d.srv._feed_barrier()
+            torch.cuda.synchronize()
+            perf["buffer_ms"].append((time.perf_counter() - t0)
+                                     / SH_BUFFERS * 1e3)
+            t0 = time.perf_counter()
+            with tick_parts:
+                tick()
+            torch.cuda.synchronize()
+            perf["tick_ms"].append((time.perf_counter() - t0) * 1e3)
+            perf["tick_parts_ms"].append(dict(tick_parts.ms))
+            tick_parts.ms = {}
+        launches = read_launches(scatter, mods)
+        disp = rt.stats.counters.get("fold_dispatches", 0) - d0
+        perf["launches"] = launches
+        perf["dispatches"] = disp
+        perf["launches_per_dispatch"] = {k: v / max(disp, 1)
+                                         for k, v in launches.items()}
+        perf["sharded_13b_buffer_ms"] = oracle["buffer_ms"]
+        lg = _ring_ledger(sup, rt.stats)
+        perf["ledger"] = lg
+        perf["ring_backlog_slots"] = sum(h.shm.backlog()
+                                         for h in sup.workers)
+        perf["ring_backlog_frac"] = sup.ring_backlog_frac()
+        log(f"  14b: ms a buffer wire → ring → fold by tick "
+            f"{', '.join(f'{m:.2f}' for m in perf['buffer_ms'])} (13b's "
+            f"in-process sharded feed "
+            f"{', '.join(f'{m:.2f}' for m in oracle['buffer_ms'])}); "
+            f"run_tick {', '.join(f'{m:.0f}' for m in perf['tick_ms'])} "
+            f"ms (parts: {perf['tick_parts_ms']}); ring backlog {perf['ring_backlog_slots']} slots; ledger "
+            f"{lg}")
+        check(launches == {"hll_update": 2 * SH_N * disp,
+                           "cms_update": SH_N * disp,
+                           "inv_update": SH_N * disp,
+                           "scatter_max": 0, "scatter_add": 0} and disp > 0,
+              f"14b: each of the {disp} ring-drained sharded dispatches "
+              f"launched hll_update {2 * SH_N}x, cms_update and inv_update "
+              f"{SH_N}x, no generic kernel")
+        check(lg["dropped"] == 0 and lg["accepted"] == lg["published"]
+              == lg["consumed"] > 0,
+              f"14b: the ledger: accepted {lg['accepted']} == published == "
+              f"consumed, dropped {lg['dropped']}")
+
+        n_q = [0, 0]
+        for name in SH_EXACT:
+            ref = oracle["t3"][name]
+            got = rt.query({"subsys": name, "maxrecs": 200000})
+            _json_diff(torch, loghist, scfg, _rows_by_identity(ref),
+                       _rows_by_identity(got), {}, f"14b {name}", n_q)
+            check(ref["nrecs"] == got["nrecs"] > 0,
+                  f"14b: {name} ({got['nrecs']} rows) equals 13b's "
+                  "in-process sharded runtime fed the same frames, row "
+                  "for row")
+        perf["oracle_rounding_apart"] = n_q[1]
+        ref = oracle["t3"]["svcdependency"]
+        got = rt.query({"subsys": "svcdependency", "maxrecs": 200000})
+        mine = {(r["cliid"], r["serid"]): r for r in got["recs"]}
+        theirs = {(r["cliid"], r["serid"]): r for r in ref["recs"]}
+        # the pairs 13b made and these did not (< 0: these made more).
+        # The feed buffers repeat flow keys, and the halves of one flow
+        # that land on its pair-table row in one dispatch complete one
+        # pair, the extra halves absorbed; the ring drain stages a
+        # shard's records at other slab boundaries than 13b, so each
+        # flow may pair a different number of times. Every flow whose
+        # two halves were fed pairs at least once in either run, so
+        # the edge sets are equal, and with equal pair totals so are
+        # the edges
+        short = {k: (theirs[k]["nconn"] if k in theirs else 0)
+                 - (mine[k]["nconn"] if k in mine else 0)
+                 for k in set(mine) | set(theirs)}
+        apart = oracle["n_paired"] - sum(float(x.n_paired)
+                                         for x in rt.dep)
+        same = [k for k, v in short.items() if v == 0]
+        one_way = (all(v >= 0 for v in short.values()) if apart > 0
+                   else all(v <= 0 for v in short.values()))
+        check(set(mine) == set(theirs) and one_way
+              and sum(short.values()) == apart
+              and (apart != 0 or len(same) == len(short))
+              and all(math.isclose(mine[k]["bytes"], theirs[k]["bytes"],
+                                   rel_tol=1e-6) for k in same),
+              f"14b: svcdependency: the {len(theirs)} edges of 13b "
+              f"({len(set(mine) - set(theirs))} only here, "
+              f"{len(set(theirs) - set(mine))} only there); {len(same)} "
+              f"equal, the rest apart in one direction by "
+              f"{sum(short.values()):.0f} conns = the {apart:.0f} pairs "
+              "one run made and the other did not (halves of one flow "
+              "that met in one dispatch make one pair)")
+        perf["pairs_apart"] = apart
+        perf["dep_edges"] = {"here": len(mine), "13b": len(theirs),
+                             "apart": len(short) - len(same)}
+
+        # SIGKILL one worker mid-stream: respawn onto its shard group
+        victim = sup.workers[1]
+        pid, epoch = victim.proc.pid, victim.shm.epoch()
+        i_c = next(i for i, c in enumerate(conns)
+                   if sup.worker_of_hid(c[2]) == victim.w)
+        lg0 = _ring_ledger(sup, rt.stats)
+        for k in range(WK_KILL_BUFFERS):
+            conns[i_c][1].write(bufs[k % RT_DISTINCT][0])
+            if k == 0:
+                os.kill(pid, signal.SIGKILL)
+        t0 = time.perf_counter()
+        await _until(lambda: sup.poll() > 0 or victim.proc.pid != pid,
+                     "the respawn", timeout=WK_TIMEOUT)
+        perf["respawn_s"] = time.perf_counter() - t0
+        check(victim.proc.pid != pid and victim.shards == [1]
+              and rt.stats.counters.get(
+                  f"ingest_proc_respawns|proc={victim.w}") == 1,
+              f"14b: worker {victim.w} SIGKILLed mid-stream (pid {pid}) and "
+              f"respawned onto shards {victim.shards} in "
+              f"{perf['respawn_s']:.2f} s")
+        conns[i_c][1].close()
+        await _until(lambda: victim.shm.epoch() > epoch,
+                     "the respawned worker's epoch", timeout=WK_TIMEOUT)
+        r, w, status, hid = await _w(register(
+            host, port, conns[i_c][3], wire.CONN_EVENT))
+        check(status == wire.REG_OK and hid == conns[i_c][2],
+              f"14b: the agent reconnected to host id {hid}, the same "
+              "shard group")
+        conns[i_c][:2] = [r, w]
+        lg_r = _ring_ledger(sup, rt.stats)
+        buf = bufs[0][0]
+        perf["kill_buffer_records"] = _n_records(wire, buf)
+        w.write(buf)
+        await _w(w.drain())
+
+        def after_kill():
+            lg = _ring_ledger(sup, rt.stats)
+            return (lg["published"] - lg_r["published"]
+                    >= perf["kill_buffer_records"]
+                    and lg["consumed"] + lg["dropped"] == lg["published"])
+        await _until(after_kill, "the respawned worker's buffer",
+                     timeout=WK_TIMEOUT)
+        d.srv._feed_barrier()
+        lg = _ring_ledger(sup, rt.stats)
+        perf["ledger_after_kill"] = lg
+        perf["lost_in_killed_worker"] = lg["accepted"] - lg["published"]
+        check(lg["published"] == lg["consumed"] + lg["dropped"]
+              and lg["accepted"] >= lg["published"]
+              and lg["published"] - lg0["published"]
+              >= perf["kill_buffer_records"],
+              f"14b: the ledger after the kill: published "
+              f"{lg['published']} == consumed {lg['consumed']} + dropped "
+              f"{lg['dropped']}; accepted {lg['accepted']} (the killed "
+              f"worker's unpublished records counted: "
+              f"{perf['lost_in_killed_worker']})")
+    finally:
+        for c in conns:
+            c[1].close()
+        await d.shutdown()
+    return perf, perf["launches_per_dispatch"]
+
+
+async def relay_run(torch, scatter, tmp) -> dict:
+    """14c: a ``relay`` process uplinking into ``serve --shards 4
+    --relay-port`` (see worker_phase)."""
+    import asyncio
+
+    from gyeeta_tpu_torch import server_main
+    from gyeeta_tpu_torch.engine import aggstate
+    from gyeeta_tpu_torch.ingest import wire
+    from gyeeta_tpu_torch.net.agent import register
+    from gyeeta_tpu_torch.parallel.mesh import make_mesh
+    from gyeeta_tpu_torch.parallel.shardedrt import ShardedRuntime
+    from gyeeta_tpu_torch.sim import ParthaSim
+    from gyeeta_tpu_torch.sketch import loghist
+    from gyeeta_tpu_torch.utils.config import RuntimeOpts
+
+    sim = ParthaSim(**SRV_SH_SIM, seed=29)
+    scfg = aggstate.EngineCfg(**SH_CFG)
+    n_svcs = sim.n_hosts * sim.n_svcs
+    trace_svcs = list(sim.glob_ids.reshape(-1)[::n_svcs // 64])
+    frames = [sim.name_frames(), sweep_frames(sim, wire, trace_svcs)] + [
+        feed_buffer(sim, scfg, wire)[0] for _ in range(RELAY_BUFFERS)]
+    late = [feed_buffer(sim, scfg, wire)[0] for _ in range(RELAY_RESTARTS)]
+    cfgf = tmp / "gyt_relay.json"
+    cfgf.write_text(json.dumps({"engine": SH_CFG, "runtime": RT_OPTS}))
+    args = server_main.parse_args([
+        "--config", str(cfgf), "--host", "127.0.0.1", "--port", "0",
+        "--shards", str(SH_N), "--relay-port", "0", "--device", DEV,
+        "--log-level", "WARNING"])
+    args.tick_interval = None
+    d = server_main.Daemon(args, env={})
+    d.srv._relay.host = "127.0.0.1"
+    rt, hub = d.rt, d.srv._relay
+    perf = {"services": n_svcs}
+    relay = None
+    conns = []
+
+    def ledger():
+        c = rt.stats.counters
+        return {k: sum(v for n, v in c.items()
+                       if n.startswith(f"relay_{k}_records|relay=smoke"))
+                for k in ("published", "consumed", "dropped")}
+
+    async def start_relay(port):
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "gyeeta_tpu_torch", "relay",
+            "--supervisor", f"127.0.0.1:{hub.port}", "--relay-id", "smoke",
+            "--listen-port", str(port), cwd=str(ROOT),
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL)
+        line = (await _w(proc.stdout.readline())).decode().split()
+        check(line[:1] == ["RELAY_LISTEN"], f"14c: relay process {line}")
+        await _until(lambda: hub.relays_up() == 1, "the relay's uplink")
+        return proc, int(line[2])
+
+    async def agents(rport):
+        """Register the agents through the relay; a relay refuses them
+        until its uplink's HELLO is answered, so a refusal retries."""
+        out = []
+        for i in range(RELAY_CONNS):
+            for _ in range(100):
+                try:
+                    r, w, status, hid = await _w(register(
+                        "127.0.0.1", rport, 0x5E2000 + i,
+                        wire.CONN_EVENT))
+                    break
+                except (ConnectionError, OSError, wire.FrameError,
+                        asyncio.IncompleteReadError):
+                    await asyncio.sleep(0.05)
+            else:
+                raise AssertionError(f"14c: agent {i} not registered")
+            check(status == wire.REG_OK, f"14c: agent {i} registered "
+                  f"through the relay (host id {hid})")
+            out.append((r, w))
+        return out
+
+    try:
+        await d.srv.start()
+        t0 = time.perf_counter()
+        relay, rport = await start_relay(0)
+        perf["relay_start_s"] = time.perf_counter() - t0
+        conns = await agents(rport)
+        want = 0
+        t0 = time.perf_counter()
+        for i, buf in enumerate(frames):
+            conns[i % len(conns)][1].write(buf)
+            await _w(conns[i % len(conns)][1].drain())
+            want += _n_records(wire, buf)
+            await _until(lambda: ledger()["consumed"] >= want,
+                         "the relay's batches", timeout=WK_TIMEOUT)
+        perf["feed_s"] = time.perf_counter() - t0
+        d.srv._feed_barrier()
+        rt.run_tick()
+        lg = ledger()
+        perf["ledger"] = dict(lg)
+        check(lg["published"] == lg["consumed"] == want
+              and lg["dropped"] == 0,
+              f"14c: the hub's ledger without loss: published "
+              f"{lg['published']} == consumed == the {want} records sent, "
+              f"0 dropped")
+        one = ShardedRuntime(scfg, make_mesh(SH_N, device=DEV),
+                             RuntimeOpts(**RT_OPTS))
+        try:
+            for buf in frames:
+                one.feed(buf)
+            one.run_tick()
+            n_q = [0, 0]
+            for name in SH_EXACT:
+                ref = one.query({"subsys": name, "maxrecs": 200000})
+                got = rt.query({"subsys": name, "maxrecs": 200000})
+                _json_diff(torch, loghist, scfg, _rows_by_identity(ref),
+                           _rows_by_identity(got), {}, f"14c {name}", n_q)
+                check(ref["nrecs"] == got["nrecs"] > 0,
+                      f"14c: {name} ({got['nrecs']} rows) through the relay "
+                      "equals the in-process edge's, row for row")
+        finally:
+            one.close()
+            del one
+        perf["restarts"] = []
+        for k in range(RELAY_RESTARTS):
+            conns[0][1].write(late[k])
+            relay.kill()
+            await relay.wait()
+            for _, w in conns:
+                w.close()
+            relay, _ = await start_relay(rport)
+            await _until(lambda: rt.stats.counters.get(
+                "relay_epochs|relay=smoke", 0) == k + 1,
+                "the finalised epoch")
+            conns = await agents(rport)
+            lg0 = ledger()
+            conns[0][1].write(frames[2])
+            await _w(conns[0][1].drain())
+            add = _n_records(wire, frames[2])
+            await _until(lambda: ledger()["consumed"]
+                         >= lg0["consumed"] + add,
+                         "the restarted relay's batches",
+                         timeout=WK_TIMEOUT)
+            lg = ledger()
+            perf["restarts"].append(dict(lg))
+            check(lg["published"] == lg["consumed"] + lg["dropped"],
+                  f"14c: relay restart {k + 1}: epoch {k + 1} finalised, "
+                  f"published {lg['published']} == consumed "
+                  f"{lg['consumed']} + dropped {lg['dropped']} (the loss "
+                  "of the killed process counted)")
+    finally:
+        for _, w in conns:
+            w.close()
+        if relay is not None and relay.returncode is None:
+            relay.kill()
+            await relay.wait()
+        await d.shutdown()
+    log(f"  14c: {perf}")
+    return perf
+
+
+def worker_phase(torch, scatter, frames, oracle, rt_perf):
+    """Phase 14: the sharded tier's worker processes (14a parted
+    compaction, 14b multi-process ingest, 14c the relay)."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    log(f"phase 14: the sharded tier's worker processes, {WK_PROCS} "
+        "workers on the card")
+    t0 = time.perf_counter()
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix="gyt_smoke_workers_"))
+    try:
+        out["parted"], part_launches = parted_run(torch, scatter, frames,
+                                                  oracle, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["ingest"], ring_launches = asyncio.run(ingest_procs_run(
+            torch, scatter, frames, oracle, rt_perf, tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["relay"] = asyncio.run(relay_run(torch, scatter, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    log(f"  phase 14: {out['s']:.1f} s")
+    return out, part_launches, ring_launches
 
 
 def _no_lookup(*a, **kw):
@@ -5293,8 +6009,10 @@ def main(argv) -> int:
     finally:
         shutil.rmtree(hist_dir, ignore_errors=True)
     sp, s_launches = serving_phase(torch, scatter, frames, rtp)
-    shp, sh_launches = sharded_phase(torch, scatter, frames, rtp)
-    del frames
+    shp, sh_launches, oracle = sharded_phase(torch, scatter, frames, rtp)
+    wp, part_launches, ring_launches = worker_phase(torch, scatter, frames,
+                                                    oracle, rtp)
+    del frames, oracle
     for k in kernels:
         k["launches_fold_all"] = fa["launches"][k["name"]]
         k["launches_runtime"] = rt_launches[k["name"]]
@@ -5303,6 +6021,8 @@ def main(argv) -> int:
         k["launches_serving"] = s_launches[k["name"]]
         k["launches_region"] = r_launches[k["name"]]
         k["launches_sharded_slab"] = sh_launches[k["name"]]
+        k["launches_part_slab"] = part_launches[k["name"]]
+        k["launches_ring_slab"] = ring_launches[k["name"]]
         cs = d_sites.get(k["name"])
         if cs:
             k["delta"] = {f: sum(c[f] for c in cs) for f in (
@@ -5332,6 +6052,7 @@ def main(argv) -> int:
     log(json.dumps({"serving": sp}, default=float))
     log(json.dumps({"region": rp}, default=float))
     log(json.dumps({"sharded": shp}, default=float))
+    log(json.dumps({"workers": wp}, default=float))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

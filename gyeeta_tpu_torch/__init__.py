@@ -16,8 +16,11 @@ pressure, the journal), ``history/*``, and the serving edge: ``net/*``
 edges, the query client), ``ingest/native`` (the C++ deframer and
 columnar decoder, built with ``g++``), ``ingest/refproto.py`` (stock
 partha streams), ``server_main.py`` and ``cli.py`` (``python -m
-gyeeta_tpu_torch serve``). What is not ported yet raises, naming its
-ROADMAP.md item (``unported.py``).
+gyeeta_tpu_torch serve``), and the sharded tier's worker processes: the
+multi-process ingest edge over shared-memory rings (``net/ingestproc.py``,
+``utils/shmring.py``), the remote ingest relay (``net/relay.py``) and the
+parallel compactor into a parted shard store
+(``history/compactproc.py``).
 
 The two Pallas kernels of the reference
 (``gyeeta_tpu/sketch/pallas_scatter.py``) are hand-written CUDA kernels

@@ -11,17 +11,18 @@ shipper over a WAL dir (``history/shipper.py``)
 ``python -m gyeeta_tpu_torch shiprecv …`` — the compaction region's
 staging receiver (``net/segship.py``)
 ``python -m gyeeta_tpu_torch compact …``  — offline WAL compaction
-(``run``, on ``--device``) and the shard manifest with the ship
-ledger's provenance (``list``)
+(``run``, on ``--device``; ``--procs N`` replays a per-shard WAL with N
+worker processes into a parted store) and the shard manifest with the
+ship ledger's provenance (``list``, flat or parted)
+``python -m gyeeta_tpu_torch relay …``    — the remote ingest relay
+(``net/relay.py``): agents register and stream to it, and it ships
+decoded batches to a serve process's ``--relay-port``
 
 Counterpart of the serving half of ``gyeeta_tpu/cli.py``; a bare
 ``python -m gyeeta_tpu_torch --port …`` runs ``serve`` as the reference
 does. This module and ``server_main`` are the ones that hand
-``os.environ`` to the modules' knob readers. The tier the port does not
-have yet raises :class:`~gyeeta_tpu_torch.unported.NotPortedError`
-naming ROADMAP.md's item 7: ``relay``, ``compact --procs`` ≥ 1 and a
-parted shard store. The agent-side subcommands (``agent``, ``replay``,
-``obs``, ``nm``, ``chaos``) are not carried.
+``os.environ`` to the modules' knob readers. The agent-side subcommands
+(``agent``, ``replay``, ``obs``, ``nm``, ``chaos``) are not carried.
 """
 
 from __future__ import annotations
@@ -32,9 +33,6 @@ import json
 import os
 import sys
 
-from gyeeta_tpu_torch.unported import SHARDED_PROCS, refuse
-
-_UNPORTED = {"relay": ("the remote ingest relay", SHARDED_PROCS)}
 _AGENT_SIDE = ("agent", "replay", "obs", "nm", "chaos")
 
 
@@ -130,7 +128,7 @@ def _cmd_compact(argv) -> None:
         "through the engine on --device and emit columnar snapshot "
         "shards (history/compactor.py) — the batch form of the serve "
         "daemon's in-process compactor. 'list' prints the shard "
-        "manifest of a shard dir.")
+        "manifest of a shard dir (flat or parted).")
     ap.add_argument("what", nargs="?", default="run",
                     choices=("run", "list"))
     ap.add_argument("--journal-dir", help="WAL source (run)")
@@ -146,12 +144,11 @@ def _cmd_compact(argv) -> None:
                     help="also tick past the last chunk's stamp (only "
                     "sound when the producer is stopped)")
     ap.add_argument("--procs", type=int, default=0,
-                    help="parallel compaction over a sharded WAL: not "
-                    "ported yet, N >= 1 raises (0 = one replay runtime)")
+                    help="N>=1: parallel compaction — N replay worker "
+                    "processes on --device over disjoint WAL shard "
+                    "groups into a parted shard store (needs a sharded "
+                    "WAL; N <= shard count). 0 = single replay runtime")
     args = ap.parse_args(argv)
-    if args.procs >= 1:
-        raise refuse(f"compact --procs {args.procs} (parallel "
-                     "compaction)", SHARDED_PROCS)
 
     from gyeeta_tpu_torch.utils import config as C
     if args.what == "list":
@@ -177,17 +174,34 @@ def _cmd_compact(argv) -> None:
         args.config, env=os.environ, hist_shard_dir=args.shard_dir,
         **({"hist_window_ticks": args.window_ticks}
            if args.window_ticks is not None else {}))
-    from gyeeta_tpu_torch.history.compactor import Compactor
     from gyeeta_tpu_torch.utils.selfstats import Stats
-    c = Compactor(cfg, opts, journal_dir=args.journal_dir,
-                  shard_dir=args.shard_dir, stats=Stats(),
-                  device=args.device)
+    if args.procs >= 1:
+        from gyeeta_tpu_torch.history.compactproc import ParallelCompactor
+        c = ParallelCompactor(cfg, opts, args.procs,
+                              journal_dir=args.journal_dir,
+                              shard_dir=args.shard_dir, stats=Stats(),
+                              device=args.device, env=os.environ)
+    else:
+        from gyeeta_tpu_torch.history.compactor import Compactor
+        c = Compactor(cfg, opts, journal_dir=args.journal_dir,
+                      shard_dir=args.shard_dir, stats=Stats(),
+                      device=args.device)
     try:
         rep = c.compact_once(upto_tick=args.upto_tick)
     finally:
         c.close()
     json.dump(rep, sys.stdout)
     sys.stdout.write("\n")
+
+
+def _cmd_relay(argv) -> None:
+    """Remote ingest relay (net/relay.py): runs the full ingest edge
+    on THIS host — agents register and stream here — and ships decoded
+    batches to the serve process's --relay-port over one exact-ledger
+    TCP uplink (published == consumed + counted drops, across
+    machines, across relay restarts)."""
+    from gyeeta_tpu_torch.net.relay import relay_main
+    relay_main(argv, env=os.environ)
 
 
 def _cmd_ship(argv) -> None:
@@ -286,7 +300,8 @@ def _cmd_gateway(argv) -> None:
 
 _COMMANDS = {"query": _cmd_query, "web": _cmd_web,
              "gateway": _cmd_gateway, "ship": _cmd_ship,
-             "shiprecv": _cmd_shiprecv, "compact": _cmd_compact}
+             "shiprecv": _cmd_shiprecv, "compact": _cmd_compact,
+             "relay": _cmd_relay}
 
 
 def main(argv=None) -> None:
@@ -294,9 +309,6 @@ def main(argv=None) -> None:
     cmd = argv[0] if argv else None
     if cmd in _COMMANDS:
         return _COMMANDS[cmd](argv[1:])
-    if cmd in _UNPORTED:
-        what, item = _UNPORTED[cmd]
-        raise refuse(f"the {cmd!r} subcommand ({what})", item)
     if cmd in _AGENT_SIDE:
         raise SystemExit(f"{cmd!r} is an agent-side subcommand of the "
                          "reference (python -m gyeeta_tpu); the port "

@@ -12,9 +12,7 @@ tests and single-box runs) and Postgres
 reference's durable tier; day-table partition maintenance mirrors its
 add/drop partition jobs).
 
-Counterpart of ``gyeeta_tpu/history/``. The parted shard store, its
-snapshots and the parallel compactor (``compactproc``) come with the
-sharded tier's worker processes (ROADMAP.md queue 1, item 7).
+Counterpart of ``gyeeta_tpu/history/``.
 """
 
 from gyeeta_tpu_torch.history.store import HistoryStore, to_sql
@@ -26,6 +24,8 @@ __all__ = ["HistoryStore", "PgHistoryStore", "open_store", "to_sql"]
 # windowed queries) lives beside the relational store:
 #   history/shards.py    — shard files + manifest (ShardStore)
 #   history/compactor.py — sealed-WAL → shard compaction daemon
+#   history/compactproc.py — per-shard replay worker processes → the
+#                          parted store (PartedShardStore)
 #   history/timeview.py  — at=/window= query materialization
 #   history/winquant.py  — per-window sketch deltas, windowed quantiles
 #   history/histwriter.py — batched single-writer thread for this store

@@ -43,9 +43,14 @@ subdirectories (the sharded runtime's per-shard WAL) is read by a walk
 that merges the shards' sealed segments by window tick into the same
 flat replay runtime, and the resume position is then per shard
 (``[shard, seg, off]`` triples), as the reference's in-process
-compactor does. The reference's ``upto_seq`` and ``runtime_factory``
-serve its parallel compactor's worker processes, ROADMAP.md queue 1,
-item 7.
+compactor does. ``upto_seq`` is the sealed bound a journal-less reader
+stops at: the parallel compactor's worker processes
+(``history/compactproc.py``) each run one ``Compactor`` a WAL shard
+under it. ``runtime_factory`` (``(cfg, opts) → runtime``) builds the
+replay runtime instead of a ``Runtime`` on ``device``: a
+``ShardedRuntime`` replays a sharded runtime's WAL into stacked state,
+and the workers build a ``Runtime`` that counts its conn/resp
+dispatches for their reports.
 """
 
 from __future__ import annotations
@@ -100,13 +105,19 @@ class Compactor:
     def __init__(self, cfg, opts, *, journal=None,
                  journal_dir: Optional[str] = None,
                  shard_dir: Optional[str] = None,
-                 stats=None, clock=None, device=None):
+                 runtime_factory=None, stats=None, clock=None,
+                 upto_seq=None, device=None):
         self.cfg = cfg
         self.device = device              # the replay runtime's device
         self.opts = opts
         self.window_ticks = max(1, int(opts.hist_window_ticks))
         self.journal = journal            # live Journal (seal + floor);
         #                                   None = offline dir read
+        # journal-less bound: a parallel-compaction worker reads files
+        # another process's live journal owns — it must stop at the
+        # sealed bound the supervisor snapshotted, exactly as a live
+        # journal object's sealed_upto() would bound it
+        self._upto_seq = upto_seq
         self.journal_dir = journal_dir or opts.journal_dir
         if not self.journal_dir:
             raise ValueError("compaction needs a journal dir (the WAL "
@@ -115,6 +126,7 @@ class Compactor:
         self.store = SH.ShardStore(shard_dir or opts.hist_shard_dir,
                                    stats=self.stats)
         self.store.sweep_stale_tmp()
+        self._factory = runtime_factory
         self._clock = clock or time.time
         self._rt = None
         self._pos: Optional[tuple] = None   # in-memory WAL resume point
@@ -130,8 +142,11 @@ class Compactor:
 
     # ------------------------------------------------------ replay engine
     def _make_rt(self):
+        sopts = strip_opts(self.opts)
+        if self._factory is not None:
+            return self._factory(self.cfg, sopts)
         from gyeeta_tpu_torch.runtime import Runtime
-        return Runtime(self.cfg, strip_opts(self.opts), device=self.device)
+        return Runtime(self.cfg, sopts, device=self.device)
 
     def _load_into(self, rt, ent: dict) -> None:
         """Re-seed the replay runtime from a shard (restart resume —
@@ -240,9 +255,10 @@ class Compactor:
         if seal and self.journal is not None:
             self.journal.seal_active()
         # a live journal bounds the read at its sealed segments; an
-        # offline dir (no writer) is read whole
+        # offline dir (no writer) is read whole, or up to the bound a
+        # parallel compactor's supervisor snapshotted
         upto = self.journal.sealed_upto() \
-            if self.journal is not None else None
+            if self.journal is not None else self._upto_seq
         if upto is not None and not isinstance(upto, (list, tuple)) \
                 and J.sharded_subdirs(self.journal_dir):
             upto = None                    # layout mismatch: read all

@@ -40,9 +40,9 @@ would have computed from the raws.
 Counterpart of ``gyeeta_tpu/history/shards.py``, in the same file
 format: leaves in the reference's flattened order and dtypes
 (``aggstate.state_to_numpy`` / ``depgraph.dep_to_numpy``), so a shard
-written by either package loads in the other. The parallel compactor's
-parted layout (``part_NN/`` sub-stores under a root manifest) comes
-with the sharded tier: :func:`open_shard_store` refuses it by name.
+written by either package loads in the other, and the parallel
+compactor's parted layout (``part_NN/`` sub-stores under a root manifest,
+:class:`PartedShardStore`) is the reference's too.
 """
 
 from __future__ import annotations
@@ -55,8 +55,6 @@ import zipfile
 from typing import Optional
 
 import numpy as np
-
-from gyeeta_tpu_torch import unported
 
 MANIFEST = "gyt_manifest.json"
 _SHARD_FMT = "gyt_shard_{level}_{tick0:08d}_{tick1:08d}.npz"
@@ -410,26 +408,157 @@ class ShardStore(_ResolveMixin):
                 "columns": columns, "deltas": deltas}
 
 
-# ------------------------------------------------------------ layouts
+# ----------------------------------------------------------- parted store
+PART_FMT = "part_{shard:02d}"
+
+
+def part_dirs(root) -> list:
+    """``part_NN`` sub-store directories of a parted shard root, shard
+    order; empty for a flat (single-store) dir."""
+    d = pathlib.Path(root)
+    if not d.is_dir():
+        return []
+    out = []
+    for p in sorted(d.glob("part_*")):
+        if p.is_dir():
+            try:
+                out.append((int(p.name.split("_")[-1]), p))
+            except ValueError:
+                continue
+    return [p for _i, p in sorted(out)]
+
+
+class PartedShardStore(_ResolveMixin):
+    """The parallel compactor's layout: ``part_NN/`` sub-stores (one
+    per WAL shard, each a normal manifest-atomic :class:`ShardStore`
+    written by its own replay worker) under a ROOT manifest that
+    publishes only the windows EVERY part has durably emitted.
+
+    The root manifest is the consistency boundary: the supervisor
+    rewrites it (tmp+fsync+rename) only after a whole pass lands, so a
+    SIGKILL at ANY worker boundary leaves either the old root (the new
+    partial windows invisible — recompaction converges) or the new one
+    — never a window naming a part that is missing it. Entries carry
+    ``parts``: the per-part sub-entries, which ``timeview`` materializes
+    WITHOUT funneling through one process-wide state."""
+
+    def __init__(self, path, stats=None, nparts: Optional[int] = None):
+        self.dir = pathlib.Path(path)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.stats = stats if stats is not None else _NullStats()
+        self._manifest_cache = None
+        if nparts is None:
+            dirs = part_dirs(self.dir)
+        else:
+            dirs = [self.dir / PART_FMT.format(shard=s)
+                    for s in range(int(nparts))]
+        self.parts = [ShardStore(p, stats=self.stats) for p in dirs]
+
+    # --------------------------------------------------------- manifest
+    def _mpath(self) -> pathlib.Path:
+        return self.dir / MANIFEST
+
+    def manifest(self) -> dict:
+        p = self._mpath()
+        try:
+            st = p.stat()
+        except FileNotFoundError:
+            return {"version": 2, "layout": "parted",
+                    "nparts": len(self.parts), "pos": None, "tick": 0,
+                    "shards": []}
+        key = (st.st_mtime_ns, st.st_size)
+        if self._manifest_cache and self._manifest_cache[0] == key:
+            return self._manifest_cache[1]
+        m = json.loads(p.read_text())
+        self._manifest_cache = (key, m)
+        return m
+
+    def rebuild_root(self) -> dict:
+        """Publish the intersection of the part manifests: a window is
+        visible only at a (level, tick range) EVERY part carries (a
+        killed pass leaves parts briefly divergent; the intersection
+        shrinks, never lies — the next pass converges them). Also
+        records the per-shard WAL resume positions (``[shard, seg,
+        off]`` triples — ``journal.floors_of`` shape)."""
+        per_part = [{(e["level"], e["tick0"], e["tick1"]): e
+                     for e in p.shards()} for p in self.parts]
+        ents = []
+        if per_part:
+            common = set(per_part[0])
+            for d in per_part[1:]:
+                common &= set(d)
+            for key in sorted(common, key=lambda k: (k[1], k[2])):
+                subs = [d[key] for d in per_part]
+                ents.append({
+                    "level": key[0], "tick0": key[1], "tick1": key[2],
+                    "t0": min(e["t0"] for e in subs),
+                    "t1": max(e["t1"] for e in subs),
+                    "bytes": int(sum(e["bytes"] for e in subs)),
+                    "parts": subs,
+                })
+        pos = []
+        for s, p in enumerate(self.parts):
+            pp = p.position()
+            if pp is not None:
+                pos.append([s, int(pp[0]), int(pp[1])])
+        m = {"version": 2, "layout": "parted",
+             "nparts": len(self.parts),
+             "pos": pos or None,
+             "tick": min((p.tick() for p in self.parts), default=0),
+             "shards": ents}
+        _atomic_json(self._mpath(), m)
+        self._manifest_cache = None
+        return m
+
+    # ------------------------------------------------------------- read
+    def shards(self, level: Optional[str] = None) -> list:
+        out = self.manifest().get("shards", [])
+        if level is not None:
+            out = [e for e in out if e["level"] == level]
+        return sorted(out, key=lambda e: (e["tick0"], e["tick1"]))
+
+    def position(self) -> Optional[list]:
+        pos = self.manifest().get("pos")
+        return list(pos) if pos else None
+
+    def tick(self) -> int:
+        return int(self.manifest().get("tick", 0))
+
+    def load_part(self, part: int, ent: dict, leaves: bool = True) -> dict:
+        return self.parts[part].load(ent, leaves=leaves)
+
+    def sweep_stale_tmp(self) -> int:
+        n = 0
+        for p in self.parts:
+            n += p.sweep_stale_tmp()
+        for p in list(self.dir.glob("*.json.tmp")):
+            try:
+                p.unlink()
+                n += 1
+            except OSError:          # pragma: no cover
+                pass
+        return n
+
+
 def is_parted(path) -> bool:
-    """The parallel compactor's parted layout, detected without loading
-    anything: the root manifest says so, or ``part_NN`` sub-stores
-    exist (first pass not yet published)."""
+    """Detect the parted layout without loading anything: the root
+    manifest says so, or ``part_NN`` sub-stores exist (first pass not
+    yet published)."""
     d = pathlib.Path(path)
     p = d / MANIFEST
     if p.exists():
         try:
             return json.loads(p.read_text()).get("layout") == "parted"
         except (OSError, ValueError):    # pragma: no cover — torn root
-            pass
-    return any(q.is_dir() for q in d.glob("part_*")) if d.is_dir() \
-        else False
+            return bool(part_dirs(d))
+    return bool(part_dirs(d))
 
 
 def open_shard_store(path, stats=None):
-    """THE store-opening entry: the flat :class:`ShardStore`; a parted
-    root raises :class:`~gyeeta_tpu_torch.unported.NotPortedError`."""
+    """THE store-opening entry: a parted root opens as a
+    :class:`PartedShardStore`, anything else as the flat
+    :class:`ShardStore` — runtime, CLI and smoke all route here so a
+    shard dir written by either compactor serves identically."""
     if is_parted(path):
-        raise unported.refuse("a parted shard store (part_NN/)",
-                              unported.SHARDED_PROCS)
+        return PartedShardStore(path, stats=stats)
     return ShardStore(path, stats=stats)

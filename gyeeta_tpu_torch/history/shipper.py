@@ -40,13 +40,12 @@ advances. Default 0 = unbounded: disk pays for exactness.
 
 Both WAL layouts ship byte for byte (a flat dir as shard 0, a
 ``shard_NN/`` root shard by shard), from a live journal — a flat
-:class:`~gyeeta_tpu_torch.utils.journal.Journal` or the sharded
-runtime's :class:`~gyeeta_tpu_torch.utils.journal.ShardedJournal` — or
-from a dir in offline mode. The reference's multi-process
-``ProcWalView`` comes with the sharded tier's worker processes
-(ROADMAP.md queue 1, item 7). The knobs (``GYT_SHIP_SCAN_S``,
-``GYT_SHIP_HB_S``, ``GYT_SHIP_CHUNK_KB``, ``GYT_SHIP_PIN_MB`` and the
-crash hook ``GYT_SHIP_DIE_AFTER_ACKS``) are read from ``cfg["env"]``;
+:class:`~gyeeta_tpu_torch.utils.journal.Journal`, the sharded runtime's
+:class:`~gyeeta_tpu_torch.utils.journal.ShardedJournal`, or the
+multi-process ingest edge's ``ProcWalView`` (``net/ingestproc.py``,
+whose workers own the segment writers) — or from a dir in offline mode.
+The knobs (``GYT_SHIP_SCAN_S``, ``GYT_SHIP_HB_S``, ``GYT_SHIP_CHUNK_KB``,
+``GYT_SHIP_PIN_MB`` and the crash hook ``GYT_SHIP_DIE_AFTER_ACKS``) are read from ``cfg["env"]``;
 without one, the reference's defaults.
 """
 
@@ -150,12 +149,20 @@ class SegmentShipper:
                               or 0)
         self._acks = 0
         # layout: a sharded WAL root owns shard_NN/ subdirs; a flat dir
-        # ships as shard 0 into the staging root
+        # ships as shard 0 into the staging root. Duck-typed across
+        # Journal, ShardedJournal and the multi-process ProcWalView
+        # (n + subdir_fmt, no .shards list).
         sharded = False
         if self.journal is not None:
             shards = getattr(self.journal, "shards", None)
             if shards is not None:         # ShardedJournal
                 self.subdirs = [pathlib.Path(j.dir) for j in shards]
+                sharded = True
+            elif int(getattr(self.journal, "n", 1)) > 1:
+                fmt = getattr(self.journal, "subdir_fmt",
+                              "shard_{:02d}")   # ProcWalView
+                self.subdirs = [self.dir / fmt.format(s)
+                                for s in range(self.journal.n)]
                 sharded = True
             else:
                 self.subdirs = [self.dir]

@@ -17,11 +17,11 @@ est(baseline), errbound = eb(end) + eb(baseline) — both ends are CMS
 upper bounds, so the window count lies within ±errbound of the
 reported value.
 
-Counterpart of ``gyeeta_tpu/history/timeview.py``. Its
-``PartedSnapshot`` (the parted store's per-part snapshots) comes with
-the sharded tier's worker processes, ROADMAP.md queue 1, item 7. A
-sharded runtime reads a shard of stacked leaves back into its shards
-and the flat leaves of the compactor's replay as one plain state.
+Counterpart of ``gyeeta_tpu/history/timeview.py``. A sharded runtime
+reads a shard of stacked leaves back into its shards and the flat leaves
+of the compactor's replay as one plain state; a parted store's window
+(``PartedSnapshot``) materializes each part's flat leaves that way and
+merges the parts at column level.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from gyeeta_tpu_torch.engine import aggstate
 from gyeeta_tpu_torch.history import winquant as WQ
 from gyeeta_tpu_torch.parallel import depgraph as dg, sharded
 from gyeeta_tpu_torch.query import api, fieldmaps
+from gyeeta_tpu_torch.query.lazycols import LazyCols
 from gyeeta_tpu_torch.query.snapshot import recover, recover_state
 from gyeeta_tpu_torch.utils.checkpoint import _ref_dtype
 from gyeeta_tpu_torch.utils.colcache import ColumnCache
@@ -390,6 +391,177 @@ class HistSnapshot:
             "(registry/CRUD-backed views are not shard-persisted)")
 
 
+def _merge_group_rows(cols: dict, mask, keycols: list,
+                      sumcols: list) -> tuple:
+    """Group concatenated per-part rows by identity: ``sumcols`` sum,
+    everything else keeps the first observation; first-appearance
+    order. The cross-part merge for views whose entity can appear in
+    more than one part (a dep edge reported by hosts on two shards)."""
+    mask = np.asarray(mask, bool)
+    idx = np.nonzero(mask)[0]
+    if len(idx) == 0:
+        return {c: np.asarray(cols[c])[:0] for c in cols}, \
+            np.zeros(0, bool)
+    keys = np.asarray(cols[keycols[0]])[idx].astype("U")
+    for c in keycols[1:]:
+        keys = np.char.add(np.char.add(keys, WQ.KEY_SEP),
+                           np.asarray(cols[c])[idx].astype("U"))
+    uniq, first, inv = np.unique(keys, return_index=True,
+                                 return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(len(uniq), np.int64)
+    rank[order] = np.arange(len(uniq))
+    g = rank[inv]
+    n = len(uniq)
+    first_rows = idx[first[order]]
+    out = {}
+    for c in cols:
+        src = np.asarray(cols[c])
+        if c in sumcols:
+            acc = np.zeros(n, np.float64)
+            np.add.at(acc, g, src[idx].astype(np.float64))
+            out[c] = acc
+        else:
+            out[c] = src[first_rows]
+    return out, np.ones(n, bool)
+
+
+class PartedSnapshot:
+    """One parted-store window materialized WITHOUT funneling through
+    a single process-wide state: each ``part_NN`` sub-shard (the
+    output of one parallel replay worker over one WAL shard) opens as
+    its own plain :class:`HistSnapshot`, and queries merge at column
+    level — concatenation for entity-disjoint panels (hosts hash to
+    exactly one WAL shard, so their services/tasks/APIs are
+    part-disjoint), bound-honest summation for the global sketch views
+    (per-part flow values are upper bounds; the merged value sums them
+    and sums their error bounds)."""
+
+    def __init__(self, tv: "TimeView", store, ent: dict):
+        self.tv = tv
+        self.rt = tv.rt
+        self.ent = ent
+        # each part was replayed by a plain per-shard runtime: its flat
+        # leaves materialize as one plain state of the serving runtime's
+        # (per-shard) geometry, decoded by the plain column providers
+        self.snaps = [HistSnapshot(tv.rt, store.parts[i], pe)
+                      for i, pe in enumerate(ent["parts"])]
+        self._memo: dict = {}
+        self._rec = None
+
+    # ----------------------------------------------------------- topk
+    def recover(self) -> dict:
+        if self._rec is not None:
+            return self._rec
+        agg: dict = {}
+        err = ev = tot = 0.0
+        nrec = 0
+        for s in self.snaps:
+            rec = s.recover()
+            err += rec["err_term"]
+            ev += rec["evicted"]
+            tot += rec["total_mass"]
+            nrec += rec["recovered_keys"]
+            for rid, v, eb, src in rec["flows"]:
+                cur = agg.get(rid)
+                if cur is None:
+                    agg[rid] = [v, eb, src]
+                else:
+                    cur[0] += v
+                    cur[1] += eb
+        rows = sorted(((rid, v, eb, src)
+                       for rid, (v, eb, src) in agg.items()),
+                      key=lambda r: (-r[1], r[0]))
+        self._rec = {"flows": rows, "err_term": err,
+                     "total_mass": tot, "evicted": ev,
+                     "recovered_keys": nrec}
+        return self._rec
+
+    def delta_names(self) -> set:
+        names = None
+        for s in self.snaps:
+            got = s.delta_names()
+            names = got if names is None else names & got
+        return names or set()
+
+    def deltas(self, names) -> Optional[dict]:
+        per = [s.deltas(names) for s in self.snaps]
+        if any(p is None for p in per):
+            return None
+        out = {}
+        for n in names:
+            out[n] = WQ.merge_delta_rows([p[n] for p in per])
+        return out
+
+    # -------------------------------------------------------- columns
+    def columns(self, subsys: str):
+        got = self._memo.get(subsys)
+        if got is None:
+            got = self._memo[subsys] = self._columns(subsys)
+        return got
+
+    def _concat(self, parts: list) -> tuple:
+        cols = {k: np.concatenate(
+            [np.asarray(p[0][k]) for p in parts])
+            for k in parts[0][0]}
+        mask = np.concatenate([np.asarray(p[1], bool) for p in parts])
+        return cols, mask
+
+    def _columns(self, subsys: str):
+        if subsys == fieldmaps.SUBSYS_CLUSTERSTATE:
+            parts = [s.columns(subsys) for s in self.snaps]
+            out = {}
+            for c in parts[0][0]:
+                vals = [float(np.asarray(p[0][c])[0]) if len(p[0][c])
+                        else 0.0 for p in parts]
+                out[c] = np.array([float(np.sum(vals))])
+            nh = float(out.get("nhosts", np.zeros(1))[0])
+            bad = float(out.get("nbad", np.zeros(1))[0]) \
+                + float(out.get("nsevere", np.zeros(1))[0])
+            out["issue_frac"] = np.array([bad / max(nh, 1.0)])
+            return out, np.ones(1, bool)
+        if subsys == "svcsumm":
+            cols, live = self.columns("svcstate")
+            return api.svcsumm_from_svc(cols, live, self.rt.names)
+        if subsys == "topk":
+            rec = self.recover()
+            return api.heavy_topk_columns(
+                rec["flows"], svc=self.columns("svcstate"),
+                trace=self.columns("tracereq"))
+        if subsys == fieldmaps.SUBSYS_FLOWSTATE:
+            rec = self.recover()
+            n = len(rec["flows"])
+            ids = np.empty(n, object)
+            ids[:] = [r[0] for r in rec["flows"]]
+            cols = {"flowid": ids,
+                    "bytes": np.array([r[1] for r in rec["flows"]],
+                                      np.float64),
+                    "evictedbytes": np.full(n, float(rec["evicted"]))}
+            return cols, np.ones(n, bool)
+        if subsys == fieldmaps.SUBSYS_SVCMESH:
+            raise ValueError(
+                "svcmesh is not available over parted history stores "
+                "(mesh clusters cannot be labelled per part)")
+        parts = [s.columns(subsys) for s in self.snaps]
+        parts = [((p[0].full() if isinstance(p[0], LazyCols)
+                   else p[0]), p[1]) for p in parts]
+        cols, mask = self._concat(parts)
+        # views whose entity may be reported from several parts merge
+        # by identity with summed flow stats (everything panel-backed
+        # is part-disjoint and stays concatenated)
+        if subsys == fieldmaps.SUBSYS_SVCDEP:
+            return _merge_group_rows(cols, mask, ["cliid", "serid"],
+                                     ["nconn", "bytes"])
+        if subsys == fieldmaps.SUBSYS_ACTIVECONN:
+            return _merge_group_rows(
+                cols, mask, ["svcid"],
+                ["nclients", "nconn", "bytes", "nsvccli"])
+        if subsys == fieldmaps.SUBSYS_CLIENTCONN:
+            return _merge_group_rows(cols, mask, ["cliid"],
+                                     ["nservers", "nconn", "bytes"])
+        return cols, mask
+
+
 class _WindowColumns:
     """``columns_fn`` over a shard RANGE: per-entity aggregation for
     relational subsystems, baseline-diffed recovery for ``topk``."""
@@ -521,12 +693,19 @@ class TimeView:
         # alertdefs) and query threads
         self._lock = threading.Lock()
 
-    def snap(self, ent: dict) -> HistSnapshot:
-        key = ent["file"]
+    def snap(self, ent: dict):
+        if "parts" in ent:
+            key = ("parted", ent["level"], ent["tick0"], ent["tick1"],
+                   tuple(pe["file"] for pe in ent["parts"]))
+        else:
+            key = ent["file"]
         with self._lock:
             s = self._snaps.get(key)
             if s is None:
-                s = HistSnapshot(self.rt, self.store, ent)
+                if "parts" in ent:
+                    s = PartedSnapshot(self, self.store, ent)
+                else:
+                    s = HistSnapshot(self.rt, self.store, ent)
                 self._snaps[key] = s
                 while len(self._snaps) > self.MAX_SNAPS:
                     self._snaps.popitem(last=False)

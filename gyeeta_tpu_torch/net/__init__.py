@@ -3,6 +3,8 @@ executor (``qexec.py``), subscriptions (``subs.py``), the stock node-
 webserver edge (``nmhandle.py``), the REST gateway (``webgw.py``), the
 fan-in fabric gateway (``gateway.py``), the segment-ship receiver of the
 remote compaction region (``segship.py``), the per-shard ingest queues
-of the sharded runtime (``shardfeed.py``) and the client half of the
-agent tier (``agent.py``). Counterpart of ``gyeeta_tpu/net``; the relay
-and the multi-process ingest edge are not ported yet (``unported.py``)."""
+of the sharded runtime (``shardfeed.py``), the multi-process ingest edge
+(``ingestproc.py``: worker processes publishing decoded records into
+shared-memory rings), the remote ingest relay and its hub (``relay.py``)
+and the client half of the agent tier (``agent.py``). Counterpart of
+``gyeeta_tpu/net``."""

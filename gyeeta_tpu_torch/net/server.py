@@ -7,11 +7,14 @@ runtime's device, queries on every edge read the runtime on the loop
 thread or its published snapshot on the executor's threads. Over the
 sharded runtime, ``shard_ingest`` puts a bounded byte queue and a drain
 task a shard between the conns and the runtime
-(:class:`~gyeeta_tpu_torch.net.shardfeed.ShardFeeder`). The options of
-the sharded tier's worker processes (``ingest_procs > 1``,
-``relay_port``) raise :class:`~gyeeta_tpu_torch.unported.NotPortedError`
-naming ROADMAP.md's item; the edge pre-aggregation advert is the
-explicit ``preagg`` argument.
+(:class:`~gyeeta_tpu_torch.net.shardfeed.ShardFeeder`).
+``ingest_procs > 1`` hands registered event conns to ingest worker
+processes (``net/ingestproc.py``) that deframe, journal and publish
+decoded records into shared-memory rings the serving loop drains into
+the sharded runtime; ``relay_port`` accepts remote ingest relays
+(``net/relay.py``). Their knobs are reads of the ``env`` mapping the
+server is given (``None`` means no environment). The edge
+pre-aggregation advert is the explicit ``preagg`` argument.
 
 The role of madhava's accept + L1 threads and shyama's registrar in one
 single-controller process (ref ``server/gy_mconnhdlr.cc:2430-2520`` recv/
@@ -51,7 +54,6 @@ from gyeeta_tpu_torch import version
 from gyeeta_tpu_torch.ingest import refproto, refquery, wire
 from gyeeta_tpu_torch.net.shardfeed import ShardFeeder
 from gyeeta_tpu_torch.runtime import Runtime
-from gyeeta_tpu_torch.unported import SHARDED_PROCS, refuse
 
 log = logging.getLogger("gyeeta_tpu_torch.net")
 
@@ -83,6 +85,7 @@ class GytServer:
                  throttle_lag_s: float = 0.75,
                  throttle_pending_mb: float = 32.0,
                  throttle_slab_frac: float = 0.85,
+                 throttle_ring_frac: float = 0.75,
                  query_workers: Optional[int] = None,
                  query_queue_max: Optional[int] = None,
                  query_snapshot: bool = True,
@@ -91,15 +94,9 @@ class GytServer:
                  ingest_procs: int = 1,
                  sub_persist: Optional[str] = None,
                  relay_port: Optional[int] = None,
-                 preagg: bool = False):
-        # the worker-process ingest paths are not ported: refuse them
-        # before any state is built
-        if ingest_procs and int(ingest_procs) > 1:
-            raise refuse(f"ingest_procs={ingest_procs} (multi-process "
-                         "ingest)", SHARDED_PROCS)
-        if relay_port is not None:
-            raise refuse("relay_port (the remote ingest relay hub)",
-                         SHARDED_PROCS)
+                 relay_host: str = "0.0.0.0",
+                 preagg: bool = False, env=None):
+        self.env = {} if env is None else env
         self.rt = rt
         self.host = host
         self.port = port
@@ -136,6 +133,11 @@ class GytServer:
         self.throttle_lag_s = float(throttle_lag_s)
         self.throttle_pending_mb = float(throttle_pending_mb)
         self.throttle_slab_frac = float(throttle_slab_frac)
+        # worker-ring backlog (multi-process ingest): occupancy past
+        # throttle_ring_frac trips the trace throttle, ≥0.95 holds
+        # EVERYTHING — throttle the agents BEFORE the drop-oldest rings
+        # shed records
+        self.throttle_ring_frac = float(throttle_ring_frac)
         self._throttle_level = 0          # 0=off, 1=trace, 2=all
         if idle_timeout is None:
             idle_timeout = max(30.0, 12.0 * tick_interval) \
@@ -190,6 +192,52 @@ class GytServer:
                     "--feed-pipeline and shard ingest are mutually "
                     "exclusive (the shard feeder owns the handoff)")
             self._feeder = ShardFeeder(rt, queue_max_mb=shard_queue_mb)
+        # ---- multi-process ingest edge (net/ingestproc.py): N worker
+        # processes own wire validation + deframe/decode + WAL append
+        # for their sticky shard groups and publish decoded record
+        # batches into shared-memory rings; this process keeps the ONE
+        # listener + registration and drains the rings into the fold.
+        # ingest_procs <= 1 (the default) spawns nothing — byte-for-
+        # byte today's in-process path.
+        self._ingest = None
+        self._ingest_tasks: list = []
+        if ingest_procs and int(ingest_procs) > 1:
+            if getattr(rt, "n", 1) < int(ingest_procs):
+                raise ValueError(
+                    f"--ingest-procs {ingest_procs} needs --shards >= "
+                    f"{ingest_procs} (one worker owns at least one "
+                    "whole shard group)")
+            from gyeeta_tpu_torch.net.ingestproc import IngestSupervisor, \
+                ProcWalView
+            self._ingest = IngestSupervisor(
+                rt, int(ingest_procs),
+                journal_dir=rt.opts.journal_dir,
+                idle_timeout=self.idle_timeout, env=self.env)
+            if rt.journal is not None:
+                # the WORKERS own the WAL writers from here: release
+                # this process's segment handles (restore/replay used
+                # them already — Daemon builds the server after
+                # recovery) and swap in the cross-process view so
+                # checkpoint/truncate/compactor handoff keep working
+                rt.journal.close()
+                rt.journal = ProcWalView(
+                    self._ingest, rt.opts.journal_dir,
+                    getattr(rt, "n", 1), stats=rt.stats,
+                    subdir_fmt=getattr(
+                        getattr(rt, "layout", None), "WAL_SUBDIR_FMT",
+                        "shard_{:02d}"))
+        # ---- remote ingest relay hub (net/relay.py): accepts REMOTE
+        # relay uplinks carrying the shm-ring contract over TCP —
+        # decoded batches with cumulative per-shard record chains, so
+        # published == consumed + counted drops holds across machines.
+        # Registration RPCs land on the SAME sticky hostmap; the relay
+        # owns its WAL on its own host. relay_port=None binds nothing.
+        self._relay = None
+        if relay_port is not None:
+            from gyeeta_tpu_torch.net.relay import RelayHub
+            self._relay = RelayHub(rt, self._relay_register,
+                                   host=relay_host, port=relay_port,
+                                   env=self.env)
         # stock-partha registration state: machine-id → the ident key
         # issued at PS_REGISTER (the SM_PARTHA_IDENT_NOTIFY flow,
         # gy_comm_proto.h:946 — shyama hands the key to madhava; the
@@ -301,6 +349,23 @@ class GytServer:
                 source="agent")
         return wire.REG_OK, hid
 
+    def _relay_register(self, mid: int, conn_type: int,
+                        ver: int) -> tuple[int, int, int]:
+        """Registration RPC from a remote ingest relay → (status,
+        host_id, last_seq). Same gates + sticky hostmap as the local
+        handshake, so an agent's identity survives moving between a
+        direct conn and any relay."""
+        if ver < version.MIN_WIRE_VERSION:
+            return wire.REG_ERR_VERSION, 0, 0
+        if conn_type != wire.CONN_EVENT:
+            return wire.REG_OK, 0xFFFFFFFF, 0
+        status, hid = self._host_for_machine(mid)
+        last_seq = 0
+        if status == wire.REG_OK:
+            last_seq = int(getattr(self.rt, "_sweep_last_seq",
+                                   {}).get(hid, 0))
+        return status, hid, last_seq
+
     _DOMAIN_MAX_PENDING = 8192
     _DOMAIN_MAX_AGE_TICKS = 12
 
@@ -367,8 +432,14 @@ class GytServer:
         return self.rt.feed(buf, hid=hid, conn_id=conn_id)
 
     def _feed_barrier(self) -> None:
-        """Make every submitted byte visible (the shard queues' and the
-        pipeline's barrier) before a tick or query reads state."""
+        """Make every submitted byte visible (the ingest rings', the
+        shard queues' and the pipeline's barrier) before a tick or query
+        reads state. With ingest workers this drains what the rings
+        HOLD — bytes still inside a worker's deframe loop surface next
+        barrier (the cross-process analogue of a conn's partial
+        frame)."""
+        if self._ingest is not None:
+            self._ingest.drain()
         if self._feeder is not None:
             self._feeder.flush_pending()
         if self._pipe is not None:
@@ -416,15 +487,54 @@ class GytServer:
         self.host, self.port = sock[0], sock[1]
         if self._feeder is not None:
             self._feeder.start()
+        if self._ingest is not None:
+            self._ingest.start(asyncio.get_running_loop())
+            self._ingest_tasks = [
+                asyncio.create_task(self._ingest_drain_loop()),
+                asyncio.create_task(self._ingest_monitor_loop())]
+        if self._relay is not None:
+            await self._relay.start()
         if self.tick_interval:
             self._tick_task = asyncio.create_task(self._tick_loop())
         log.info("gyt server on %s:%d", self.host, self.port)
         return self.host, self.port
 
+    async def _ingest_drain_loop(self) -> None:
+        """Pull decoded record batches out of the worker rings into
+        the staging slabs. Adaptive cadence: drain again immediately
+        while records flow, back off to the poll interval when idle
+        (an empty drain reads one head word per ring)."""
+        from gyeeta_tpu_torch.net import ingestproc
+        iv = ingestproc.drain_interval_s(self.env)
+        while True:
+            try:
+                n = self._ingest.drain()
+            except Exception:                  # pragma: no cover
+                log.exception("ingest ring drain failed")
+                n = 0
+            await asyncio.sleep(0.0 if n else iv)
+
+    async def _ingest_monitor_loop(self) -> None:
+        """Worker liveness + metrics cadence: respawn dead/wedged
+        workers onto their sticky shard groups, publish the
+        gyt_ingest_proc_* counter/gauge rows."""
+        while True:
+            await asyncio.sleep(1.0)
+            try:
+                self._ingest.poll()
+            except Exception:                  # pragma: no cover
+                log.exception("ingest worker monitor failed")
+
     async def stop(self) -> None:
         if self._tick_task:
             self._tick_task.cancel()
             self._tick_task = None
+        if self._relay is not None:
+            # stop accepting relay batches before the runtime winds
+            # down (a batch landing mid-close would stage into a
+            # closing runtime); shutdown is not relay loss — no epoch
+            # finalize, the relays reconnect to the restarted hub
+            await self._relay.stop()
         if self._server:
             self._server.close()
             # force-close live conns BEFORE wait_closed: since 3.12.1
@@ -439,6 +549,18 @@ class GytServer:
             rec, self._recorder = self._recorder, None
             rec.close()      # live conns see None, never a closed file
         self.subs.close()    # flush + close the continuation ring file
+        if self._ingest is not None:
+            # graceful worker drain BEFORE the runtime closes: workers
+            # stop their conns, fsync + close their WALs and report
+            # final positions; every ring slot is folded before stop()
+            # returns — the final checkpoint supersedes the whole WAL
+            # window (the SIGTERM drain contract, tested with
+            # --ingest-procs 2 in tests/test_torch_ingestproc.py)
+            for t in self._ingest_tasks:
+                t.cancel()
+            self._ingest_tasks = []
+            self._ingest.stop()
+            self._ingest.close()     # rings unlinked (positions cached)
         if self._feeder is not None:
             await self._feeder.stop()    # drain queued runs, then fold
         if self._pipe is not None:
@@ -452,6 +574,13 @@ class GytServer:
             try:
                 self._feed_barrier()
                 self.rt.run_tick()
+                if self._ingest is not None:
+                    # workers stamp WAL chunks with the window tick
+                    # (replay merge order + compactor window evidence)
+                    self._ingest.broadcast_tick(self.rt._tick_no)
+                if self._relay is not None:
+                    # remote relays stamp THEIR WALs with the same tick
+                    self._relay.broadcast_tick(self.rt._tick_no)
                 self._resolve_pending_domains()
                 await self.push_trace_control()
                 await self.push_throttle()
@@ -475,6 +604,17 @@ class GytServer:
         if g.get("engine_drop_pressure"):
             return 2
         lvl = 0
+        # worker-ring backlog (multi-process ingest): the rings are
+        # drop-oldest — occupancy approaching full means the NEXT
+        # burst sheds records, so agents must spool first. Head−tail
+        # occupancy reads two shared-memory words per shard ring.
+        if self._ingest is not None:
+            frac = self._ingest.ring_backlog_frac()
+            self.rt.stats.gauge("ingest_ring_backlog_frac", frac)
+            if frac >= 0.95:
+                return 2
+            if frac > self.throttle_ring_frac:
+                lvl = 1
         if g.get("journal_fsync_lag_seconds", 0.0) > self.throttle_lag_s:
             lvl = 1
         if g.get("journal_pending_bytes", 0.0) \
@@ -787,8 +927,13 @@ class GytServer:
                     # reconnect resync: re-push full capture state
                     self.rt.tracedefs.forget_host(host_id)
                 try:
-                    await self._event_loop(reader, host_id,
-                                           conn_id=conn_id)
+                    if self._ingest is not None \
+                            and host_id != 0xFFFFFFFF:
+                        await self._handoff_event_conn(
+                            reader, writer, host_id, conn_id)
+                    else:
+                        await self._event_loop(reader, host_id,
+                                               conn_id=conn_id)
                 finally:
                     if self._event_writers.get(host_id) is writer:
                         del self._event_writers[host_id]
@@ -814,6 +959,36 @@ class GytServer:
                 await writer.wait_closed()
             except (ConnectionError, OSError):   # pragma: no cover
                 pass
+
+    async def _handoff_event_conn(self, reader, writer, host_id: int,
+                                  conn_id: int) -> None:
+        """Multi-process ingest: hand this registered event conn's
+        socket to its shard group's worker and park until it dies.
+
+        The transport stops reading FIRST; whatever the stream reader
+        already buffered ships to the worker as initial bytes (no
+        awaits between the pause and the snapshot, so no byte can
+        slip past). This process keeps the (paused) transport: the
+        reverse direction — trace control, COMM_THROTTLE — still
+        writes from the supervisor, while the worker owns every read.
+        A worker crash (or its conn_closed notice) sets the death
+        event; unwinding closes the socket and the agent reconnects
+        through this listener — same port, same sticky hid, same
+        shard group after the respawn."""
+        transport = writer.transport
+        transport.pause_reading()
+        initial = bytes(reader._buffer)          # noqa: SLF001
+        reader._buffer.clear()                   # noqa: SLF001
+        sock = writer.get_extra_info("socket")
+        death = asyncio.Event()
+        if sock is None or not self._ingest.handoff(
+                host_id, conn_id, sock.fileno(), initial, death):
+            # owning worker down (respawn window): close — the agent's
+            # supervision loop retries and lands on the fresh worker
+            self.rt.stats.bump("ingest_handoff_failed")
+            return
+        self.rt.stats.bump("ingest_conns_handed_off")
+        await death.wait()
 
     async def _event_loop(self, reader, host_id: int = 0,
                           ref_session=None, conn_id: int = 0) -> None:

@@ -140,18 +140,29 @@ class ShardedRuntime(Runtime):
             stats=self.stats, clock=clock)
 
     # ------------------------------------------------------------- ingest
-    def _stack(self, kind: str, recs, lanes: int) -> list:
+    def _stack(self, kind: str, recs, lanes: int, shard=None) -> list:
         """Route ``recs`` by host to the shards and build one batch a
-        shard on its device."""
-        return self.layout.put(sharded.shard_batches(
-            self.cfg, self.mesh, (self._sect_builders[kind], lanes),
-            recs, recs["host_id"]))
+        shard on its device; records already routed to ``shard`` (the
+        ingest workers' rings) go to that shard's batch unhashed."""
+        fns = (self._sect_builders[kind], lanes)
+        if shard is None:
+            per = sharded.shard_batches(self.cfg, self.mesh, fns, recs,
+                                        recs["host_id"])
+        else:
+            per = sharded.stack_prerouted(
+                fns, [recs if s == shard else recs[:0]
+                      for s in range(self.n)])
+        return self.layout.put(per)
 
-    def ingest_records(self, recs: dict) -> int:
+    def ingest_records(self, recs: dict, shard=None) -> int:
         """Fold a drained ``{subtype: record array}`` dict (the post-
         deframe half of :meth:`feed`). Conn/resp records stage by shard
         and fold a slab at a time; every other section folds at once,
-        each shard's lanes routed by host."""
+        each shard's lanes routed by host. The multi-process ingest
+        supervisor (``net/ingestproc.py``) and the relay hub drain their
+        batches through here with ``shard=`` set: the worker already
+        routed the records by the layout's host hash, so they go straight
+        into that shard's staging bucket and batch, with no re-hash."""
         n = 0
         sw = recs.pop(wire.NOTIFY_SWEEP_SEQ, None)
         if sw is not None and len(sw):
@@ -164,7 +175,7 @@ class ShardedRuntime(Runtime):
         if conn is not None and len(conn):
             with self._reg_lock:
                 self.natclusters.observe_conns(conn)
-            self._stage_raw(self._conn_raw, self._conn_staged, conn)
+            self._stage(self._conn_raw, self._conn_staged, conn, shard)
             self._n_conn_raw += len(conn)
             self.stats.bump("conn_events", len(conn))
             n += len(conn)
@@ -173,7 +184,7 @@ class ShardedRuntime(Runtime):
             hid = resp["host_id"]
             self._host_resp_tick[hid[hid < self.cfg.n_hosts]] = \
                 self._tick_no
-            self._stage_raw(self._resp_raw, self._resp_staged, resp)
+            self._stage(self._resp_raw, self._resp_staged, resp, shard)
             self._n_resp_raw += len(resp)
             self.stats.bump("resp_events", len(resp))
             n += len(resp)
@@ -191,7 +202,8 @@ class ShardedRuntime(Runtime):
                     with self._reg_lock:
                         self.traceconns.observe(chunks[0])
                 self.state = fold(self.cfg, self.state, self._stack(
-                    kind, chunks[0], lanes or self.cfg.listener_batch))
+                    kind, chunks[0], lanes or self.cfg.listener_batch,
+                    shard))
                 n += len(chunks[0])
                 if ctr:
                     self.stats.bump(ctr, len(chunks[0]))
@@ -199,7 +211,7 @@ class ShardedRuntime(Runtime):
                     self._bridge_trace(chunks[0])
             elif kind == "delta":
                 db = self._stack("delta", chunks[0],
-                                 decode.DELTA_LANES_DEFAULT)
+                                 decode.DELTA_LANES_DEFAULT, shard)
                 self.state, self.dep = sharded.ingest_delta_sharded(
                     self.cfg, self.state, self.dep, db, self._tick_no)
                 n += len(chunks[0])
@@ -234,6 +246,14 @@ class ShardedRuntime(Runtime):
             self._stage_raw(self._resp_raw, self._resp_staged, rs)
             self._n_resp_raw += len(rs)
             self.stats.bump("resp_from_trace", len(rs))
+
+    def _stage(self, buckets: list, counts: list, recs, shard) -> None:
+        """Stage by host hash, or straight into ``shard``'s bucket."""
+        if shard is None:
+            self._stage_raw(buckets, counts, recs)
+        else:
+            buckets[shard].append(recs)
+            counts[shard] += len(recs)
 
     def _stage_raw(self, buckets: list, counts: list, recs) -> None:
         """Hash each record's host to its shard and append the per-shard

@@ -27,7 +27,6 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from gyeeta_tpu_torch import unported
 from gyeeta_tpu_torch.engine.aggstate import AggState, EngineCfg
 from gyeeta_tpu_torch.ingest import decode as D, wire
 from gyeeta_tpu_torch.obs import prom
@@ -861,10 +860,6 @@ RUNTIME_SUBSYS = (
 SERVED = (tuple(_COLUMNS_OF) + tuple(_DEP_COLUMNS_OF)
           + tuple(_SVCREG_COLUMNS_OF) + RUNTIME_SUBSYS)
 
-# the rest of fieldmaps.FIELDS_OF_SUBSYS but shardlist (the sharded
-# runtime's own view), by the ROADMAP.md item that ports it: none left
-UNPORTED_SUBSYS: dict = {}
-
 # top-N views: preset sort + limit over taskstate columns
 _TOP_PRESETS = {
     fieldmaps.SUBSYS_TOPCPU: ("cpu", 15),
@@ -876,11 +871,8 @@ _TOP_PRESETS = {
 
 
 def check_served(subsys: str) -> str:
-    """``subsys`` if the port serves it; ValueError otherwise, naming
-    the ROADMAP.md item of an unported one."""
-    item = UNPORTED_SUBSYS.get(subsys)
-    if item is not None:
-        raise unported.refuse(f"subsystem {subsys!r}", item)
+    """``subsys`` if it is a subsystem of the field maps; ValueError
+    otherwise."""
     if subsys not in fieldmaps.FIELDS_OF_SUBSYS:
         raise ValueError(f"unknown subsystem {subsys!r}")
     return subsys

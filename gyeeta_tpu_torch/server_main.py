@@ -18,9 +18,13 @@ is given). ``--shards N`` (N > 1) serves the sharded runtime
 (``parallel/shardedrt.py``) over an N-shard mesh on that device — N
 logical shards of one card, or one card a shard where there are N —
 with per-shard ingest queues (``--shard-queue-mb``) and a per-shard WAL
-under ``--journal-dir``. ``--compact-procs`` (the sharded tier's worker
-processes) raises :class:`~gyeeta_tpu_torch.unported.NotPortedError`
-naming ROADMAP.md's item.
+under ``--journal-dir``. The sharded tier's worker processes:
+``--ingest-procs N`` hands registered event conns to N ingest worker
+processes that publish decoded records into shared-memory rings
+(``net/ingestproc.py``; needs ``--shards`` ≥ N), ``--relay-port P``
+accepts remote ingest relays (``net/relay.py``), and ``--compact-procs
+N`` compacts the per-shard WAL with N replay worker processes on
+``--device`` into a parted shard store (``history/compactproc.py``).
 
 Single-controller design: one asyncio loop owns the Runtime; the device
 stream is the concurrency.
@@ -38,18 +42,9 @@ from typing import Optional
 
 from gyeeta_tpu_torch.net.server import GytServer
 from gyeeta_tpu_torch.runtime import Runtime
-from gyeeta_tpu_torch.unported import SHARDED_PROCS, refuse
 from gyeeta_tpu_torch.utils import config as C
 
 log = logging.getLogger("gyeeta_tpu_torch.daemon")
-
-
-def _refuse_unported(args) -> None:
-    """Flags of tiers the port does not have yet raise, naming their
-    ROADMAP.md item, before anything is built."""
-    if int(getattr(args, "compact_procs", 0) or 0) >= 1:
-        raise refuse("--compact-procs (distributed compaction)",
-                     SHARDED_PROCS)
 
 
 def _make_runtime(args, cfg, opts):
@@ -73,21 +68,25 @@ class _StagingCompactLoop:
     """Compaction-region replay loop over a ship staging directory.
 
     Segments land in ``staging`` via net/segship.py and are replayed by
-    the port's ``Compactor`` (journal_dir mode) exactly as if local, its
-    replay runtime on ``device`` (the daemon's). The layout is
-    discovered from what actually lands (flat, or ``shard_NN/`` read by
-    the compactor's tick-merged walk), so the daemon can boot on an
-    empty staging dir before the first segment arrives: construction of
-    the compactor is deferred to the first pass that finds segments."""
+    the port's compactors (journal_dir mode) exactly as if local, their
+    replay runtimes on ``device`` (the daemon's). The layout (flat vs
+    shard_NN/) is discovered from what actually lands, so the daemon can
+    boot on an empty staging dir before the first segment arrives —
+    construction of the compactor is deferred to the first pass that
+    finds segments (ParallelCompactor refuses an empty or flat dir at
+    construction, and its proc count must be clamped to the shard count
+    the shipper reveals). ``env``: the ``GYT_COMPACT_*`` knobs."""
 
     def __init__(self, cfg, opts, staging: str, shard_dir: str,
-                 stats=None, device=None):
+                 procs: int = 0, stats=None, device=None, env=None):
         self.cfg = cfg
         self.opts = opts
         self.staging = staging
         self.shard_dir = shard_dir
+        self.procs = int(procs or 0)
         self.stats = stats
         self.device = device
+        self.env = env
         self.compactor = None
         self._stop = None           # threading.Event, set in start()
         self._thread = None
@@ -96,8 +95,15 @@ class _StagingCompactLoop:
         if self.compactor is not None:
             return self.compactor
         from gyeeta_tpu_torch.utils import journal as J
-        if J.sharded_subdirs(self.staging) \
-                or J.dir_segments(self.staging):
+        subs = J.sharded_subdirs(self.staging)
+        if subs and self.procs >= 1:
+            from gyeeta_tpu_torch.history.compactproc import \
+                ParallelCompactor
+            self.compactor = ParallelCompactor(
+                self.cfg, self.opts, min(self.procs, len(subs)),
+                journal_dir=self.staging, shard_dir=self.shard_dir,
+                stats=self.stats, device=self.device, env=self.env)
+        elif subs or J.dir_segments(self.staging):
             from gyeeta_tpu_torch.history.compactor import Compactor
             self.compactor = Compactor(self.cfg, self.opts,
                                        journal_dir=self.staging,
@@ -113,10 +119,10 @@ class _StagingCompactLoop:
         c.compact_once()
 
     def floors(self):
-        """The compacted floor for SegmentReceiver.sweep_below: a
-        staged segment below it is fully represented in the shard store
-        and safe to delete locally (the ship ledger keeps answering
-        "done" for it)."""
+        """The (per-shard) compacted floors for
+        SegmentReceiver.sweep_below: a staged segment below its floor is
+        fully represented in the shard store and safe to delete locally
+        (the ship ledger keeps answering "done" for it)."""
         c = self.compactor
         if c is None:
             return None
@@ -172,7 +178,6 @@ class Daemon:
         ``GYT_SHIP_*`` knobs of the shipper and the receiver
         (``os.environ`` unless given)."""
         self.args = args
-        _refuse_unported(args)
         env = os.environ if env is None else env
         self.env = env
         cfg = C.load_engine_cfg(args.config, env=env)
@@ -237,6 +242,8 @@ class Daemon:
                                  args, "throttle_lag_s", 0.75),
                              throttle_pending_mb=getattr(
                                  args, "throttle_pending_mb", 32.0),
+                             throttle_ring_frac=getattr(
+                                 args, "throttle_ring_frac", 0.75),
                              query_workers=getattr(
                                  args, "query_workers", None),
                              query_queue_max=getattr(
@@ -252,7 +259,8 @@ class Daemon:
                                  args, "sub_persist", None),
                              relay_port=getattr(
                                  args, "relay_port", None),
-                             preagg=getattr(args, "preagg", False))
+                             preagg=getattr(args, "preagg", False),
+                             env=env)
         self._hot = C.HotReload(args.config, opts) if args.config else None
         # history compaction daemon: sealed WAL segments → columnar
         # snapshot shards (the time-travel tier's writer). Runs only
@@ -270,15 +278,26 @@ class Daemon:
             # process's own journal; replayed on the runtime's device
             self._ship_loop = _StagingCompactLoop(
                 self.rt.cfg, opts, args.ship_staging,
-                opts.hist_shard_dir, stats=self.rt.stats,
-                device=self.rt.device)
+                opts.hist_shard_dir,
+                procs=getattr(args, "compact_procs", 0),
+                stats=self.rt.stats, device=self.rt.device, env=env)
         elif opts.hist_shard_dir and self.rt.journal is not None:
-            # its replay runtime runs on the serving runtime's device
-            from gyeeta_tpu_torch.history.compactor import Compactor
-            self.compactor = Compactor(self.rt.cfg, opts,
-                                       journal=self.rt.journal,
-                                       stats=self.rt.stats,
-                                       device=self.rt.device)
+            # replay runtimes run on the serving runtime's device
+            if getattr(args, "compact_procs", 0) >= 1:
+                # distributed compaction: N replay worker processes
+                # over disjoint WAL shard groups (parted store layout)
+                from gyeeta_tpu_torch.history.compactproc import \
+                    ParallelCompactor
+                self.compactor = ParallelCompactor(
+                    self.rt.cfg, opts, args.compact_procs,
+                    journal=self.rt.journal, stats=self.rt.stats,
+                    device=self.rt.device, env=env)
+            else:
+                from gyeeta_tpu_torch.history.compactor import Compactor
+                self.compactor = Compactor(self.rt.cfg, opts,
+                                           journal=self.rt.journal,
+                                           stats=self.rt.stats,
+                                           device=self.rt.device)
         elif opts.hist_shard_dir:
             log.warning("--shard-dir set without --journal-dir: the "
                         "WAL is the history source — time-travel "
@@ -585,15 +604,18 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     # validation + deframe/decode + per-shard WAL append off the fold
     # GIL and publish decoded slabs over shared-memory rings
     ap.add_argument("--ingest-procs", type=int, default=1,
-                    help="ingest worker processes: not ported yet, "
-                    "N > 1 raises (1 = the in-process edge)")
+                    help="ingest worker processes (sticky shard "
+                    "groups; needs --shards >= N; 1 = the in-process "
+                    "edge, zero behavior change)")
     ap.add_argument("--feed-pipeline", action="store_true",
                     help="deframe/decode on a worker thread (the "
                     "reference's L1/L2 split; useful on multi-core "
                     "hosts — the native decoders release the GIL)")
     ap.add_argument("--relay-port", type=int, default=None,
-                    help="the remote ingest relay hub: not ported yet, "
-                    "raises when given")
+                    help="accept REMOTE ingest relay uplinks on this "
+                    "port (net/relay.py: the shm-ring ledger over "
+                    "TCP — published == consumed + counted drops "
+                    "across machines; 0 = ephemeral)")
     ap.add_argument("--preagg", action="store_true",
                     help="advertise edge pre-aggregation to registering"
                     " agents (wire v5): they fold sketch deltas with "
@@ -658,6 +680,11 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     ap.add_argument("--throttle-pending-mb", type=float, default=32.0,
                     help="unsynced WAL bytes that trip the trace-feed "
                     "throttle")
+    ap.add_argument("--throttle-ring-frac", type=float, default=0.75,
+                    help="ingest worker-ring occupancy fraction that "
+                    "trips the trace-feed throttle (multi-process "
+                    "ingest; >=0.95 holds every sweep — throttle "
+                    "before the drop-oldest rings shed)")
     # time-travel history tier: WAL compaction → columnar snapshot
     # shards + at=/window= queries (OPERATIONS.md "History & time
     # travel"; GYT_HIST_* env knobs cover the rest)
@@ -673,8 +700,11 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
                     help="compaction daemon cadence in seconds "
                     "(default 30)")
     ap.add_argument("--compact-procs", type=int, default=0,
-                    help="distributed compaction: not ported yet, "
-                    "N >= 1 raises (0 = the in-process compactor)")
+                    help="N>=1: distributed compaction — N replay "
+                    "worker PROCESSES on --device over disjoint WAL "
+                    "shard groups into a parted shard store (needs "
+                    "--shards; N <= shard count). 0 (default) = the "
+                    "in-process single-runtime compactor")
     # remote compaction region (history/shipper.py + net/segship.py):
     # sealed WAL segments ship content-hashed to a peer region's
     # staging dir, where the port's compactor replays them on the
@@ -691,7 +721,8 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     ap.add_argument("--ship-staging",
                     help="run the COMPACTION-REGION side: accept "
                     "shipped segments into this staging dir (with "
-                    "--ship-port) and compact it into --shard-dir")
+                    "--ship-port) and/or compact it into --shard-dir "
+                    "(with --compact-procs)")
     ap.add_argument("--ship-port", type=int, default=None,
                     help="listen port for shipper uplinks into "
                     "--ship-staging (0 = ephemeral; prints "

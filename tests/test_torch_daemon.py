@@ -1,9 +1,10 @@
 """The port's daemon, config layering, watchdog and CLI.
 
 - ``parse_args`` gives the reference's defaults (and ``--device cuda``);
-  every flag of an unported tier raises ``NotPortedError`` naming its
-  ROADMAP.md item, as do ``relay``, ``compact --procs`` and ``compact
-  list`` on a parted store.
+  each flag of the sharded tier's worker processes builds a daemon
+  (``--compact-procs``, ``--ingest-procs``, ``--relay-port``), ``relay``
+  starts and uplinks, ``compact --procs 1`` writes a parted store and
+  ``compact list`` lists its root.
 - ``compact run`` equals ``Compactor.compact_once``; ``gateway``,
   ``ship``, ``shiprecv`` and ``compact`` parse as the reference's do,
   and ``ship --once`` ships a WAL dir to a receiver.
@@ -44,7 +45,6 @@ from gyeeta_tpu.utils import config as j_conf
 from gyeeta_tpu.utils import crashguard as j_guard
 from gyeeta_tpu_torch import cli as t_cli
 from gyeeta_tpu_torch import server_main as t_main
-from gyeeta_tpu_torch import unported
 from gyeeta_tpu_torch.engine import aggstate as t_agg
 from gyeeta_tpu_torch.ingest import wire as t_wire
 from gyeeta_tpu_torch.runtime import Runtime as TRuntime
@@ -74,57 +74,118 @@ def test_config_file_builds_the_test_geometry(tmp_path):
     assert t_conf.load_engine_cfg(_config(tmp_path)) == t_cfg()
 
 
-_UNPORTED_TUNING = ("throttle_ring_frac",)
-
-
 def test_parse_args_defaults_match_reference():
     j, t = vars(j_main.parse_args([])), vars(t_main.parse_args([]))
     assert t.pop("device") == "cuda"
     assert t.pop("preagg") is False
-    # flags that only tune the unported multi-process tier are left
-    # out until it lands
-    for k in _UNPORTED_TUNING:
-        assert k in j and k not in t
-        del j[k]
     assert t == j
 
 
-_UNPORTED_FLAGS = {
-    "compact_procs": (["--compact-procs", "1"], "item 7"),
-    "ingest_procs": (["--ingest-procs", "2"], "item 7"),
-    "relay_port": (["--relay-port", "0"], "item 7"),
+# the sharded tier's worker-process flags, each on a two-shard daemon
+_WORKER_FLAGS = {
+    "compact_procs": ["--compact-procs", "1"],
+    "ingest_procs": ["--ingest-procs", "2"],
+    "relay_port": ["--relay-port", "0"],
 }
 
 
-@pytest.mark.parametrize("name", sorted(_UNPORTED_FLAGS))
-def test_unported_flag_raises(name, tmp_path):
-    argv, item = _UNPORTED_FLAGS[name]
-    args = t_main.parse_args(["--device", "cpu", "--config",
-                              _config(tmp_path)] + argv)
-    with pytest.raises(unported.NotPortedError, match=item):
-        t_main.Daemon(args, env={})
+@pytest.mark.parametrize("name", sorted(_WORKER_FLAGS))
+def test_worker_process_flag_builds_daemon(name, tmp_path):
+    from gyeeta_tpu_torch.history.compactproc import ParallelCompactor
+    from gyeeta_tpu_torch.net.ingestproc import ProcWalView
+    from gyeeta_tpu_torch.net.relay import RelayHub
+    args = t_main.parse_args(
+        ["--device", "cpu", "--config", _config(tmp_path), "--shards", "2",
+         "--journal-dir", str(tmp_path / "wal"), "--shard-dir",
+         str(tmp_path / "shards")] + _WORKER_FLAGS[name])
+    d = t_main.Daemon(args, env={})
+    try:
+        if name == "compact_procs":
+            assert isinstance(d.compactor, ParallelCompactor)
+            assert d.compactor.procs == 1 and d.compactor.device == "cpu"
+        elif name == "ingest_procs":
+            assert d.srv._ingest.nprocs == 2
+            assert isinstance(d.rt.journal, ProcWalView)
+        else:
+            assert isinstance(d.srv._relay, RelayHub)
+    finally:
+        if d.srv._ingest is not None:
+            d.srv._ingest.close()
+        d.rt.close()
 
 
-@pytest.mark.parametrize("cmd,item", [("relay", "item 7")])
-def test_unported_subcommand_raises(cmd, item):
-    with pytest.raises(unported.NotPortedError, match=item):
-        t_cli.main([cmd])
+@pytest.mark.parametrize("cmd", ["relay"])
+def test_subcommand_starts(cmd):
+    """``python -m gyeeta_tpu_torch relay`` prints its listen address
+    and uplinks to a hub (HELLO answered), then stops on SIGTERM."""
+    import types
+
+    from gyeeta_tpu_torch.net.relay import RelayHub
+    from gyeeta_tpu_torch.utils.selfstats import Stats
+
+    rt = types.SimpleNamespace(stats=Stats(), n=1,
+                               notifylog=types.SimpleNamespace(
+                                   add=lambda *a, **k: None))
+
+    async def go():
+        hub = RelayHub(rt, lambda *a: (0, 0, 0), host="127.0.0.1")
+        host, port = await hub.start()
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "gyeeta_tpu_torch", cmd, "--supervisor",
+            f"{host}:{port}", "--relay-id", "cli", cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL)
+        try:
+            line = (await asyncio.wait_for(proc.stdout.readline(), 60))
+            assert line.decode().startswith("RELAY_LISTEN 127.0.0.1 ")
+            for _ in range(600):
+                if hub.relays_up():
+                    break
+                await asyncio.sleep(0.05)
+            assert hub.relays_up() == 1
+            proc.send_signal(signal.SIGTERM)
+            assert await asyncio.wait_for(proc.wait(), 30) == 0
+        finally:
+            if proc.returncode is None:
+                proc.kill()
+                await proc.wait()
+            await hub.stop()
+
+    asyncio.run(go())
 
 
-def test_compact_procs_raises_item_6(tmp_path):
-    # the item of the sharded tier's worker processes, 7 since the
-    # single-process sharded runtime (item 6) is ported
-    with pytest.raises(unported.NotPortedError, match="item 7"):
-        t_cli.main(["compact", "run", "--procs", "1", "--journal-dir",
-                    str(tmp_path / "wal"), "--shard-dir",
-                    str(tmp_path / "shards")])
+@pytest.fixture(scope="module")
+def cli_parted(tmp_path_factory):
+    """``compact run --procs 1`` over a per-shard WAL → (its report, the
+    parted store's dir)."""
+    from test_torch_compactproc import GEOM, OPTS, make_sharded_wal
+    tmp = tmp_path_factory.mktemp("cli_parted")
+    make_sharded_wal(str(tmp / "wal"))
+    cfgf = tmp / "cfg.json"
+    cfgf.write_text(json.dumps({"engine": GEOM, "runtime": OPTS}))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        t_cli.main(["compact", "--journal-dir", str(tmp / "wal"),
+                    "--shard-dir", str(tmp / "sh"), "--config", str(cfgf),
+                    "--device", "cpu", "--upto-tick", "4", "--procs", "1"])
+    return json.loads(buf.getvalue()), tmp / "sh"
 
 
-def test_compact_list_on_parted_store_raises_item_6(tmp_path):
-    (tmp_path / "parts" / "part_00").mkdir(parents=True)
-    with pytest.raises(unported.NotPortedError, match="item 7"):
-        t_cli.main(["compact", "list", "--shard-dir",
-                    str(tmp_path / "parts")])
+def test_compact_procs_runs(cli_parted):
+    rep, _ = cli_parted
+    assert rep["workers"] == 1 and rep["windows"] == 4
+    assert rep["records"] > 0 and sorted(rep["per_shard"]) == ["0", "1"]
+
+
+def test_compact_list_on_parted_store(cli_parted):
+    _, sh = cli_parted
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        t_cli.main(["compact", "list", "--shard-dir", str(sh)])
+    listing = json.loads(buf.getvalue())
+    assert [(e["tick0"], e["tick1"]) for e in listing["shards"]] \
+        == [(0, 2), (2, 4)]
+    assert all(len(e["parts"]) == 2 for e in listing["shards"])
+    assert listing["tick"] == 4 and len(listing["pos"]) == 2
 
 
 def _no_gyt_env(monkeypatch):

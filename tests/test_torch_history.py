@@ -58,7 +58,6 @@ from gyeeta_tpu.ingest import wire as j_wire
 from gyeeta_tpu.runtime import Runtime as JRuntime
 from gyeeta_tpu.sim.partha import ParthaSim as JSim
 from gyeeta_tpu.utils.config import RuntimeOpts as JOpts
-from gyeeta_tpu_torch import unported
 from gyeeta_tpu_torch.alerts import AlertManager as TMgr
 from gyeeta_tpu_torch.engine import aggstate as t_agg
 from gyeeta_tpu_torch.engine.aggstate import EngineCfg as TCfg
@@ -69,7 +68,8 @@ from gyeeta_tpu_torch.history import timeview as t_tv, winquant as t_wq
 from gyeeta_tpu_torch.history.compactor import Compactor as TCompactor
 from gyeeta_tpu_torch.history.histwriter import HistoryWriter
 from gyeeta_tpu_torch.history.shards import ShardStore as TShardStore
-from gyeeta_tpu_torch.history.shards import open_shard_store
+from gyeeta_tpu_torch.history.shards import PartedShardStore, \
+    open_shard_store
 from gyeeta_tpu_torch.ingest import wire as t_wire
 from gyeeta_tpu_torch.parallel import depgraph as t_dg
 from gyeeta_tpu_torch.query.api import _hex_id
@@ -1004,20 +1004,25 @@ def test_timeview_errors_match_reference(tmp_path):
 
 
 # ---------------------------------------------------------- layouts
-def test_parted_store_and_sharded_wal_refused(tmp_path):
-    """A parted store stays refused (item 7, the sharded tier's worker
-    processes); a sharded WAL (``shard_NN/``) is read by the compactor's
-    tick-merged walk since the sharded runtime is ported: an empty one
-    compacts to nothing."""
+def test_parted_store_and_sharded_wal_open(tmp_path):
+    """A parted root (``part_NN/`` before its first pass) opens as the
+    parallel compactor's ``PartedShardStore`` and a runtime serves over
+    it (no window yet); a sharded WAL (``shard_NN/``) is read by the
+    compactor's tick-merged walk: an empty one compacts to nothing."""
     parted = tmp_path / "parted"
     (parted / "part_00").mkdir(parents=True)
-    with pytest.raises(unported.NotPortedError,
-                       match=unported.SHARDED_PROCS):
-        open_shard_store(parted)
-    with pytest.raises(unported.NotPortedError,
-                       match=unported.SHARDED_PROCS):
-        TRuntime(TCfg(**GEOM), TOpts(**OPTS, hist_shard_dir=str(parted)),
-                 device="cpu")
+    store = open_shard_store(parted)
+    assert isinstance(store, PartedShardStore) and len(store.parts) == 1
+    assert (store.shards(), store.position(), store.tick()) \
+        == ([], None, 0)
+    rt = TRuntime(TCfg(**GEOM), TOpts(**OPTS, hist_shard_dir=str(parted)),
+                  device="cpu")
+    try:
+        assert isinstance(rt.timeview.store, PartedShardStore)
+        with pytest.raises(ValueError, match="no history shards"):
+            rt.query({"subsys": "svcstate", "at": "tick:1"})
+    finally:
+        rt.close()
     wal = tmp_path / "wal"
     (wal / "shard_00").mkdir(parents=True)
     c = TCompactor(TCfg(**GEOM), TOpts(**OPTS, journal_dir=str(wal),

@@ -41,8 +41,9 @@ def test_no_jax_or_reference_import(path):
 
 # modules of the edge pre-aggregation and snapshot slice, of the
 # registries and alert slice, of the history and journal slice, of the
-# serving edge, of the fabric gateway and the remote compaction region
-# and of the sharded tier, each of which the AST check above must cover
+# serving edge, of the fabric gateway and the remote compaction region,
+# of the sharded tier and of its worker processes, each of which the AST
+# check above must cover
 SLICE_MODULES = ("sketch/edgefold.py", "query/snapshot.py",
                  "query/normalize.py", "query/crud.py", "obs/prom.py",
                  "obs/spans.py", "utils/selfstats.py", "ingest/decode.py",
@@ -67,7 +68,7 @@ SLICE_MODULES = ("sketch/edgefold.py", "query/snapshot.py",
                  "utils/config.py", "net/__init__.py", "net/agent.py",
                  "net/qexec.py", "net/subs.py", "net/nmhandle.py",
                  "net/server.py", "net/webgw.py", "server_main.py",
-                 "cli.py", "__main__.py", "unported.py",
+                 "cli.py", "__main__.py",
                  # the fabric gateway and the remote compaction region
                  "net/gateway.py", "net/segship.py",
                  "history/shipper.py",
@@ -75,7 +76,10 @@ SLICE_MODULES = ("sketch/edgefold.py", "query/snapshot.py",
                  "parallel/__init__.py", "parallel/mesh.py",
                  "parallel/partition.py", "parallel/pairing.py",
                  "parallel/sharded.py", "parallel/rollup.py",
-                 "parallel/shardedrt.py", "net/shardfeed.py")
+                 "parallel/shardedrt.py", "net/shardfeed.py",
+                 # the sharded tier's worker processes
+                 "utils/shmring.py", "net/ingestproc.py", "net/relay.py",
+                 "history/compactproc.py")
 
 
 @pytest.mark.parametrize("mod", SLICE_MODULES)

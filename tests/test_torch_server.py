@@ -18,8 +18,8 @@ the NM edge (the reference's ``NodeWebSim``) and over each package's
 ``WebGateway`` HTTP, each equal across the three edges. A port server
 with ``feed_pipeline=True`` fed the same agents answers the same JSON;
 the host map survives a restart; the handshake and idle reaps are
-counted; the options of the sharded tier's worker processes raise
-``NotPortedError`` naming item 7.
+counted; the options of the sharded tier's worker processes build their
+supervisor and hub, and ``ingest_procs`` keeps the reference's guard.
 """
 
 import asyncio
@@ -40,7 +40,6 @@ from gyeeta_tpu.net.webgw import WebGateway as JWebGateway
 from gyeeta_tpu.runtime import Runtime as JRuntime
 from gyeeta_tpu.sim.nodeweb import NodeWebSim
 from gyeeta_tpu.utils.config import RuntimeOpts as JOpts
-from gyeeta_tpu_torch import unported
 from gyeeta_tpu_torch.net.agent import QueryClient as TQueryClient
 from gyeeta_tpu_torch.net.server import GytServer as TGytServer
 from gyeeta_tpu_torch.net.subs import SubscribeClient as TSubscribeClient
@@ -421,18 +420,46 @@ def test_handshake_and_idle_reaps_are_counted():
     assert ctr["conn_timeouts|kind=idle"] == 1
 
 
-# shard_ingest is served since the sharded runtime is ported
-# (tests/test_torch_shardfeed.py); the worker-process options stay
+# the worker-process options: a single runtime (one shard) refuses
+# ingest_procs > 1 with the reference's ValueError, a two-shard runtime
+# gets its supervisor and rings (and its WAL view); relay_port starts a
+# hub on an ephemeral port and stops it
 @pytest.mark.parametrize("kw", [dict(ingest_procs=2),
                                 dict(relay_port=0)],
                          ids=["ingest_procs", "relay_port"])
-def test_sharded_options_raise_not_ported(kw):
+def test_sharded_options_build(kw, tmp_path):
+    from gyeeta_tpu_torch.net.ingestproc import ProcWalView
+    from gyeeta_tpu_torch.parallel.mesh import make_mesh
+    from gyeeta_tpu_torch.parallel.shardedrt import ShardedRuntime
     rt = TRuntime(t_cfg(), TOpts(**OPTS), device="cpu")
     try:
-        with pytest.raises(unported.NotPortedError, match="item 7"):
-            TGytServer(rt, tick_interval=None, **kw)
+        if "ingest_procs" in kw:
+            with pytest.raises(ValueError, match="needs --shards >= 2"):
+                TGytServer(rt, tick_interval=None, **kw)
+        else:
+            srv = TGytServer(rt, tick_interval=None,
+                             relay_host="127.0.0.1", **kw)
+
+            async def go():
+                await srv.start()
+                try:
+                    return srv._relay.host, srv._relay.port
+                finally:
+                    await srv.stop()
+            host, port = asyncio.run(go())
+            assert host == "127.0.0.1" and port > 0
+            return
     finally:
         rt.close()
+    srt = ShardedRuntime(t_cfg(), make_mesh(2, device="cpu"),
+                         TOpts(**OPTS, journal_dir=str(tmp_path / "wal")))
+    srv = TGytServer(srt, tick_interval=None, **kw)
+    try:
+        assert [h.shards for h in srv._ingest.workers] == [[0], [1]]
+        assert isinstance(srt.journal, ProcWalView)
+    finally:
+        srv._ingest.close()
+        srt.close()
 
 
 def test_preagg_advert_is_an_argument():

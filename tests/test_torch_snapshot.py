@@ -28,7 +28,6 @@ from gyeeta_tpu.obs import prom as j_prom
 from gyeeta_tpu.obs.spans import SpanTracer as JSpans
 from gyeeta_tpu.query import crud as j_crud, normalize as j_norm
 from gyeeta_tpu.utils import selfstats as j_ss
-from gyeeta_tpu_torch import unported
 from gyeeta_tpu_torch.alerts import AlertManager as TAlerts
 from gyeeta_tpu_torch.engine import aggstate as t_agg
 from gyeeta_tpu_torch.ingest import wire as t_wire
@@ -370,14 +369,6 @@ def test_metrics_snapshot_path_reads_the_clock():
     assert "gyt_engine_svc_rows_live" in strong
 
 
-@pytest.mark.parametrize("subsys", sorted(t_api.UNPORTED_SUBSYS))
-def test_unported_view_refused_on_snapshot(subsys):
-    rt, _, _ = _runtime()
-    with pytest.raises(unported.NotPortedError,
-                       match=t_api.UNPORTED_SUBSYS[subsys]):
-        rt.query({"subsys": subsys, "consistency": "snapshot"})
-
-
 @pytest.mark.parametrize("k", ["tstart", "tend", "at", "window"])
 def test_historical_snapshot_query_refused(k):
     """Without history shards a historical request on the snapshot path
@@ -386,7 +377,7 @@ def test_historical_snapshot_query_refused(k):
     rt, _, _ = _runtime()
     with pytest.raises(ValueError, match="needs history shards") as e:
         rt.query({"subsys": "svcstate", k: 5, "consistency": "snapshot"})
-    assert not isinstance(e.value, unported.NotPortedError)
+    assert type(e.value) is ValueError
 
 
 def test_publish_times_and_counts():
