@@ -90,8 +90,9 @@ checkout of the repository. Phases:
    subsystems from the snapshot too (quantiles moved by CUDA's ``logf``
    may sit one loghist bucket apart, counted).
 9. Edge pre-aggregation through the ``Runtime`` at ns geometry: one
-   agent-side ``EdgeFold`` turns each tick's records (16 feed buffers'
-   worth of plain conn and resp records, 1 for the warm-up tick) into
+   agent-side ``EdgeFold`` turns each tick's records (8 feed buffers'
+   worth of plain conn and resp records, 16 before phase 15 came; 1 for
+   the warm-up tick) into
    SKETCH_DELTA records on the host before any timer starts; a warm-up
    tick and a measured tick, each the raw 5 s state sweep and the delta
    records in ~1 MB buffers, then ``run_tick`` (which publishes the
@@ -113,7 +114,7 @@ checkout of the repository. Phases:
 10. History and the journal through the ``Runtime`` at ns geometry:
    phase 8's frames into a runtime with a write-ahead journal, snapshot
    shards (two ticks a window), a sqlite history store and the history
-   sweep every tick: a warm-up tick and four ticks of 4 feed buffers
+   sweep every tick: a warm-up tick and four ticks of 2 feed buffers
    (ms a buffer beside phase 8's, the journal's gauges, ``run_tick``
    with the sweep's render synchronised, ``history_rows``); a db-mode
    and a windowed alertdef through ``"op"``; a ``Compactor`` whose
@@ -137,8 +138,9 @@ checkout of the repository. Phases:
    plus conn/resp slab decode on phase 8's buffers (ms a buffer, outputs
    bit-equal); a ``GytServer`` on 127.0.0.1 over ``Runtime(ns cfg,
    device="cuda")`` with manual ticks: 8 registered GYT event conns send
-   names, a sweep and two buffers (warm-up tick), then two ticks of a
-   sweep and phase 8's 16 feed buffers (ms a buffer and events/s
+   names, a sweep and two buffers (warm-up tick), then one tick (two
+   before phase 15 came) of a sweep and phase 8's 16 feed buffers (ms a
+   buffer and events/s
    wire→fold, synchronised, beside phase 8's direct feed); the launch
    counters are zeroed before these ticks and read after the tick-loop
    stretch below (``launches_serving``: 2/1/1 a conn/resp dispatch); a
@@ -182,7 +184,8 @@ checkout of the repository. Phases:
    merged edges, health) and the JSON of the 44 subsystems (shardlist
    included) strong and from the snapshot; a 2×2 mesh's rollup against
    the 1-D mesh's. 13b: phase 8's frames (names, a sweep and 16 feed
-   buffers a tick, a warm-up and two ticks) through a 4-shard
+   buffers a tick, a warm-up and one measured tick; two before phase
+   15 came) through a 4-shard
    ``ShardedRuntime`` whose shards hold ns ÷ 4 (``svc_capacity=32768``,
    ``task_capacity=16384``): ms a feed buffer beside phase 8's, the
    launch counters (8 / 4 / 4 a sharded dispatch), ms of
@@ -219,7 +222,7 @@ checkout of the repository. Phases:
    13b's), ``run_tick`` and its parts, the launch counters
    (``launches_ring_slab``: 8/4/4 a ring-drained dispatch), ring
    backlog, drops and the ledger; svcstate, hoststate, taskstate and
-   clusterstate equal 13b's runtime at tick 3 row for row,
+   clusterstate equal 13b's runtime at its last tick (2) row for row,
    svcdependency on the same edges, apart in one direction by the pairs
    one run made and the other did not; a worker SIGKILLed mid-stream respawns onto its shard
    group, its agent reconnects to the same host id, and the ledger
@@ -229,14 +232,46 @@ checkout of the repository. Phases:
    with no gap, the four state views equal an in-process sharded
    runtime fed the same frames; the relay is SIGKILLed and restarted
    twice, each restart's epoch finalised with its loss counted.
+15. The port's agent tier into ``serve`` on the card (it bought its time
+   back from 13b and 14b, one measured sharded tick each instead of
+   two). 15a: ``serve`` in this process (manual ticks, ``--record`` a
+   capture) at a madhava's geometry (``n_hosts=1024``,
+   ``svc_capacity=4096``, ``task_capacity=8192``);
+   four child processes
+   of ``python -m gyeeta_tpu_torch agent --n-agents 128`` (512 sim
+   agents at the agent's defaults: 4 services, 6 task groups, 256 conns
+   and 512 response samples a sweep, 5 s apart) and one ``agent
+   --collect --real`` measuring this host; three sweeps each, then
+   SIGTERM, each child's exit report read: registrations, sweeps folded
+   by sequence mark, ms of the tick, launches (2/1/1 a conn/resp
+   dispatch, generic 0), peak memory; the fused calls of the fleet's
+   first two conn/resp dispatches held against their plain versions on
+   the CPU at this geometry; the server's conn and resp counts
+   equal the agents' sweeps and the capture; 512 sim hosts in
+   hoststate, 2,048 live services; the real host's hostinfo names this
+   host, its listeners include serve's port, cpumem (and cgroupstate
+   where the cgroup fs is there) carry it, a taskstate group holds the
+   agents' processes; a collector the kernel refuses is named. 15b: a
+   second ``serve`` fed the capture by ``replay``: it prints the
+   capture's size; svcstate, hoststate, taskstate and clusterstate of
+   the sim hosts equal the live server's row for row. 15c: ``chaos
+   --faults corrupt,truncate,disconnect --seed 3`` between 32 agents
+   (1 s sweeps, a spool smaller than two sweeps) and the first server:
+   the server stays up and counts frame errors, every agent reconnects
+   under its first host id, the reconnect, resend and drop counters
+   reach the server, each agent's ledger adds up. 15d: ``nm probe
+   --crud``, ``obs top --once``, ``obs metrics``. 15e: four of the
+   port's agents with fixed seeds, two sweeps each, into a card and a
+   CPU ``GytServer``: tick reports and JSON equal.
 6. Fold rate and device ops a dispatch, memory, the card's name and
    power limit, the JSON lines (fold, fold_all, runtime, delta,
-   history, serving, region, sharded, workers, kernels), and last the
-   result line.
+   history, serving, region, sharded, workers, agents, kernels), and
+   last the result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import logging
@@ -2897,9 +2932,12 @@ def delta_phase(torch, scatter):
 
 # ----------------------------------------------------------- phase 10
 HIST_TICKS = 4              # measured ticks
-# feed buffers a measured tick: 4 since phase 14 came (8 before), which
-# halves the WAL that phases 10 and 12a replay
-HIST_BUFFERS = 4
+# feed buffers a measured tick: 2 since phase 15 came (4 since phase 14
+# came, 8 before), which cuts the WAL that phases 10 and 12a replay
+HIST_BUFFERS = 2
+# the deflate sample: every 256th MB block of each shard leaf (1/64
+# before phase 15 came)
+HIST_DEFLATE_STRIDE = 256
 HIST_WINDOW = 2             # hist_window_ticks: shards at ticks 2 and 4
 HIST_ALERT_OPS = (
     {"op": "add", "objtype": "alertdef", "alertname": "host_issue_db",
@@ -3341,8 +3379,10 @@ def history_phase(torch, scatter, frames, rt_perf, tmp):
     # ---- the newest raw shard against the live state, on the card
     ent = [e for e in shards if e["tick1"] == 2 * HIST_WINDOW][0]
     data = comp.store.load(ent)
-    perf["deflate"] = deflate_rates(data["state"] + data["dep"])
-    log(f"  deflate over a 1/64 block sample of the shard's leaves "
+    perf["deflate"] = deflate_rates(data["state"] + data["dep"],
+                                    stride=HIST_DEFLATE_STRIDE)
+    log(f"  deflate over a 1/{HIST_DEFLATE_STRIDE} block sample of the "
+        f"shard's leaves "
         f"({perf['deflate']['sample_mb']:.0f} MB): level 6 (the "
         f"reference's savez_compressed) "
         f"{perf['deflate'][6]['mb_per_s']:.0f} MB/s, ratio "
@@ -3537,7 +3577,7 @@ def history_phase(torch, scatter, frames, rt_perf, tmp):
 
 # ----------------------------------------------------------- phase 11
 SRV_AGENTS = 8              # registered GYT event conns
-SRV_TICKS = 2               # measured manual ticks
+SRV_TICKS = 1               # measured manual ticks (2 before phase 15)
 SRV_BUFFERS = 16            # phase 8's feed buffers a measured tick
 SRV_LOOP_S = 6.0            # the stretch under the server's own tick loop
 SRV_LOOP_TICK_S = 1.0       # ... at this tick_interval
@@ -4657,7 +4697,10 @@ def region_phase(torch, scatter, hist_dir, opts):
 SH_N = 4                    # shards of the mesh, all on this card
 SH_CFG = dict(NS_CFG, svc_capacity=NS_CFG["svc_capacity"] // SH_N,
               task_capacity=NS_CFG["task_capacity"] // SH_N)
-SH_TICKS = 2                # measured ticks, phase 8's
+# measured ticks: one since phase 15 came (two before), which buys back
+# phase 15's time: a sweep, 16 buffers and a tick in 13b, in its single
+# runtime oracle and in 14b (~35 s)
+SH_TICKS = 1
 SH_BUFFERS = 16             # phase 8's feed buffers a measured tick
 SH_DELTA_BUFFERS = 2        # ~1 MB SKETCH_DELTA buffers after the ticks
 SH_QUERIES = ("svcstate", "hoststate", "svcdependency", "flowstate",
@@ -4883,7 +4926,8 @@ def sharded_ns_run(torch, scatter, frames, rt_perf, oracle):
     card at ns ÷ 4 a shard, then the same frames through a single
     ``Runtime`` at ns geometry, held row for row (see sharded_phase).
     ``oracle`` gets phase 14's live answers: svcstate at tick 2, the
-    exact views and svcdependency at tick 3 (before any other frame),
+    exact views and svcdependency at the last tick (before any other
+    frame),
     the pairs made and ms a feed buffer."""
     from gyeeta_tpu_torch.engine import aggstate
     from gyeeta_tpu_torch.ingest import wire
@@ -4973,7 +5017,7 @@ def sharded_ns_run(torch, scatter, frames, rt_perf, oracle):
     finally:
         depgraph._dispatch_halves = dispatch
     # phase 14b's oracle: the same frames over its worker rings
-    oracle["t3"] = {name: rt.query({"subsys": name, "maxrecs": 200000})
+    oracle["t_end"] = {name: rt.query({"subsys": name, "maxrecs": 200000})
                     for name in SH_EXACT + ("svcdependency",)}
     oracle["n_paired"] = sum(float(d.n_paired) for d in rt.dep)
     oracle["buffer_ms"] = list(perf["buffer_ms"])
@@ -5655,7 +5699,7 @@ async def ingest_procs_run(torch, scatter, frames, oracle, rt_perf,
 
         n_q = [0, 0]
         for name in SH_EXACT:
-            ref = oracle["t3"][name]
+            ref = oracle["t_end"][name]
             got = rt.query({"subsys": name, "maxrecs": 200000})
             _json_diff(torch, loghist, scfg, _rows_by_identity(ref),
                        _rows_by_identity(got), {}, f"14b {name}", n_q)
@@ -5664,7 +5708,7 @@ async def ingest_procs_run(torch, scatter, frames, oracle, rt_perf,
                   "in-process sharded runtime fed the same frames, row "
                   "for row")
         perf["oracle_rounding_apart"] = n_q[1]
-        ref = oracle["t3"]["svcdependency"]
+        ref = oracle["t_end"]["svcdependency"]
         got = rt.query({"subsys": "svcdependency", "maxrecs": 200000})
         mine = {(r["cliid"], r["serid"]): r for r in got["recs"]}
         theirs = {(r["cliid"], r["serid"]): r for r in ref["recs"]}
@@ -5948,6 +5992,753 @@ def worker_phase(torch, scatter, frames, oracle, rt_perf):
     return out, part_launches, ring_launches
 
 
+# ----------------------------------------------------------- phase 15
+# Its time is bought back from earlier depth: 13b and 14b measure one
+# sharded tick (SH_TICKS 1, was 2), phase 10 feeds 2 buffers a tick
+# (HIST_BUFFERS, was 4) and samples 1/256 of a shard for deflate (was
+# 1/64), phase 11 measures one manual tick (SRV_TICKS, was 2).
+# A madhava's geometry: 512 sim hosts × 4 services = 2,048 services at
+# the 50 % load of the other phases; 1,024 host slots hold them, the
+# chip host's own agent and the chaos agents (512 slots would refuse
+# the 513th registration). 8,192 task slots, not 4,096: the 3,072 task
+# groups (6 a host) fill 4,096 to 75 %, where the table drops 0-2 of
+# them after its 16 probe rounds, in both packages alike, and which
+# ones depends on the order they fold in (tests/test_torch_agent.py
+# test_task_table_drops_at_madhava_load), so the live server and its
+# replay would hold different rows; at 38 % none drop
+AG_CFG = dict(n_hosts=1024, svc_capacity=4096, task_capacity=8192)
+AG_PROCS = 4                # agent processes of the sim fleet
+AG_PER_PROC = 128           # agents a process: 512 sim hosts
+AG_SWEEPS = 3               # sweeps every agent sends before the stop
+AG_CONN, AG_RESP = 256, 512  # the agent's defaults: records a sweep
+AG_REAL_SEED = 9999         # the chip host's agent: a machine id apart
+AG_CHAOS = 32               # agents behind the chaos proxy
+AG_CHAOS_SEED = 2000
+AG_CHAOS_SWEEPS = 4         # sweeps each, at AG_CHAOS_INTERVAL
+AG_CHAOS_INTERVAL = 1.0
+# a fault every ~32 KB a conn: each agent's first fault lands inside its
+# first few 71 KB sweeps (at 64 KB one agent in 32 could go unfaulted)
+AG_CHAOS_PROXY = ("--faults", "corrupt,truncate,disconnect", "--seed",
+                  "3", "--mean-fault-kb", "32")
+# a spool smaller than two sweeps: every reconnect drops (counted)
+AG_CHAOS_AGENT = ("--spool-mb", "0.05", "--backoff-base", "0.1",
+                  "--backoff-cap", "1.0")
+AG_TINY_SEEDS = (31, 32, 33, 34)  # the tiny stream's agents
+AG_TINY_SWEEPS = 2
+AG_TINY_SWEEP = dict(n_conn=64, n_resp=128)
+AG_TIMEOUT = 120.0          # a barrier of the phase, seconds
+AG_VIEWS = ("svcstate", "hoststate", "taskstate", "clusterstate")
+AG_COST_REPS = 20           # timed sweeps of one agent (host cost)
+AG_FEED_SWEEPS = 64         # agents' sweeps in one feed_batch (feed cost)
+AG_FEED_ONE = 16            # ... and fed one a feed
+AG_HOLD = 2                 # conn/resp dispatches whose fused calls are
+#                             held against their plain versions
+
+
+def feed_cost(torch) -> dict:
+    """ms a sweep into a ``Runtime`` on the card at phase 15's geometry:
+    one agent's sweep a ``feed`` (a fold boundary a sweep) against
+    AG_FEED_SWEEPS agents' sweeps in one ``feed_batch`` (what ``serve``
+    does with the conns ready in one loop iteration), fresh hosts in
+    each, after a warm-up batch of AG_FEED_SWEEPS."""
+    from gyeeta_tpu_torch.engine import aggstate
+    from gyeeta_tpu_torch.net.agent import NetAgent
+    from gyeeta_tpu_torch.runtime import Runtime
+    from gyeeta_tpu_torch.sim.partha import ParthaSim
+    from gyeeta_tpu_torch.utils.config import RuntimeOpts
+
+    bufs = []
+    for h in range(2 * AG_FEED_SWEEPS + AG_FEED_ONE):
+        a = NetAgent(seed=h)
+        a.host_id = h
+        a.sim = ParthaSim(n_hosts=1, n_svcs=a.n_svcs, n_groups=a.n_groups,
+                          seed=1000 + h, host_base=h)
+        bufs.append(a.build_sweep(AG_CONN, AG_RESP))
+    n = AG_FEED_SWEEPS
+    warm, many, one = bufs[:n], bufs[n:2 * n], bufs[2 * n:]
+    rt = Runtime(aggstate.EngineCfg(**AG_CFG), RuntimeOpts(), device=DEV)
+    try:
+        rt.feed_batch([(b, i, i) for i, b in enumerate(warm)])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in one:
+            rt.feed(b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rt.feed_batch([(b, i, i) for i, b in enumerate(many)])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        rt.close()
+    return {"sweep_a_feed_ms": (t1 - t0) / AG_FEED_ONE * 1e3,
+            "sweeps_a_batch_ms": (t2 - t1) / AG_FEED_SWEEPS * 1e3}
+
+
+def agent_cost() -> dict:
+    """An agent's host cost on this machine's CPU: ms to build one sweep
+    at the defaults (simulated), and ms of each real collector's sweep
+    of this host (median of AG_COST_REPS, after one to warm up)."""
+    from gyeeta_tpu_torch.ingest import wire
+    from gyeeta_tpu_torch.net import collect as CL
+    from gyeeta_tpu_torch.net.agent import NetAgent
+    from gyeeta_tpu_torch.net.taskproc import ProcTaskCollector
+    from gyeeta_tpu_torch.net.tcpconn import TcpConnCollector
+    from gyeeta_tpu_torch.sim.partha import ParthaSim
+
+    def med_ms(fn):
+        fn()
+        ts = []
+        for _ in range(AG_COST_REPS):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    a = NetAgent(seed=0)
+    a.host_id = 0
+    a.sim = ParthaSim(n_hosts=1, n_svcs=a.n_svcs, n_groups=a.n_groups,
+                      seed=1000, host_base=0)
+    buf = a.build_sweep(AG_CONN, AG_RESP)
+    out = {"sweep_bytes": len(buf), "sweep_records": wire.count_events(buf),
+           "sim_sweep_ms": med_ms(lambda: a.build_sweep(AG_CONN, AG_RESP))}
+    tc = TcpConnCollector(host_id=0, machine_id=1)
+    tp = ProcTaskCollector(host_id=0, machine_id=1)
+    try:
+        out["tcpconn_ms"] = med_ms(tc.sweep)
+        out["taskproc_ms"] = med_ms(tp.sweep)
+    finally:
+        tp.close()
+    for name, c in (("cpumem_ms", CL.CpuMemCollector()),
+                    ("cgroup_ms", CL.CgroupCollector()),
+                    ("mount_ms", CL.MountCollector()),
+                    ("netif_ms", CL.NetIfCollector())):
+        out[name] = med_ms(c.sample)
+    out["hostinfo_ms"] = med_ms(CL.collect_host_info)
+    return out
+
+
+def _agent_mid(seed: int) -> int:
+    from gyeeta_tpu_torch.utils import hashing as H
+    return H.hash_bytes_np(f"sim-agent-{seed}".encode())
+
+
+async def _spawn(procs, *argv):
+    """One ``python -m gyeeta_tpu_torch`` child of this checkout."""
+    import asyncio
+    p = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "gyeeta_tpu_torch", *argv, cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    procs.append(p)
+    return p
+
+
+async def _finish(p, what, timeout=AG_TIMEOUT) -> tuple:
+    """Wait for a child; it must exit 0 → (stdout, stderr) text."""
+    out, err = await _w(p.communicate(), timeout)
+    out, err = out.decode(), err.decode()
+    if p.returncode != 0:
+        raise AssertionError(f"{what} exited {p.returncode}: "
+                             f"{err[-2000:]}")
+    return out, err
+
+
+async def _until_children(pred, what, procs, detail=lambda: ""):
+    """``_until`` that fails at once, with its stderr, when a child of
+    the phase exits first, and says what is missing on the deadline."""
+    import asyncio
+    t0 = time.monotonic()
+    while not pred():
+        for p in procs:
+            if p.returncode is not None:
+                err = (await p.stderr.read()).decode()
+                raise AssertionError(
+                    f"while waiting for {what}: child {p.pid} exited "
+                    f"{p.returncode}: {err[-2000:]}")
+        if time.monotonic() - t0 > AG_TIMEOUT:
+            raise AssertionError(f"timed out waiting for {what}: "
+                                 f"{detail()}")
+        await asyncio.sleep(0.01)
+
+
+async def _stop_agents(p, what) -> list:
+    """SIGTERM an ``agent`` child (its supervisors stop between
+    writes) → its exit report, one entry an agent."""
+    import signal
+    p.send_signal(signal.SIGTERM)
+    out, _ = await _finish(p, what)
+    return json.loads(out.strip().splitlines()[-1])["agent_report"]
+
+
+def _ledger_ok(r) -> bool:
+    """An agent's delivery ledger: records built = sent + still buffered
+    (spool and unconfirmed tail) + dropped."""
+    c = r["counters"]
+    return c.get("records_built", 0) == (c.get("records_sent", 0)
+                                         + r["spool_records"]
+                                         + c.get("spool_dropped_records", 0))
+
+
+def _capture_records(wire, replay, path) -> dict:
+    """Records of each subtype in a GYTREC capture, by host for
+    TCP_CONN."""
+    buf = b"".join(c for _, c in replay.read_chunks(path))
+    recs, used, _ = wire.drain2(buf)
+    check(used == len(buf), f"the capture ({len(buf)} bytes) is whole "
+          "frames")
+    return {"bytes": len(buf), "recs": recs}
+
+
+def _rows_of(out, key, keep) -> list:
+    """The rows of hosts ``keep`` admits, in the order of their
+    identity (the fields that name the row, not its numbers)."""
+    ident = ("hostid", "svcid", "taskid", "comm", "hostname", "svcname")
+    return sorted((r for r in out["recs"] if keep(r.get(key))),
+                  key=lambda r: tuple(str(r.get(k)) for k in ident))
+
+
+def _on(x, dev):
+    """A tensor, or a tuple / dict of them, on ``dev``."""
+    if isinstance(x, dict):
+        return {k: _on(v, dev) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return type(x)(*(_on(v, dev) for v in x)) if hasattr(x, "_fields") \
+            else tuple(_on(v, dev) for v in x)
+    return x.to(dev) if hasattr(x, "to") else x
+
+
+class FusedRecorder:
+    """Records the fused kernel calls (NS_CALLS' sites) that a path
+    makes while ``armed()`` holds, as clones of their inputs, for a
+    with-block; :meth:`hold` then holds each against its plain version
+    on the CPU on the same inputs."""
+
+    def __init__(self, armed):
+        self.armed, self.calls = armed, []
+        self.mods = sketch_modules()
+        self.kinds = {(m, f): k for k, m, f, *_ in NS_CALLS}
+
+    def __enter__(self):
+        self.saved = {mf: getattr(self.mods[mf[0]], mf[1])
+                      for mf in self.kinds}
+        for (m, f), fn in self.saved.items():
+            setattr(self.mods[m], f, self._wrap(m, f, fn))
+        return self
+
+    def _wrap(self, m, f, fn):
+        def rec(sk, *args, **kw):
+            if self.armed():
+                self.calls.append((m, f, _clone(sk), _clone(args),
+                                   _clone(kw)))
+            return fn(sk, *args, **kw)
+        return rec
+
+    def __exit__(self, *exc):
+        for (m, f), fn in self.saved.items():
+            setattr(self.mods[m], f, fn)
+
+    def hold(self, torch) -> dict:
+        """Each recorded call: the kernel on the card against the plain
+        version on the CPU → the largest error by kernel (hll, inv
+        exact; cms rtol 1e-6). Launches here count nothing of a path."""
+        err: dict = {}
+        for m, f, sk, args, kw in self.calls:
+            kind = self.kinds[(m, f)]
+            got = _clone(sk)
+            getattr(self.mods[m], f)(got, *args, **kw)
+            want = _on(sk, "cpu")
+            getattr(self.mods[m], f + "_plain")(want, *_on(args, "cpu"),
+                                                **_on(kw, "cpu"))
+            e = _same_sketch(torch, kind, _on(got, "cpu"), want)
+            err[kind] = max(err.get(kind, 0.0), e)
+        return err
+
+
+async def fleet_run(torch, scatter, tmp) -> tuple:
+    """15a–15d: the agent fleet into ``serve`` on the card (see
+    agent_phase) → (perf, launches a conn/resp dispatch)."""
+    import asyncio
+    import re
+
+    from gyeeta_tpu_torch import server_main
+    from gyeeta_tpu_torch.ingest import wire
+    from gyeeta_tpu_torch.net import procconn, taskdelays
+    from gyeeta_tpu_torch.net.agent import QueryClient
+    from gyeeta_tpu_torch.net.collect import CgroupCollector
+    from gyeeta_tpu_torch.utils import replay
+
+    cfgf = tmp / "gyt_agents.json"
+    cfgf.write_text(json.dumps({"engine": AG_CFG}))
+    cap = tmp / "fleet.gytrec"
+
+    def daemon(record=None):
+        args = server_main.parse_args(
+            ["--config", str(cfgf), "--host", "127.0.0.1", "--port", "0",
+             "--device", DEV, "--log-level", "WARNING"]
+            + (["--record", str(record)] if record else []))
+        # manual ticks: the replay of 15b meets the same tick boundaries
+        args.tick_interval = None
+        return server_main.Daemon(args, env={})
+
+    perf, procs, daemons = {}, [], []
+    stack = contextlib.ExitStack()
+    qc = QueryClient(request_timeout=SRV_TIMEOUT)
+    sim_mids = [_agent_mid(s) for s in range(AG_PROCS * AG_PER_PROC)]
+    real_mid = _agent_mid(AG_REAL_SEED)
+    chaos_mids = [_agent_mid(AG_CHAOS_SEED + i) for i in range(AG_CHAOS)]
+    # a collector the kernel refuses degrades as the reference does:
+    # reported here, by name, not failed
+    refused = [name for name, ok in (
+        ("procconn (cn_proc multicast join)", procconn.available()),
+        ("taskdelays (TASKSTATS genetlink query)", taskdelays.available()),
+        ("cgroupstate (cgroup fs)",
+         CgroupCollector()._base.exists())) if not ok]
+    for name in refused:
+        log(f"  15a: collector refused by this host's kernel: {name}")
+    perf["collectors_refused"] = refused
+    try:
+        # ---- 15a: the fleet at full width
+        d1 = daemon(cap)
+        daemons.append(d1)
+        rt, srv = d1.rt, d1.srv
+        ctr = rt.stats.counters
+        n_cr = [0]
+        dispatch = rt._dispatch_fused
+
+        def counting(connresp=None):
+            if connresp is not None:
+                n_cr[0] += 1
+            return dispatch(connresp)
+        rt._dispatch_fused = counting
+        # the fused calls of the first AG_HOLD conn/resp dispatches,
+        # held against their plain versions once the fleet is folded
+        held = FusedRecorder(lambda: 1 <= n_cr[0] <= AG_HOLD)
+        stack.enter_context(held)
+        host, port = await _w(srv.start())
+        mods = sketch_modules()
+        reset_launches(scatter, mods)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fleet = [await _spawn(procs, "agent", "--port", str(port),
+                              "--n-agents", str(AG_PER_PROC),
+                              "--seed", str(i * AG_PER_PROC))
+                 for i in range(AG_PROCS)]
+        # the chip host's agent registers after the fleet: a one-host
+        # sim announces host 0's name as "host-0.sim" on every connect
+        # (the reference's bytes, kept), which would rename it were it
+        # host 0
+        await _until_children(lambda: all(m in srv.hostmap
+                                          for m in sim_mids),
+                              "the fleet's registrations", fleet)
+        real = await _spawn(procs, "agent", "--port", str(port),
+                            "--collect", "--real",
+                            "--seed", str(AG_REAL_SEED))
+
+        def swept(mids, n):
+            last, hm = rt._sweep_last_seq, srv.hostmap
+            return all(m in hm and last.get(hm[m], 0) >= n for m in mids)
+
+        def behind(mids, n):
+            last, hm = rt._sweep_last_seq, srv.hostmap
+            miss = [m for m in mids if m not in hm]
+            slow = {hm[m]: last.get(hm[m], 0) for m in mids
+                    if m in hm and last.get(hm[m], 0) < n}
+            return (f"{len(miss)} not registered "
+                    f"(the chip host's: {real_mid in miss}), "
+                    f"{len(slow)} behind {dict(list(slow.items())[:8])}, "
+                    f"counters { {k: v for k, v in ctr.items() if 'conn' in k or 'frame' in k or 'agent' in k} }")
+        await _until_children(
+            lambda: swept(sim_mids + [real_mid], AG_SWEEPS),
+            f"{AG_SWEEPS} sweeps from each of {len(sim_mids) + 1} agents",
+            fleet + [real], lambda: behind(sim_mids + [real_mid], AG_SWEEPS))
+        perf["fleet_s"] = time.perf_counter() - t0
+        real_comm = Path(f"/proc/{real.pid}/comm").read_text().strip()
+        reports = []
+        for i, p in enumerate(fleet + [real]):
+            reports += await _stop_agents(p, f"agent process {i}")
+        by_mid = {r["machine_id"]: r for r in reports}
+        hm = srv.hostmap
+        # every byte an agent wrote is folded once its conn closes
+        await _until(lambda: all(
+            rt._sweep_last_seq.get(hm[r["machine_id"]], 0)
+            == r["sweep_seq"] for r in reports), "the fleet's last sweeps",
+            timeout=AG_TIMEOUT)
+        srv._feed_barrier()
+        rt.flush()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rt.run_tick()
+        torch.cuda.synchronize()
+        perf["tick_ms"] = (time.perf_counter() - t1) * 1e3
+        health = rt.engine_health()
+        check(health["engine_svc_probe_failures"] == 0
+              and health["engine_task_probe_failures"] == 0,
+              "15a: every service and task group found a table slot "
+              "(probe failures: svc "
+              f"{health['engine_svc_probe_failures']}, task "
+              f"{health['engine_task_probe_failures']})")
+        launches = read_launches(scatter, mods)
+        perf["launches"], perf["connresp_dispatches"] = launches, n_cr[0]
+        perf["max_memory_allocated_gib"] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+        sim_reps = [by_mid[m] for m in sim_mids]
+        sweeps = sum(r["counters"]["sweeps_built"] for r in sim_reps)
+        real_hid = hm[real_mid]
+        perf["registrations"] = ctr.get("agents_registered", 0)
+        perf["sweep_marks"] = ctr.get("sweep_marks", 0)
+        perf["sim_sweeps"] = sweeps
+        log(f"  15a: {perf['registrations']} agents registered in "
+            f"{perf['fleet_s']:.1f} s to {AG_SWEEPS} sweeps each; "
+            f"{perf['sweep_marks']} sweeps folded by sequence mark "
+            f"({sweeps} of the {len(sim_reps)} sim agents); run_tick "
+            f"{perf['tick_ms']:.1f} ms; launches {launches} over "
+            f"{n_cr[0]} conn/resp dispatches; peak device memory "
+            f"{perf['max_memory_allocated_gib']:.3f} GiB")
+        check(perf["registrations"] == len(sim_mids) + 1
+              and len(set(hm[m] for m in sim_mids + [real_mid]))
+              == len(sim_mids) + 1,
+              f"15a: {len(sim_mids)} sim agents and the chip host's "
+              "agent registered, each under a host id of its own")
+        check(n_cr[0] > 0 and launches == {
+            "hll_update": 2 * n_cr[0], "cms_update": n_cr[0],
+            "inv_update": n_cr[0], "scatter_max": 0, "scatter_add": 0},
+              f"15a: each of the {n_cr[0]} conn/resp dispatches of the "
+              "fleet's sweeps launched hll_update 2x, cms_update and "
+              "inv_update 1x, no generic kernel")
+        stack.close()
+        n_held = min(n_cr[0], AG_HOLD)
+        check(len(held.calls) == len(NS_CALLS) * n_held,
+              f"15a: {len(held.calls)} fused calls recorded in the first "
+              f"{n_held} conn/resp dispatches")
+        perf["held_max_abs_err"] = held.hold(torch)
+        held.calls.clear()
+        check(True, f"15a: the fused calls of the fleet's first {n_held} "
+              "conn/resp dispatches, at this geometry, agree with their "
+              "plain versions on the CPU on the same inputs (hll, inv "
+              f"exact; cms rtol 1e-6): max_abs_err "
+              f"{perf['held_max_abs_err']}")
+        check(all(r["spool_len"] == 0 and _ledger_ok(r)
+                  and r["counters"]["sweeps_built"] == r["sweep_seq"]
+                  >= AG_SWEEPS for r in reports),
+              f"15a: every agent's ledger adds up, nothing spooled: "
+              f"{sum(r['counters']['records_built'] for r in reports)} "
+              "records built = sent")
+        capd = _capture_records(wire, replay, cap)
+        crecs = capd["recs"]
+        real_conns = int((crecs[wire.NOTIFY_TCP_CONN]["host_id"]
+                          == real_hid).sum())
+        perf["counters"] = {k: ctr.get(k, 0) for k in (
+            "conn_events", "resp_events", "sweep_marks",
+            "agents_registered", "listener_infos", "host_infos")}
+        check(ctr["conn_events"] == AG_CONN * sweeps + real_conns
+              == len(crecs[wire.NOTIFY_TCP_CONN])
+              and ctr["resp_events"] == AG_RESP * sweeps
+              == len(crecs[wire.NOTIFY_RESP_SAMPLE])
+              and ctr["sweep_marks"] == sum(
+                  r["counters"]["sweeps_built"] for r in reports),
+              f"15a: the server folded what the agents report sending: "
+              f"{ctr['conn_events']} conns = {AG_CONN} x {sweeps} sim "
+              f"sweeps + {real_conns} of the chip host, "
+              f"{ctr['resp_events']} resp samples = {AG_RESP} x {sweeps}, "
+              f"{ctr['sweep_marks']} sweep marks; the capture holds the "
+              "same")
+        sim_hids = {hm[m] for m in sim_mids}
+        await _w(qc.connect(host, port))
+
+        async def q(name, **kw):
+            return await _w(qc.query({"subsys": name, "maxrecs": 100000,
+                                      **kw}))
+        hs = await q("hoststate")
+        sv = await q("svcstate")
+        hosts = {r["hostid"] for r in hs["recs"]}
+        n_sim_svc = sum(r["hostid"] in sim_hids for r in sv["recs"])
+        check(sim_hids <= hosts and n_sim_svc == len(sim_mids) * 4,
+              f"15a: hoststate holds the {len(sim_hids)} sim hosts, "
+              f"svcstate their {n_sim_svc} live services "
+              f"({hs['nrecs']} hosts, {sv['nrecs']} services in all)")
+        rid = real_hid
+        hi = [r for r in (await q("hostinfo"))["recs"]
+              if r.get("hostid") == rid]
+        node = os.uname().nodename
+        check(len(hi) == 1 and hi[0].get("host") == node,
+              f"15a: the chip host's hostinfo row names {node!r}: "
+              f"{[{k: r.get(k) for k in ('hostid', 'host', 'dist')} for r in hi]}")
+        si = [r for r in (await q("svcinfo"))["recs"]
+              if r.get("hostid") == rid]
+        check(any(r.get("port") == port for r in si),
+              f"15a: the chip host's {len(si)} listeners include serve's "
+              f"own port {port}")
+        cm = [r for r in (await q("cpumem"))["recs"]
+              if r.get("hostid") == rid]
+        check(len(cm) >= 1, f"15a: cpumem carries the chip host's agent "
+              f"({len(cm)} rows)")
+        if "cgroupstate (cgroup fs)" not in refused:
+            cg = [r for r in (await q("cgroupstate"))["recs"]
+                  if r.get("hostid") == rid]
+            check(len(cg) >= 1, f"15a: cgroupstate carries the chip "
+                  f"host's agent ({len(cg)} cgroups)")
+        ts = [r for r in (await q("taskstate"))["recs"]
+              if r.get("hostid") == rid]
+        check(any(r.get("comm") == real_comm for r in ts),
+              f"15a: a taskstate group {real_comm!r} for the agents' "
+              f"processes, among the chip host's {len(ts)} groups")
+        live = {n: await q(n) for n in AG_VIEWS}
+        await qc.close()
+
+        # ---- 15b: replay of the capture into a second server
+        t1 = time.perf_counter()
+        d2 = daemon()
+        daemons.append(d2)
+        rt2, srv2 = d2.rt, d2.srv
+        h2, p2 = await _w(srv2.start())
+        rp = await _spawn(procs, "replay", str(cap), "--port", str(p2))
+        _, err = await _finish(rp, "replay")
+        m = re.search(r"replayed (\d+) bytes", err)
+        perf["replayed_bytes"] = int(m.group(1)) if m else None
+        check(perf["replayed_bytes"] == capd["bytes"],
+              f"15b: replay printed 'replayed {perf['replayed_bytes']} "
+              f"bytes', the capture's {capd['bytes']}")
+        c2 = rt2.stats.counters
+        await _until(lambda: all(c2.get(k, 0) == ctr.get(k, 0) for k in (
+            "conn_events", "resp_events", "sweep_marks")),
+            "the replayed stream folded", timeout=AG_TIMEOUT)
+        srv2._feed_barrier()
+        rt2.flush()
+        rt2.run_tick()
+        torch.cuda.synchronize()
+        # start, the replay process, the fold and a tick; then the views
+        perf["replay_fold_s"] = time.perf_counter() - t1
+        qc2 = QueryClient(request_timeout=SRV_TIMEOUT)
+        await _w(qc2.connect(h2, p2))
+        try:
+            for name in AG_VIEWS:
+                got = await _w(qc2.query({"subsys": name,
+                                          "maxrecs": 100000}))
+                key = "hostid" if any("hostid" in r for r in
+                                      live[name]["recs"]) else None
+                keep = ((lambda h: h in sim_hids) if key
+                        else (lambda _h: True))
+                a = _rows_of(live[name], key, keep)
+                b = _rows_of(got, key, keep)
+                # float sums the card's atomics added in another order:
+                # rtol 1e-6, or one unit in the JSON's third decimal
+                n_apart = [0, 0]
+                _sum_json_diff(a, b, f"15b {name}", n_apart, 0.0)
+                check(len(a) > 0,
+                      f"15b: {name}: the replayed server's {len(b)} rows of "
+                      "the sim hosts equal the live server's, row for row "
+                      f"({n_apart[0]} values within rtol 1e-6, "
+                      f"{n_apart[1]} one unit apart in the third decimal)")
+                perf[f"replay_apart_{name}"] = n_apart
+        finally:
+            await qc2.close()
+        await d2.shutdown()
+        daemons.remove(d2)
+        perf["replay_s"] = time.perf_counter() - t1
+
+        # ---- 15c: the chaos proxy between 32 agents and the server
+        t1 = time.perf_counter()
+        n_hosts0 = len(hm)
+        reconn0 = ctr.get("agent_reconnects", 0)
+        chaos = await _spawn(procs, "chaos", "--upstream-port", str(port),
+                             "--listen-port", "0", *AG_CHAOS_PROXY)
+        line = (await _w(chaos.stdout.readline())).decode().split()
+        check(line[:3] == ["chaos", "proxy", "on"],
+              f"15c: the chaos proxy listens: {' '.join(line)}")
+        cport = int(line[3].rsplit(":", 1)[1])
+        ca = await _spawn(procs, "agent", "--port", str(cport),
+                          "--n-agents", str(AG_CHAOS), "--seed",
+                          str(AG_CHAOS_SEED), "--interval",
+                          str(AG_CHAOS_INTERVAL), *AG_CHAOS_AGENT)
+        await _until_children(
+            lambda: swept(chaos_mids, AG_CHAOS_SWEEPS)
+            and ctr.get("agent_reconnects", 0) - reconn0 >= 3 * AG_CHAOS,
+            f"{AG_CHAOS_SWEEPS} sweeps from each chaos agent and "
+            f"{3 * AG_CHAOS} reconnects", [chaos, ca],
+            lambda: behind(chaos_mids, AG_CHAOS_SWEEPS))
+        creps = await _stop_agents(ca, "the chaos agents")
+        import signal
+        chaos.send_signal(signal.SIGTERM)
+        cout, _ = await _finish(chaos, "the chaos proxy")
+        pstats = json.loads(cout.strip().splitlines()[-1])["chaos_stats"]
+        perf["chaos_s"] = time.perf_counter() - t1
+        perf["chaos_proxy"] = pstats
+        tot = {k: sum(r["counters"].get(k, 0) for r in creps) for k in (
+            "agent_reconnects", "spool_resent", "spool_dropped",
+            "spool_dropped_records", "sweeps_built", "records_built")}
+        perf["chaos_agents"] = tot
+        bad = {k: ctr.get(k, 0) for k in ctr if k.startswith(
+            ("frames_bad", "frame_err", "conn_errors"))}
+        perf["chaos_server"] = {"agent_reconnects": ctr.get(
+            "agent_reconnects", 0) - reconn0, **{k: ctr.get(k, 0) for k in (
+                "spool_resent", "spool_dropped", "spool_dropped_records")},
+            **bad}
+        log(f"  15c: proxy {pstats}; agents {tot}; server "
+            f"{perf['chaos_server']}")
+        check(sum(pstats.get(k, 0) for k in ("corrupt", "truncate",
+                                             "disconnect")) > 0
+              and sum(bad.values()) > 0,
+              f"15c: the proxy injected faults and the server counted its "
+              f"frame errors {bad}, and stayed up")
+        check(len(hm) - n_hosts0 == AG_CHAOS and all(
+            r["host_id"] == hm[r["machine_id"]]
+            and r["counters"].get("agent_reconnects", 0) >= 1
+            for r in creps),
+              f"15c: every chaos agent reconnected under its first host "
+              f"id ({tot['agent_reconnects']} reconnects, "
+              f"{len(hm) - n_hosts0} host ids for {AG_CHAOS} agents)")
+        check(0 < ctr.get("spool_resent", 0) <= tot["spool_resent"]
+              and 0 < ctr.get("spool_dropped", 0) <= tot["spool_dropped"]
+              and perf["chaos_server"]["agent_reconnects"]
+              >= tot["agent_reconnects"],
+              f"15c: the agents' reconnect, spool-resend and spool-drop "
+              f"counters reached the server: {perf['chaos_server']}")
+        check(all(_ledger_ok(r) and r["counters"]["sweeps_built"]
+                  == r["sweep_seq"] for r in creps),
+              f"15c: each chaos agent's ledger adds up: {tot['records_built']}"
+              f" records built = sent + spooled + "
+              f"{tot['spool_dropped_records']} dropped")
+
+        # ---- 15d: the clients
+        t1 = time.perf_counter()
+        nm = await _spawn(procs, "nm", "probe", "--crud", "--port", str(port))
+        top = await _spawn(procs, "obs", "top", "--once", "--port", str(port))
+        met = await _spawn(procs, "obs", "metrics", "--port", str(port))
+        (_, nm_err), (top_out, _), (met_out, _) = await asyncio.gather(
+            _finish(nm, "nm probe --crud"), _finish(top, "obs top --once"),
+            _finish(met, "obs metrics"))
+        check("nm probe: OK" in nm_err, "15d: nm probe --crud exits 0")
+        check(top_out.startswith("gyt self-monitor"),
+              f"15d: obs top --once renders a frame "
+              f"({len(top_out.splitlines())} lines)")
+        check(all(f"gyt_{k}" in met_out for k in (
+            "agent_reconnects", "spool_resent", "spool_dropped")),
+              "15d: obs metrics holds the agents' counters")
+        perf["clients_s"] = time.perf_counter() - t1
+    finally:
+        stack.close()
+        for p in procs:
+            if p.returncode is None:
+                p.kill()
+                await p.wait()
+        for d in daemons:
+            await d.shutdown()
+    return perf, launches
+
+
+async def tiny_agent_run(device) -> dict:
+    """The tiny stream: four of the port's agents with fixed seeds, two
+    sweeps each, into a ``GytServer`` over ``Runtime(device=...)`` with
+    a clock of 5 s a tick → tick reports, the served JSON, the bytes."""
+    from gyeeta_tpu_torch.net.agent import NetAgent, QueryClient
+    from gyeeta_tpu_torch.net.server import GytServer
+    from gyeeta_tpu_torch.runtime import Runtime
+    from gyeeta_tpu_torch.utils.config import RuntimeOpts
+
+    now = [1.7e9]
+    rt = Runtime(tiny_rt_cfg(), RuntimeOpts(**TINY_RT_OPTS),
+                 clock=lambda: now[0], device=device)
+    srv = GytServer(rt, host="127.0.0.1", port=0, tick_interval=None,
+                    idle_timeout=0)
+    ctr = rt.stats.counters
+    agents = [NetAgent(seed=s) for s in AG_TINY_SEEDS]
+    out = {"reports": [], "bufs": []}
+    qc = None
+    try:
+        host, port = await _w(srv.start())
+        for a in agents:      # one at a time: the same host ids each run
+            n0 = ctr.get("names_interned", 0)
+            await _w(a.connect(host, port))
+            await _until(lambda: ctr.get("names_interned", 0) > n0,
+                         "a tiny agent's inventory")
+        for _ in range(AG_TINY_SWEEPS):
+            for a in agents:
+                marks = ctr.get("sweep_marks", 0)
+                buf = a.build_sweep(**AG_TINY_SWEEP)
+                a._writer.write(buf)
+                await _w(a._writer.drain())
+                out["bufs"].append(buf)
+                await _until(lambda: ctr.get("sweep_marks", 0) > marks,
+                             "a tiny sweep")
+            srv._feed_barrier()
+            rt.flush()
+            now[0] += 5.0
+            out["reports"].append(rt.run_tick())
+        prime_vips(rt)
+        qc = QueryClient(request_timeout=SRV_TIMEOUT)
+        await _w(qc.connect(host, port))
+        out["json"] = {name: await _w(qc.query({"subsys": name,
+                                                "maxrecs": 10000}))
+                       for name in RT_SERVED + RT_NEW}
+        st = rt.state.flow_topk
+        out["mass"] = float(st.evicted) + float(st.counts.sum())
+    finally:
+        if qc is not None:
+            await qc.close()
+        for a in agents:
+            await a.close()
+        await srv.stop()
+    return out
+
+
+def agent_phase(torch, scatter):
+    """Phase 15: the port's agent tier into ``serve`` on the card."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from gyeeta_tpu_torch.sketch import loghist
+
+    t0 = time.perf_counter()
+    log(f"phase 15: the agent fleet into serve on the card: "
+        f"{AG_PROCS} x {AG_PER_PROC} sim agents and the chip host's own "
+        f"agent, a replay, {AG_CHAOS} agents behind the chaos proxy, the "
+        "clients")
+    cost = agent_cost()
+    log(f"  15: an agent's host cost (this machine's CPU, median ms): "
+        f"{cost}")
+    cost["server_feed"] = feed_cost(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  15: the server's ms a sweep on the card, one agent's sweep a "
+        f"feed vs {AG_FEED_SWEEPS} in one batch: {cost['server_feed']}")
+    tmp = Path(tempfile.mkdtemp(prefix="gyt_smoke_agents_"))
+    try:
+        perf, launches = asyncio.run(fleet_run(torch, scatter, tmp))
+        perf["host_cost"] = cost
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  15e: the tiny agent stream, card server vs CPU server")
+    g = asyncio.run(tiny_agent_run(DEV))
+    c = asyncio.run(tiny_agent_run("cpu"))
+    check(g["bufs"] == c["bufs"], "15e: the agents sent the same bytes "
+          "to both servers")
+    check(g["reports"] == c["reports"], f"15e: tick reports equal card vs "
+          f"CPU: {c['reports']}")
+    tcfg = tiny_rt_cfg()
+    moved = {k: _moved(torch, loghist, getattr(tcfg, k), v)
+             for k, v in hist_inputs(c["bufs"]).items()}
+    n_q, n_sum = [0, 0], [0, 0]
+    for name in c["json"]:
+        # evictedbytes / errbound: differences of float sums, held to
+        # the top-K mass rule
+        got = _settle_sum_fields(c["json"][name], g["json"][name],
+                                 c["mass"], n_sum)
+        _json_diff(torch, loghist, tcfg, c["json"][name], got, moved, name,
+                   n_q)
+    check(True, f"15e: JSON of {len(c['json'])} subsystems over the GYT "
+          f"edge agrees card vs CPU ({n_q[0]} quantiles one loghist bucket "
+          f"apart, {n_q[1]} values one unit apart in the third decimal, "
+          f"{n_sum[0]} evictedbytes/errbound values within their rules)")
+    perf["tiny_json_bucket_apart"], perf["tiny_json_rounding_apart"] = n_q
+    perf["tiny_json_sum_apart"] = n_sum[0]
+    perf["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 15: {perf['phase_s']:.1f} s")
+    n = max(perf["connresp_dispatches"], 1)
+    return perf, {k: v / n for k, v in launches.items()}
+
+
 def _no_lookup(*a, **kw):
     raise OSError("chip_smoke resolves no names")
 
@@ -6013,6 +6804,9 @@ def main(argv) -> int:
     wp, part_launches, ring_launches = worker_phase(torch, scatter, frames,
                                                     oracle, rtp)
     del frames, oracle
+    gc.collect()
+    torch.cuda.empty_cache()
+    ap, ag_launches = agent_phase(torch, scatter)
     for k in kernels:
         k["launches_fold_all"] = fa["launches"][k["name"]]
         k["launches_runtime"] = rt_launches[k["name"]]
@@ -6023,6 +6817,7 @@ def main(argv) -> int:
         k["launches_sharded_slab"] = sh_launches[k["name"]]
         k["launches_part_slab"] = part_launches[k["name"]]
         k["launches_ring_slab"] = ring_launches[k["name"]]
+        k["launches_agents"] = ag_launches[k["name"]]
         cs = d_sites.get(k["name"])
         if cs:
             k["delta"] = {f: sum(c[f] for c in cs) for f in (
@@ -6053,6 +6848,7 @@ def main(argv) -> int:
     log(json.dumps({"region": rp}, default=float))
     log(json.dumps({"sharded": shp}, default=float))
     log(json.dumps({"workers": wp}, default=float))
+    log(json.dumps({"agents": ap}, default=float))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -20,7 +20,12 @@ gyeeta_tpu_torch serve``), and the sharded tier's worker processes: the
 multi-process ingest edge over shared-memory rings (``net/ingestproc.py``,
 ``utils/shmring.py``), the remote ingest relay (``net/relay.py``) and the
 parallel compactor into a parted shard store
-(``history/compactproc.py``).
+(``history/compactproc.py``); and the agent tier: ``net/agent.py``
+(``NetAgent`` and its supervision), its host collectors
+(``net/{collect,tcpconn,taskproc,procconn,taskdelays}.py``), the chaos
+proxy and the node-webserver client (``sim/{chaos,nodeweb}.py``), with
+the ``agent``, ``replay``, ``obs``, ``nm`` and ``chaos`` commands. The
+agent tier imports no ``torch``: an agent host has no GPU.
 
 The two Pallas kernels of the reference
 (``gyeeta_tpu/sketch/pallas_scatter.py``) are hand-written CUDA kernels

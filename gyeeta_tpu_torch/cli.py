@@ -17,12 +17,24 @@ ship ledger's provenance (``list``, flat or parted)
 ``python -m gyeeta_tpu_torch relay …``    — the remote ingest relay
 (``net/relay.py``): agents register and stream to it, and it ships
 decoded batches to a serve process's ``--relay-port``
+``python -m gyeeta_tpu_torch agent …``    — N supervised host agents
+(``net/agent.NetAgent``: simulated, ``--collect`` measuring this host's
+/proc and /sys, ``--real`` sweeping its sockets and tasks); SIGTERM or
+SIGINT stops them between writes, and the command then prints one JSON
+line, ``{"agent_report": [...]}``, each agent's delivery ledger
+``python -m gyeeta_tpu_torch replay …``   — play a GYTREC capture into a
+server
+``python -m gyeeta_tpu_torch obs top|metrics`` — the live self-monitor
+frame (``obs.format_top``) or the Prometheus exposition
+``python -m gyeeta_tpu_torch nm probe|query`` — the stock
+node-webserver wire probe (``sim/nodeweb.NodeWebSim``)
+``python -m gyeeta_tpu_torch chaos …``    — the seeded fault-injection
+TCP proxy (``sim/chaos.py``)
 
-Counterpart of the serving half of ``gyeeta_tpu/cli.py``; a bare
-``python -m gyeeta_tpu_torch --port …`` runs ``serve`` as the reference
-does. This module and ``server_main`` are the ones that hand
-``os.environ`` to the modules' knob readers. The agent-side subcommands
-(``agent``, ``replay``, ``obs``, ``nm``, ``chaos``) are not carried.
+Counterpart of ``gyeeta_tpu/cli.py``; a bare ``python -m
+gyeeta_tpu_torch --port …`` runs ``serve`` as the reference does. This
+module and ``server_main`` are the ones that hand ``os.environ`` to the
+modules' knob readers. The agent-side commands import no ``torch``.
 """
 
 from __future__ import annotations
@@ -31,9 +43,8 @@ import argparse
 import asyncio
 import json
 import os
+import signal
 import sys
-
-_AGENT_SIDE = ("agent", "replay", "obs", "nm", "chaos")
 
 
 def _cmd_query(argv) -> None:
@@ -58,6 +69,349 @@ def _cmd_query(argv) -> None:
             await qc.close()
         json.dump(out, sys.stdout, default=str)
         sys.stdout.write("\n")
+
+    asyncio.run(run())
+
+
+def _cmd_agent(argv) -> None:
+    ap = argparse.ArgumentParser(prog="gyeeta_tpu_torch agent")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=10038)
+    ap.add_argument("--collect", action="store_true",
+                    help="measure THIS host's /proc //sys instead of "
+                    "simulating host/cgroup telemetry")
+    ap.add_argument("--real", action="store_true",
+                    help="observe THIS host's real TCP connections and "
+                    "listeners (sock_diag sweep) instead of simulated "
+                    "flows; implies --collect semantics for flows only")
+    ap.add_argument("--livecap", action="store_true",
+                    help="with --real: capture traced listeners' live "
+                    "traffic via AF_PACKET (the request-trace slice, "
+                    "not ported yet: refused)")
+    ap.add_argument("--cap-ifname", default="lo",
+                    help="interface for --livecap captures")
+    ap.add_argument("--n-agents", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--interval", type=float, default=5.0)
+    ap.add_argument("--n-conn", type=int, default=256)
+    ap.add_argument("--n-resp", type=int, default=512)
+    # supervision knobs (NetAgent.run_forever): the agent process NEVER
+    # exits on a dropped/refused conn — it backs off, keeps producing
+    # sweeps into a bounded spool, and resends on reconnect
+    ap.add_argument("--backoff-base", type=float, default=0.5,
+                    help="first reconnect delay (doubles per failure)")
+    ap.add_argument("--backoff-cap", type=float, default=30.0,
+                    help="max reconnect delay")
+    ap.add_argument("--connect-timeout", type=float, default=15.0,
+                    help="dial deadline per connect attempt")
+    ap.add_argument("--spool-mb", type=float, default=8.0,
+                    help="outage sweep-spool bound (MB, drop-oldest)")
+    args = ap.parse_args(argv)
+    from gyeeta_tpu_torch.net.agent import LIVECAP_MISSING, NetAgent
+    if args.livecap:
+        raise NotImplementedError(LIVECAP_MISSING)
+
+    async def run():
+        agents = [NetAgent(seed=args.seed + i, collect=args.collect,
+                           real=args.real, livecap=args.livecap,
+                           cap_ifname=args.cap_ifname,
+                           connect_timeout=args.connect_timeout,
+                           spool_max_bytes=int(args.spool_mb * 2**20),
+                           env=os.environ)
+                  for i in range(args.n_agents)]
+        print(f"supervising {len(agents)} agent(s) -> "
+              f"{args.host}:{args.port}", file=sys.stderr)
+        # SIGTERM / SIGINT stop the supervisors between writes, so the
+        # server never sees a half-written frame from a stopped agent
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                loop.add_signal_handler(sig, stop.set)
+            except (ValueError, RuntimeError):
+                pass              # not the main thread: run until cancelled
+        try:
+            await asyncio.gather(*(
+                a.run_forever(args.host, args.port,
+                              interval=args.interval, n_conn=args.n_conn,
+                              n_resp=args.n_resp,
+                              backoff_base=args.backoff_base,
+                              backoff_cap=args.backoff_cap, stop=stop)
+                for a in agents))
+        finally:
+            for a in agents:
+                await a.close()
+        # the delivery ledger of each agent: records built = sent +
+        # still buffered (spool and unconfirmed tail) + dropped
+        json.dump({"agent_report": [agent_report(a) for a in agents]},
+                  sys.stdout)
+        sys.stdout.write("\n")
+        sys.stdout.flush()
+
+    asyncio.run(run())
+
+
+def agent_report(a) -> dict:
+    """One agent's identity and delivery ledger after its supervisor
+    stopped (the ``agent`` command's exit report)."""
+    return {"seed": a.seed, "machine_id": a.machine_id,
+            "host_id": a.host_id, "sweep_seq": a._sweep_seq,
+            "spool_len": a.spool_len(),
+            "spool_records": a.spool_records(),
+            "counters": {k: int(v) for k, v in a.stats.counters.items()}}
+
+
+def _cmd_chaos(argv) -> None:
+    ap = argparse.ArgumentParser(
+        prog="gyeeta_tpu_torch chaos",
+        description="deterministic fault-injection TCP proxy: point "
+        "agents at --listen-port, upstream at the real server; faults "
+        "are seeded + byte-offset keyed (reproducible)")
+    ap.add_argument("--listen-host", default="127.0.0.1")
+    ap.add_argument("--listen-port", type=int, default=10039)
+    ap.add_argument("--upstream-host", default="127.0.0.1")
+    ap.add_argument("--upstream-port", type=int, default=10038)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--faults", default="",
+                    help="comma list of corrupt,truncate,disconnect,"
+                    "stall (empty = pass-through)")
+    ap.add_argument("--mean-fault-kb", type=int, default=256,
+                    help="mean bytes between injected faults (KB)")
+    ap.add_argument("--stall-s", type=float, default=1.0)
+    ap.add_argument("--latency-ms", type=float, default=0.0)
+    ap.add_argument("--jitter-ms", type=float, default=0.0)
+    ap.add_argument("--resplit", type=int, default=0,
+                    help="re-split forwarded chunks to at most this "
+                    "many bytes (0 = off)")
+    ap.add_argument("--kill-at", type=float, default=0.0,
+                    help="seconds after start to open a server-kill "
+                    "window (drop + refuse all conns)")
+    ap.add_argument("--kill-for", type=float, default=0.0,
+                    help="kill-window duration (0 = no window)")
+    ap.add_argument("--wedge-at", type=float, default=0.0,
+                    help="seconds after start to open a WEDGE window "
+                    "(stop forwarding both directions, conns stay "
+                    "open — the stalled-not-dead upstream)")
+    ap.add_argument("--wedge-for", type=float, default=0.0,
+                    help="wedge-window duration (0 = no window)")
+    ap.add_argument("--fault-both", action="store_true",
+                    help="also fault the server->client direction "
+                    "(responses / subscription pushes)")
+    ap.add_argument("--latency-c2s-ms", type=float, default=None,
+                    help="asymmetric latency, client->server "
+                    "direction (overrides --latency-ms)")
+    ap.add_argument("--latency-s2c-ms", type=float, default=None,
+                    help="asymmetric latency, server->client "
+                    "direction (overrides --latency-ms)")
+    ap.add_argument("--partition-at", type=float, default=0.0,
+                    help="seconds after start to open a PARTITION "
+                    "window (both directions dropped, conns held)")
+    ap.add_argument("--partition-for", type=float, default=0.0,
+                    help="partition-window duration (0 = no window)")
+    ap.add_argument("--report-interval", type=float, default=10.0)
+    args = ap.parse_args(argv)
+
+    from gyeeta_tpu_torch.sim.chaos import run_proxy
+
+    async def run():
+        # SIGTERM / SIGINT stop the proxy cleanly (its conns closed, its
+        # fault counts printed)
+        task = asyncio.create_task(run_proxy(args))
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                loop.add_signal_handler(sig, task.cancel)
+            except (ValueError, RuntimeError):
+                pass              # not the main thread: run until cancelled
+        try:
+            await task
+        except asyncio.CancelledError:
+            pass
+
+    asyncio.run(run())
+
+
+def _cmd_replay(argv) -> None:
+    ap = argparse.ArgumentParser(prog="gyeeta_tpu_torch replay")
+    ap.add_argument("capture", help="GYTREC capture file")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=10038)
+    ap.add_argument("--speed", type=float, default=0.0,
+                    help="0 = full speed; 1 = recorded pace")
+    ap.add_argument("--host-offset", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    async def run():
+        from gyeeta_tpu_torch import version
+        from gyeeta_tpu_torch.ingest import wire
+        from gyeeta_tpu_torch.net.agent import register
+        from gyeeta_tpu_torch.utils import hashing as H
+        from gyeeta_tpu_torch.utils import replay
+        _, writer, status, _hid = await register(
+            args.host, args.port,
+            H.hash_bytes_np(b"gyt-replayer"), wire.CONN_EVENT,
+            version.CURR_WIRE_VERSION)
+        if status != wire.REG_OK:
+            raise SystemExit(f"registration failed: {status}")
+        # stream on the event loop with a drain per chunk: captures can
+        # be many GB, so transport backpressure must gate the file read,
+        # and a dropped conn must fail loudly, not buffer into the void.
+        # A few MB in flight (not asyncio's 64 KB) let the server read
+        # many recorded chunks at once: a fold boundary a read, not a
+        # recorded chunk
+        writer.transport.set_write_buffer_limits(high=4 << 20)
+        from gyeeta_tpu_torch.utils.selfstats import Stats
+        stats = Stats()
+        n = 0
+        try:
+            for delay, chunk in replay.paced_chunks(
+                    args.capture, args.speed, args.host_offset,
+                    stats=stats):
+                if delay > 0:
+                    await asyncio.sleep(delay)
+                writer.write(chunk)
+                await writer.drain()
+                n += len(chunk)
+        except (ConnectionError, OSError) as e:
+            raise SystemExit(f"server dropped the conn after {n} bytes: "
+                             f"{e}")
+        # the tail below drain's low-water mark must leave before exit
+        writer.close()
+        await writer.wait_closed()
+        torn = int(stats.counters.get("replay_torn_tail", 0))
+        print(f"replayed {n} bytes"
+              + (" (capture tail torn — final partial chunk skipped)"
+                 if torn else ""), file=sys.stderr)
+
+    asyncio.run(run())
+
+
+def _cmd_obs(argv) -> None:
+    ap = argparse.ArgumentParser(
+        prog="gyeeta_tpu_torch obs",
+        description="self-observability clients: 'top' renders the "
+        "live selfstats/health/span surface; 'metrics' dumps the "
+        "Prometheus exposition text")
+    ap.add_argument("what", choices=("top", "metrics"))
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=10038)
+    ap.add_argument("--interval", type=float, default=2.0,
+                    help="top refresh cadence (seconds)")
+    ap.add_argument("--once", action="store_true",
+                    help="top: render one frame and exit")
+    args = ap.parse_args(argv)
+
+    async def run():
+        from gyeeta_tpu_torch.net.agent import QueryClient
+        from gyeeta_tpu_torch.obs import format_top
+        qc = QueryClient()
+        await qc.connect(args.host, args.port)
+        try:
+            if args.what == "metrics":
+                out = await qc.query({"subsys": "metrics"})
+                sys.stdout.write(out.get("text", ""))
+                return
+            prev, prev_t = None, 0.0
+            while True:
+                import time as _time
+                ss = await qc.query({"subsys": "selfstats"})
+                now = _time.time()
+                frame = format_top(
+                    ss, prev, (now - prev_t) if prev is not None else 0.0)
+                if not args.once:
+                    sys.stdout.write("\x1b[H\x1b[2J")   # clear screen
+                sys.stdout.write(frame)
+                sys.stdout.flush()
+                if args.once:
+                    return
+                prev, prev_t = ss.get("counters", {}), now
+                await asyncio.sleep(args.interval)
+        finally:
+            await qc.close()
+
+    asyncio.run(run())
+
+
+def _cmd_nm(argv) -> None:
+    ap = argparse.ArgumentParser(
+        prog="gyeeta_tpu_torch nm",
+        description="stock node-webserver (NM conn) clients: 'probe' "
+        "runs the NM_CONNECT handshake plus one QUERY_WEB_JSON per "
+        "subsystem and reports wire-level health; 'query' sends one "
+        "raw QUERY_WEB_JSON/CRUD body over an NM conn")
+    ap.add_argument("what", choices=("probe", "query"))
+    ap.add_argument("request", nargs="?",
+                    help="query: JSON body ({'qtype':..,'options':..} "
+                    "or native {'subsys':..}), or '-' for stdin")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=10038)
+    ap.add_argument("--subsys", default="serverstatus,hoststate,"
+                    "svcstate,taskstate,alertdef",
+                    help="probe: comma-separated subsystems to query")
+    ap.add_argument("--crud", action="store_true",
+                    help="probe: also run an alertdef create→list→"
+                    "delete CRUD round trip")
+    args = ap.parse_args(argv)
+
+    async def run():
+        from gyeeta_tpu_torch.sim.nodeweb import NMError, NodeWebSim
+        nw = NodeWebSim(hostname="nm-probe")
+        hs = await nw.connect(args.host, args.port)
+        try:
+            if args.what == "query":
+                body = sys.stdin.read() if args.request == "-" \
+                    else (args.request or "{}")
+                req = json.loads(body)
+                if req.get("op"):
+                    out = await nw.crud_alert(req) \
+                        if req.get("objtype") in ("alertdef", "silence",
+                                                  "inhibit", "action") \
+                        else await nw.crud_generic(req)
+                else:
+                    out = await nw.request(
+                        2, req if "qtype" in req else
+                        {"qtype": req.pop("subsys"), "options": req})
+                json.dump(out, sys.stdout, default=str)
+                sys.stdout.write("\n")
+                return
+            print(f"nm probe: connected — madhava "
+                  f"{hs['madhava_name']!r} id {hs['madhava_id']:#x} "
+                  f"version {hs['madhava_version']:#08x}",
+                  file=sys.stderr)
+            failed = 0
+            for sub in args.subsys.split(","):
+                sub = sub.strip()
+                try:
+                    # strong: the probe checks the LIVE wire+engine
+                    # path end to end (the snapshot default would
+                    # serve a possibly-empty boot-time view)
+                    out = await nw.query_web(sub, maxrecs=1,
+                                             consistency="strong")
+                    print(f"  {sub:<14} ok  nrecs={out.get('nrecs')}",
+                          file=sys.stderr)
+                except NMError as e:
+                    failed += 1
+                    print(f"  {sub:<14} ERR {e}", file=sys.stderr)
+            if args.crud:
+                name = "nm-probe-def"
+                await nw.crud_alert({
+                    "op": "add", "objtype": "alertdef",
+                    "alertname": name, "subsys": "svcstate",
+                    "filter": "{ svcstate.state in 'Severe' }"})
+                lst = await nw.query_web("alertdef")
+                ok = any(r.get("alertname") == name
+                         for r in lst.get("recs", []))
+                await nw.crud_alert({"op": "delete",
+                                     "objtype": "alertdef",
+                                     "name": name})
+                print(f"  alertdef CRUD round-trip "
+                      f"{'ok' if ok else 'FAILED'}", file=sys.stderr)
+                failed += 0 if ok else 1
+            if failed:
+                raise SystemExit(f"nm probe: {failed} check(s) failed")
+            print("nm probe: OK", file=sys.stderr)
+        finally:
+            await nw.close()
 
     asyncio.run(run())
 
@@ -298,10 +652,11 @@ def _cmd_gateway(argv) -> None:
     asyncio.run(run())
 
 
-_COMMANDS = {"query": _cmd_query, "web": _cmd_web,
-             "gateway": _cmd_gateway, "ship": _cmd_ship,
-             "shiprecv": _cmd_shiprecv, "compact": _cmd_compact,
-             "relay": _cmd_relay}
+_COMMANDS = {"query": _cmd_query, "agent": _cmd_agent,
+             "replay": _cmd_replay, "web": _cmd_web, "obs": _cmd_obs,
+             "nm": _cmd_nm, "chaos": _cmd_chaos, "gateway": _cmd_gateway,
+             "ship": _cmd_ship, "shiprecv": _cmd_shiprecv,
+             "compact": _cmd_compact, "relay": _cmd_relay}
 
 
 def main(argv=None) -> None:
@@ -309,10 +664,6 @@ def main(argv=None) -> None:
     cmd = argv[0] if argv else None
     if cmd in _COMMANDS:
         return _COMMANDS[cmd](argv[1:])
-    if cmd in _AGENT_SIDE:
-        raise SystemExit(f"{cmd!r} is an agent-side subcommand of the "
-                         "reference (python -m gyeeta_tpu); the port "
-                         "serves only")
     if cmd == "serve":
         argv = argv[1:]
     from gyeeta_tpu_torch.server_main import main as serve_main

@@ -15,6 +15,10 @@ the sharded runtime; ``relay_port`` accepts remote ingest relays
 (``net/relay.py``). Their knobs are reads of the ``env`` mapping the
 server is given (``None`` means no environment). The edge
 pre-aggregation advert is the explicit ``preagg`` argument.
+The direct feed path folds the event conns whose bytes arrive in one
+loop iteration with one fold boundary (``Runtime.feed_batch``): a feed
+ends with a dispatch of the staged sweep sections, which a fleet of
+hundreds of small agents cannot pay a sweep each.
 
 The role of madhava's accept + L1 threads and shyama's registrar in one
 single-controller process (ref ``server/gy_mconnhdlr.cc:2430-2520`` recv/
@@ -59,6 +63,10 @@ log = logging.getLogger("gyeeta_tpu_torch.net")
 
 _HSZ = wire.HEADER_DT.itemsize
 _READ_SZ = 1 << 20
+# a conn's stream buffer: asyncio's 64 KB default hands a bulk conn's
+# bytes over in ~128 KB reads, a fold boundary each; 256 KB keeps a
+# fleet's buffered bytes bounded (reading pauses at twice this a conn)
+_READ_LIMIT = 1 << 18
 
 
 class _ConnReaped(Exception):
@@ -97,6 +105,12 @@ class GytServer:
                  relay_host: str = "0.0.0.0",
                  preagg: bool = False, env=None):
         self.env = {} if env is None else env
+        # direct feeds: one fold boundary for the event conns whose
+        # bytes arrived in the same loop iteration (Runtime.feed_batch)
+        # instead of one a read, which costs a fleet of small agents a
+        # dispatch a sweep. The pipeline and the shard feeder queue
+        # bytes their own way
+        self._batch: list = []
         self.rt = rt
         self.host = host
         self.port = port
@@ -192,6 +206,9 @@ class GytServer:
                     "--feed-pipeline and shard ingest are mutually "
                     "exclusive (the shard feeder owns the handoff)")
             self._feeder = ShardFeeder(rt, queue_max_mb=shard_queue_mb)
+        # the direct path folds a loop iteration's conns with one
+        # boundary (Runtime.feed_batch)
+        self._batch_feeds = self._pipe is None and self._feeder is None
         # ---- multi-process ingest edge (net/ingestproc.py): N worker
         # processes own wire validation + deframe/decode + WAL append
         # for their sticky shard groups and publish decoded record
@@ -429,6 +446,9 @@ class GytServer:
             return self._feeder.submit(buf, hid=hid, conn_id=conn_id)
         if self._pipe is not None:
             return self._pipe.feed(buf, hid=hid, conn_id=conn_id)
+        if self._batch:
+            # the bytes queued before these fold first
+            self._feed_batch()
         return self.rt.feed(buf, hid=hid, conn_id=conn_id)
 
     def _feed_barrier(self) -> None:
@@ -444,6 +464,38 @@ class GytServer:
             self._feeder.flush_pending()
         if self._pipe is not None:
             self._pipe.flush()
+        if self._batch:
+            self._feed_batch()
+
+    def _feed_later(self, buf: bytes, hid: int, conn_id: int):
+        """Queue complete-frame bytes for this loop iteration's batch →
+        a future of the records accepted (or the piece's FrameError)."""
+        loop = asyncio.get_running_loop()
+        fut = loop.create_future()
+        self._batch.append((buf, hid, conn_id, fut))
+        if len(self._batch) == 1:
+            # after the read callbacks already scheduled this iteration
+            loop.call_soon(self._feed_batch)
+        return fut
+
+    def _feed_batch(self) -> None:
+        """Fold the queued pieces → each waiter gets its own piece's
+        result: a piece that failed fails its conn alone, the pieces
+        folded before it stand (``Runtime.feed_batch``)."""
+        batch, self._batch = self._batch, []
+        if not batch:
+            return
+        try:
+            res = self.rt.feed_batch([b[:3] for b in batch])
+        except Exception as e:     # noqa: BLE001 — no piece was taken
+            res = [e] * len(batch)
+        for (_, _, _, fut), r in zip(batch, res):
+            if fut.done():
+                continue
+            if isinstance(r, BaseException):
+                fut.set_exception(r)
+            else:
+                fut.set_result(r)
 
     # ---------------------------------------------------- query routing
     def _inline_query(self, req: dict) -> bool:
@@ -482,7 +534,7 @@ class GytServer:
                                            None) is None:
             self.rt.publish_snapshot()
         self._server = await asyncio.start_server(
-            self._handle_conn, self.host, self.port)
+            self._handle_conn, self.host, self.port, limit=_READ_LIMIT)
         sock = self._server.sockets[0].getsockname()
         self.host, self.port = sock[0], sock[1]
         if self._feeder is not None:
@@ -1058,7 +1110,10 @@ class GytServer:
                 # feed FIRST: a chunk that fails deep validation
                 # (nevents caps) must not poison the capture file —
                 # recorded bytes are exactly the ingested bytes
-                self._feed(data[:k], host_id, conn_id)
+                if self._batch_feeds:
+                    await self._feed_later(data[:k], host_id, conn_id)
+                else:
+                    self._feed(data[:k], host_id, conn_id)
                 rec = self._recorder   # no await between check & write
                 if rec is not None and self._pipe is None:
                     rec.write(data[:k])

@@ -154,6 +154,11 @@ class ShardedRuntime(Runtime):
                       for s in range(self.n)])
         return self.layout.put(per)
 
+    def _dispatch_fused_pending(self) -> None:
+        """No end-of-ingest fold boundary: sections fold as they arrive
+        and conn/resp a full slab at a time (``flush`` folds the rest),
+        so :meth:`Runtime.feed_batch` is a feed a piece here."""
+
     def ingest_records(self, recs: dict, shard=None) -> int:
         """Fold a drained ``{subtype: record array}`` dict (the post-
         deframe half of :meth:`feed`). Conn/resp records stage by shard

@@ -239,6 +239,9 @@ class Runtime:
         self._sweep_last_seq: dict[int, int] = {}
         self._tick_no = 0             # host-side mirror of the window tick
         self._pending = b""           # partial-frame resume buffer
+        # set inside feed_batch: the end-of-ingest fold boundary moves
+        # to the end of the batch
+        self._defer_dispatch = False
         # last tick each host sent a native RESP_SAMPLE: the trace→resp
         # bridge skips hosts with a recent native stream
         self._host_resp_tick = np.full(self.cfg.n_hosts, -(10 ** 9),
@@ -351,6 +354,46 @@ class Runtime:
             self.stats.bump("records_unknown_subtype", unknown)
         return self.ingest_records(recs)
 
+    def feed_batch(self, pieces) -> list:
+        """Feed several buffers of complete frames — ``(buf, hid,
+        conn_id)`` each, several conns' — with ONE fold boundary, at the
+        end of the batch, instead of one a buffer (sections that would
+        overflow their lanes still dispatch on the way). Each buffer is
+        deframed, validated and journaled on its own, so a failure is
+        attributed to its conn: → one entry a piece, the records it
+        accepted or the exception it raised. A ``wire.FrameError`` fails
+        its piece alone; any other failure ends the batch there: that
+        piece and the ones after it get the exception, the pieces before
+        it stand, and a failure of the closing fold boundary goes to the
+        last piece taken (whose feed would have carried it alone). Fold
+        semantics are those of one feed of the joined buffers (what a
+        conn whose reads TCP coalesced gives); the serving edge batches
+        the conns ready in one loop iteration this way: a feed a sweep
+        costs a dispatch of the sweep sections, which hundreds of small
+        agents cannot afford."""
+        out: list = []
+        self._defer_dispatch = True
+        try:
+            for i, (buf, hid, conn_id) in enumerate(pieces):
+                try:
+                    out.append(self.feed(buf, hid=hid, conn_id=conn_id))
+                except wire.FrameError as e:
+                    out.append(e)
+                except Exception as e:     # noqa: BLE001 — attributed
+                    out.extend([e] * (len(pieces) - i))
+                    break
+        finally:
+            self._defer_dispatch = False
+        try:
+            self._dispatch_fused_pending()
+        except Exception as e:             # noqa: BLE001 — attributed
+            taken = [i for i, r in enumerate(out)
+                     if not isinstance(r, BaseException)]
+            if not taken:
+                raise
+            out[taken[-1]] = e
+        return out
+
     def drain2(self, data: bytes) -> tuple[dict, int, int]:
         """This runtime's deframe (``native.drain2`` or
         ``wire.drain2``) → (records by subtype, consumed, unknown)."""
@@ -410,7 +453,8 @@ class Runtime:
                     self.stats.bump("names_interned",
                                     self.names.update(chunks[0]))
                 self._cols.bump()
-        self._dispatch_fused_pending()
+        if not self._defer_dispatch:
+            self._dispatch_fused_pending()
         if n:
             self._cols.bump()
         return n

@@ -14,12 +14,14 @@ values below ``2**32`` keeps its low 32 bits right when it wraps. Every
 uint32 leaf of the engine state (table keys, top-K keys, invertible
 ``enc_*``/``fp``, task/api ids) uses the same carrier. Bucket and row
 indices come back as ``int32``, like the reference's.
+
+``torch`` is imported inside the tensor branches only: the agent tier
+hashes on the host and loads no ``torch``.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 # Murmur3 / splitmix constants.
 _C1 = 0x85EBCA6B
@@ -35,6 +37,7 @@ def _is_np(x) -> bool:
 def u32(x: torch.Tensor) -> torch.Tensor:
     """Any integer tensor → the int64 u32 carrier (two's-complement
     reinterpretation of negative int32, like ``astype(uint32)``)."""
+    import torch
     return x.to(torch.int64) & M32
 
 
@@ -95,6 +98,7 @@ def _range_map(h, nbuckets: int):
     if _is_np(h):
         return ((h.astype(np.uint64) * np.uint64(nbuckets))
                 >> np.uint64(32)).astype(np.int32)
+    import torch
     # h < 2^32 and nbuckets < 2^31: the int64 product cannot overflow
     return ((h * nbuckets) >> 32).to(torch.int32)
 
@@ -115,6 +119,7 @@ def leading_zeros32(x):
             n = np.where(mask, n, n + shift)
             y = np.where(mask, y >> np.uint32(shift), y)
         return np.where(x == 0, np.int32(32), n).astype(np.int32)
+    import torch
     x = u32(x)
     n = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
     y = x

@@ -42,8 +42,8 @@ def test_no_jax_or_reference_import(path):
 # modules of the edge pre-aggregation and snapshot slice, of the
 # registries and alert slice, of the history and journal slice, of the
 # serving edge, of the fabric gateway and the remote compaction region,
-# of the sharded tier and of its worker processes, each of which the AST
-# check above must cover
+# of the sharded tier, of its worker processes and of the agent tier,
+# each of which the AST check above must cover
 SLICE_MODULES = ("sketch/edgefold.py", "query/snapshot.py",
                  "query/normalize.py", "query/crud.py", "obs/prom.py",
                  "obs/spans.py", "utils/selfstats.py", "ingest/decode.py",
@@ -79,12 +79,38 @@ SLICE_MODULES = ("sketch/edgefold.py", "query/snapshot.py",
                  "parallel/shardedrt.py", "net/shardfeed.py",
                  # the sharded tier's worker processes
                  "utils/shmring.py", "net/ingestproc.py", "net/relay.py",
-                 "history/compactproc.py")
+                 "history/compactproc.py",
+                 # the agent tier
+                 "utils/ids.py", "utils/cloudmeta.py", "net/collect.py",
+                 "net/tcpconn.py", "net/procconn.py", "net/taskdelays.py",
+                 "net/taskproc.py", "sim/nodeweb.py", "sim/chaos.py",
+                 "obs/__init__.py")
 
 
 @pytest.mark.parametrize("mod", SLICE_MODULES)
 def test_slice_module_is_checked(mod):
     assert ROOT / "gyeeta_tpu_torch" / mod in SOURCES
+
+
+# the agent tier runs on hosts with no GPU: importing any of its modules,
+# or the port's modules it uses, loads no torch (a module-level import;
+# the hashing module's tensor paths import torch where they run)
+AGENT_MODULES = ("net/agent.py", "utils/ids.py", "utils/cloudmeta.py",
+                 "net/collect.py", "net/tcpconn.py", "net/procconn.py",
+                 "net/taskdelays.py", "net/taskproc.py", "sim/nodeweb.py",
+                 "sim/chaos.py", "obs/__init__.py", "sim/partha.py",
+                 "utils/hashing.py", "utils/intern.py", "cli.py")
+
+
+@pytest.mark.parametrize("mod", AGENT_MODULES)
+def test_agent_module_imports_no_torch(mod):
+    body = ast.parse((ROOT / "gyeeta_tpu_torch" / mod).read_text()).body
+    names = [a.name for n in body if isinstance(n, ast.Import)
+             for a in n.names] + [n.module for n in body
+                                  if isinstance(n, ast.ImportFrom)
+                                  and n.level == 0]
+    bad = [n for n in names if n.split(".")[0] == "torch"]
+    assert not bad, f"{mod} imports {bad}"
 
 
 def test_checker_catches_the_prefix():
