@@ -113,8 +113,8 @@ checkout of the repository. Phases:
    (tick reports, 85 + 29 leaves, counters, snapshot JSON).
 10. History and the journal through the ``Runtime`` at ns geometry:
    phase 8's frames into a runtime with a write-ahead journal, snapshot
-   shards (two ticks a window), a sqlite history store and the history
-   sweep every tick: a warm-up tick and four ticks of 2 feed buffers
+   shards (a tick a window), a sqlite history store and the history
+   sweep every tick: a warm-up tick and a measured tick of 2 feed buffers
    (ms a buffer beside phase 8's, the journal's gauges, ``run_tick``
    with the sweep's render synchronised, ``history_rows``); a db-mode
    and a windowed alertdef through ``"op"``; a ``Compactor`` whose
@@ -124,7 +124,7 @@ checkout of the repository. Phases:
    ms and shard bytes, and deflate at levels 6 and 1 over a sample of a
    shard's leaves. Checks: the newest shard's 85 + 29 leaves against
    the live state at its tick, on the card (integer and max-merged
-   leaves exact, float sums rtol 1e-6); ``at=tick:4`` JSON of svcstate,
+   leaves exact, float sums rtol 1e-6); ``at=tick:2`` JSON of svcstate,
    topk, flowstate and svcdependency against the live JSON then (values
    read off float sums counted); ``window=`` and ``at=`` queries timed
    from a cold snapshot cache and again; ``tstart`` against sqlite's
@@ -166,9 +166,10 @@ checkout of the repository. Phases:
    conn/resp dispatch, generic 0). Checks: sealed == shipped + dropped
    with no hash mismatch, the landed segments equal the source's, the
    region's two shards equal phase 10's (integer and max leaves exact,
-   float sums rtol 1e-6), and ``at=tick:4`` svcstate and topk JSON equal
-   from both stores. 12b, inside phase 11 before its server closes: a
-   ``FabricGateway`` in front of phase 11's ``GytServer`` and a second
+   float sums rtol 1e-6), and ``at=tick:2`` svcstate and topk JSON from
+   the region's store equal phase 10's from the local one. 12b, inside
+   phase 11 before its server closes: a ``FabricGateway`` in front of
+   phase 11's ``GytServer`` and a second
    one over the same ``Runtime`` (no tick loop of its own): the 43
    subsystems over its GYT front and 8 each over REST and NM, each equal
    to ``rt.query`` on the snapshot (first and ≥ 100 cached calls: p50,
@@ -263,10 +264,40 @@ checkout of the repository. Phases:
    --crud``, ``obs top --once``, ``obs metrics``. 15e: four of the
    port's agents with fixed seeds, two sweeps each, into a card and a
    CPU ``GytServer``: tick reports and JSON equal.
+16. The request-trace capture into ``serve`` on the card at phase 15's
+   geometry (``--record``, manual ticks; it bought its time back from
+   phases 10, 12a and 14: one measured history tick with a window a
+   tick, and shard leaves whose CRC-32 agree counted exact without
+   inflating them). 16a: six loopback services in a child process
+   (``chip_smoke.py --trace-services``: HTTP/1.1 with keep-alive,
+   pipelining and a chunked body, Postgres simple and extended queries,
+   MongoDB OP_MSG, h2c HTTP/2 with Huffman-coded HPACK and gRPC
+   trailers, TDS language, RPC and DBRPC requests, a TLS ClientHello
+   with SNI and ALPN; one transaction in 16 errs) and ``agent --collect
+   --real --livecap``; a tracedef on their ports goes out through
+   ``push_trace_control`` and the next sweep opens the capture; 16
+   conns of 32 transactions a service, in 8 client rounds each right
+   after a sweep; tracereq holds every signature, and nreq and nerr by
+   protocol equal what the clients completed and the services erred;
+   the listeners' svcstate rows carry the bridged nqry5s and sererr;
+   deleting the tracedef closes the capture (the agent's exit report).
+   A host that refuses AF_PACKET is reported, with the agent's
+   ``_cap_denied``. 16b: a pcap written with ``write_pcap`` of 256
+   services (64 of phase 15's sim host ids × 4, the five
+   transaction-bearing protocols round-robin, one TLS conn a host), 256
+   transactions a conn with lognormal latencies, one in 32 an error;
+   ``parse_pcap`` recovers what was written, by protocol;
+   ``transactions_to_records`` a service, sent over 64 registered GYT
+   conns in two sweeps; api_tbl.n_live rises by 1,536; per (service,
+   api) key nreq, nerr and bytes equal ``sketch/exact.key_totals`` and
+   p95 lies within one loghist bucket of ``exact.quantiles``; the
+   phase's conn/resp dispatches launch 2/1/1, generic 0. Last the
+   ``--record`` capture replayed into a CPU ``GytServer``: tracereq
+   JSON equal to the card's.
 6. Fold rate and device ops a dispatch, memory, the card's name and
    power limit, the JSON lines (fold, fold_all, runtime, delta,
-   history, serving, region, sharded, workers, agents, kernels), and
-   last the result line.
+   history, serving, region, sharded, workers, agents, trace, kernels),
+   each phase's seconds and the total, and last the result line.
 """
 
 from __future__ import annotations
@@ -278,11 +309,11 @@ import logging
 import math
 import os
 import socket
+import struct
 import subprocess
 import sys
 import time
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -2931,14 +2962,18 @@ def delta_phase(torch, scatter):
 
 
 # ----------------------------------------------------------- phase 10
-HIST_TICKS = 4              # measured ticks
+# measured ticks: 1 since phase 16 came (4 before), with a window of a
+# tick (2 before): the same two shards, at the warm-up tick and the
+# measured one, over a WAL of 2 ticks instead of 5, which cuts what
+# phases 10 and 12a replay
+HIST_TICKS = 1
 # feed buffers a measured tick: 2 since phase 15 came (4 since phase 14
 # came, 8 before), which cuts the WAL that phases 10 and 12a replay
 HIST_BUFFERS = 2
-# the deflate sample: every 256th MB block of each shard leaf (1/64
-# before phase 15 came)
-HIST_DEFLATE_STRIDE = 256
-HIST_WINDOW = 2             # hist_window_ticks: shards at ticks 2 and 4
+# the deflate sample: every 1,024th MB block of each shard leaf (1/256
+# before phase 16 came, 1/64 before phase 15)
+HIST_DEFLATE_STRIDE = 1024
+HIST_WINDOW = 1             # hist_window_ticks: shards at ticks 1 and 2
 HIST_ALERT_OPS = (
     {"op": "add", "objtype": "alertdef", "alertname": "host_issue_db",
      "subsys": "hoststate", "mode": "db", "querysec": 60.0,
@@ -2947,7 +2982,8 @@ HIST_ALERT_OPS = (
      "subsys": "svcstate", "window": "1h",
      "filter": "{ svcstate.qps5s > 45 }"},
 )
-# at=tick:4 against the live JSON at tick 4, rows matched by these keys
+# at= the newest window's end against the live JSON then, rows matched
+# by these keys
 HIST_AT_REQS = {
     "svcstate": ({"subsys": "svcstate", "maxrecs": 5000}, ("svcid",)),
     "topk": ({"subsys": "topk", "maxrecs": 200}, ("metric", "id")),
@@ -3003,6 +3039,50 @@ def _device_leaf_check(torch, name, live, shard, mass) -> str:
         rtol = 1e-5 if name.startswith("svc_td.") else 1e-6
         ok = torch.allclose(shard, live, rtol=rtol, atol=0.0)
     return "close" if ok else f"{n} elements beyond the tolerance"
+
+
+def _leaf_crcs(path) -> dict:
+    """{member: (CRC-32, size)} of a shard file's state (``s<i>``) and
+    dependency (``d<i>``) leaves, from the zip's central directory: the
+    CRC-32 of each leaf's uncompressed ``.npy`` bytes, header (dtype and
+    shape) and data, read without inflating anything."""
+    import zipfile
+    with zipfile.ZipFile(path) as z:
+        return {i.filename[:-4]: (i.CRC, i.file_size) for i in z.infolist()
+                if i.filename[:1] in "sd" and i.filename[1:-4].isdigit()}
+
+
+def shard_leaf_verdicts(torch, names, nstate, path_a, path_b, dev) -> dict:
+    """The state and dependency leaves of two shard files, leaf by leaf
+    → {name: verdict of ``_device_leaf_check``}. A leaf whose
+    uncompressed bytes have the same CRC-32 and length in both files is
+    "exact" without inflating it; every other leaf is inflated from both
+    files and held to the rule on ``dev`` (the top-K mass from ``a``).
+    Most of a north-star shard's 6 GiB are integer leaves that agree, so
+    the comparison inflates megabytes instead of gigabytes."""
+    ca, cb = _leaf_crcs(path_a), _leaf_crcs(path_b)
+    members = [f"s{i}" for i in range(nstate)] + \
+        [f"d{i}" for i in range(len(names) - nstate)]
+    out, diff = {}, []
+    for name, m in zip(names, members):
+        if m in ca and ca[m] == cb.get(m):
+            out[name] = "exact"
+        else:
+            diff.append((name, m))
+    if not diff:
+        return out
+    with np.load(path_a) as za, np.load(path_b) as zb:
+        ev = f"s{names.index('flow_topk.evicted')}"
+        cnt = f"s{names.index('flow_topk.counts')}"
+        mass = float(za[ev]) + float(za[cnt].sum())
+        for name, m in diff:
+            if m not in za.files or m not in zb.files:
+                out[name] = f"member {m} missing"
+                continue
+            out[name] = _device_leaf_check(
+                torch, name, torch.from_numpy(za[m]).to(dev),
+                torch.from_numpy(zb[m]).to(dev), mass)
+    return out
 
 
 def _sum_field_apart(k, ref_row, got_row, mass) -> bool:
@@ -3431,10 +3511,11 @@ def history_phase(torch, scatter, frames, rt_perf, tmp):
     rt.timeview._snaps.clear()
     n_q = [0, 0]
     perf["at_ms"] = {}
+    at_json = {}              # the local store's answers, for phase 12a
     for name, (req, keys) in HIST_AT_REQS.items():
         req = dict(req, at=f"tick:{2 * HIST_WINDOW}")
         t0 = time.perf_counter()
-        got = rt.query(dict(req))
+        got = at_json[name] = rt.query(dict(req))
         t1 = time.perf_counter()
         again = rt.query(dict(req))
         perf["at_ms"][name] = {
@@ -3443,7 +3524,8 @@ def history_phase(torch, scatter, frames, rt_perf, tmp):
         check(again == got, f"at= {name}: the cached answer equal")
         ref = live4_json[name]
         check(got["nrecs"] == ref["nrecs"] > 0,
-              f"at=tick:4 {name}: {got['nrecs']} rows, as live")
+              f"at=tick:{2 * HIST_WINDOW} {name}: {got['nrecs']} rows, "
+              "as live")
         _sum_json_diff(_keyed(ref["recs"], keys),
                        _keyed(got["recs"], keys), f"at {name}", n_q,
                        mass)
@@ -3451,12 +3533,13 @@ def history_phase(torch, scatter, frames, rt_perf, tmp):
     # a second materialised snapshot: the state at the first window
     t0 = time.perf_counter()
     got = rt.query({"subsys": "topk", "at": f"tick:{HIST_WINDOW}"})
-    perf["at_ms"]["topk tick 2"] = {
+    perf["at_ms"][f"topk tick {HIST_WINDOW}"] = {
         "first": (time.perf_counter() - t0) * 1e3}
     check(got["nrecs"] > 0 and got["tick"] == HIST_WINDOW,
           f"at=tick:{HIST_WINDOW} topk: {got['nrecs']} rows")
     log(f"  at= ms: {perf['at_ms']}; JSON equal to the live JSON at "
-        f"tick 4 but {n_q[0]} values within rtol 1e-6 (float sums) "
+        f"tick {2 * HIST_WINDOW} but {n_q[0]} values within rtol 1e-6 "
+        f"(float sums) "
         f"and {n_q[1]} one unit apart in the third decimal")
     perf["peak_gib_two_snapshots"] = \
         torch.cuda.max_memory_allocated() / 2**30
@@ -3572,7 +3655,7 @@ def history_phase(torch, scatter, frames, rt_perf, tmp):
     perf["tiny_json_sum_fields_apart"] = n_sum[0]
     perf["phase_s"] = time.perf_counter() - t_phase
     log(f"  phase 10: {perf['phase_s']:.1f}s")
-    return perf, launches, opts
+    return perf, launches, opts, at_json
 
 
 # ----------------------------------------------------------- phase 11
@@ -4453,29 +4536,19 @@ def _shards_equal(torch, local, remote, cfg) -> tuple:
     (per-shard leaf counts, the top-K mass of the newest local shard)."""
     from gyeeta_tpu_torch.engine import aggstate
     from gyeeta_tpu_torch.parallel import depgraph
-    from gyeeta_tpu_torch.utils.tensor import tree_leaves, tree_paths
+    from gyeeta_tpu_torch.utils.tensor import tree_paths
 
     ticks = [e["tick1"] for e in local.shards("raw")]
     check(ticks == [e["tick1"] for e in remote.shards("raw")]
           == [HIST_WINDOW, 2 * HIST_WINDOW],
           f"the region emitted the local windows: raw shards at {ticks}")
-    names = tree_paths(aggstate.init(cfg, "meta")) + \
-        tree_paths(depgraph.init(1, 1, "meta"))
-    out, mass = {}, 0.0
-    pool = ThreadPoolExecutor(2)      # zlib inflates without the GIL
+    snames = tree_paths(aggstate.init(cfg, "meta"))
+    names = snames + tree_paths(depgraph.init(1, 1, "meta"))
+    out = {}
     for el, er in zip(local.shards("raw"), remote.shards("raw")):
-        fa, fb = pool.submit(local.load, el), pool.submit(remote.load, er)
-        a, b = fa.result(), fb.result()
-        sa = aggstate.state_from_numpy(a["state"], DEV)
-        sb = aggstate.state_from_numpy(b["state"], DEV)
-        mass = float(sa.flow_topk.counts.sum() + sa.flow_topk.evicted)
-        kinds = {n: _device_leaf_check(torch, n, x, y, mass)
-                 for n, x, y in zip(
-                     names,
-                     tree_leaves(sa) + [torch.as_tensor(v).to(DEV)
-                                        for v in a["dep"]],
-                     tree_leaves(sb) + [torch.as_tensor(v).to(DEV)
-                                        for v in b["dep"]])}
+        kinds = shard_leaf_verdicts(torch, names, len(snames),
+                                    local.dir / el["file"],
+                                    remote.dir / er["file"], DEV)
         close = sorted(n for n, k in kinds.items() if k == "close")
         bad = {n: k for n, k in kinds.items() if k not in ("exact",
                                                            "close")}
@@ -4485,12 +4558,13 @@ def _shards_equal(torch, local, remote, cfg) -> tuple:
               f"region shard at tick {el['tick1']} = the local one: "
               f"{n_exact} of 114 leaves exact, {len(close)} within the "
               f"float-sum rule {close}; differing: {bad}")
-        del a, b, sa, sb
-    pool.shutdown()
+    with np.load(local.dir / local.shards("raw")[-1]["file"]) as z:
+        mass = float(z[f"s{snames.index('flow_topk.evicted')}"]) + float(
+            z[f"s{snames.index('flow_topk.counts')}"].sum())
     return out, mass
 
 
-async def region_run(torch, scatter, hist_dir, opts) -> tuple:
+async def region_run(torch, scatter, hist_dir, opts, local_at) -> tuple:
     """Phase 10's WAL through the remote compaction region (see
     region_phase) → (perf, launches)."""
     import threading
@@ -4628,33 +4702,29 @@ async def region_run(torch, scatter, hist_dir, opts) -> tuple:
         perf["shards"], mass = _shards_equal(torch, local, remote, cfg)
         gc.collect()
         torch.cuda.empty_cache()
-        # at= JSON of both stores, through the region's replay runtime
-        rrt = loop.compactor._rt
-        views = {"local": TimeView(rrt, local),
-                 "region": TimeView(rrt, remote)}
+        # at= JSON of the region's store, through the region's replay
+        # runtime, against phase 10's answers from the local store
+        tv = TimeView(loop.compactor._rt, remote)
         n_q = [0, 0]
         perf["at_ms"] = {}
         for name, (req, keys) in REGION_AT.items():
             req = dict(req, at=f"tick:{2 * HIST_WINDOW}")
-            out = {}
-            for w, tv in views.items():
-                t1 = time.perf_counter()
-                out[w] = tv.query(dict(req))
-                perf["at_ms"][f"{name} {w}"] = \
-                    (time.perf_counter() - t1) * 1e3
-            check(out["region"]["nrecs"] == out["local"]["nrecs"] > 0
-                  and out["region"]["tick"] == 2 * HIST_WINDOW,
-                  f"at=tick:{2 * HIST_WINDOW} {name}: "
-                  f"{out['region']['nrecs']} rows from the region's "
-                  "store, as from the local one")
-            _sum_json_diff(_keyed(out["local"]["recs"], keys),
-                           _keyed(out["region"]["recs"], keys),
+            t1 = time.perf_counter()
+            got, ref = tv.query(dict(req)), local_at[name]
+            perf["at_ms"][f"{name} region"] = \
+                (time.perf_counter() - t1) * 1e3
+            check(got["nrecs"] == ref["nrecs"] > 0
+                  and got["tick"] == 2 * HIST_WINDOW,
+                  f"at=tick:{2 * HIST_WINDOW} {name}: {got['nrecs']} rows "
+                  "from the region's store, as from the local one")
+            _sum_json_diff(_keyed(ref["recs"], keys),
+                           _keyed(got["recs"], keys),
                            f"region at {name}", n_q, mass)
         perf["at_json_sum_apart"], perf["at_json_rounding_apart"] = n_q
         log(f"  at= JSON, region store vs local store: equal but "
             f"{n_q[0]} values within rtol 1e-6 and {n_q[1]} one unit "
             f"apart in the third decimal; ms {perf['at_ms']}")
-        del views, rrt
+        del tv
     finally:
         step.fold_all = fold_all
         if shipper is not None:
@@ -4666,7 +4736,7 @@ async def region_run(torch, scatter, hist_dir, opts) -> tuple:
     return perf, launches
 
 
-def region_phase(torch, scatter, hist_dir, opts):
+def region_phase(torch, scatter, hist_dir, opts, local_at):
     """Phase 12a: the remote compaction region at ns geometry. Phase
     10's WAL (every segment sealed) ships with the port's
     ``SegmentShipper`` over 127.0.0.1 to a ``SegmentReceiver``; a
@@ -4676,8 +4746,9 @@ def region_phase(torch, scatter, hist_dir, opts):
     dropped, no hash mismatch), the landed segments equal the source's,
     2/1/1 launches a replayed conn/resp dispatch with no generic launch,
     the region's two shards equal phase 10's local ones (integer and max
-    leaves exact, float sums rtol 1e-6), and at=tick:4 svcstate and topk
-    JSON equal from both stores."""
+    leaves exact, float sums rtol 1e-6), and at= the newest window's end
+    svcstate and topk JSON from the region's store equal phase 10's
+    answers from the local one (``local_at``)."""
     import asyncio
 
     t_phase = time.perf_counter()
@@ -4685,7 +4756,7 @@ def region_phase(torch, scatter, hist_dir, opts):
         "phase 10's WAL → SegmentShipper → 127.0.0.1 → SegmentReceiver → "
         "staging → the staging loop's compaction on the card → shards")
     perf, launches = asyncio.run(region_run(torch, scatter, hist_dir,
-                                            opts))
+                                            opts, local_at))
     gc.collect()
     torch.cuda.empty_cache()
     perf["phase_s"] = time.perf_counter() - t_phase
@@ -5387,6 +5458,7 @@ def parted_run(torch, scatter, frames, oracle, tmp) -> tuple:
     from gyeeta_tpu_torch.history import shards as SH
     from gyeeta_tpu_torch.history.compactproc import ParallelCompactor
     from gyeeta_tpu_torch.ingest import wire
+    from gyeeta_tpu_torch.parallel import depgraph
     from gyeeta_tpu_torch.runtime import Runtime
     from gyeeta_tpu_torch.sketch import loghist
     from gyeeta_tpu_torch.utils import journal as J
@@ -5488,31 +5560,23 @@ def parted_run(torch, scatter, frames, oracle, tmp) -> tuple:
           f"publish the same windows {[e['tick1'] for e in a.shards()]} "
           "and positions")
     paths = tree_paths(aggstate.init(scfg, "meta"))
-    ev, cnt = paths.index("flow_topk.evicted"), \
-        paths.index("flow_topk.counts")
+    names = paths + [f"dep{i}" for i in range(
+        len(tree_paths(depgraph.init(1, 1, "meta"))))]
     verdicts = {"exact": 0, "close": 0}
     bad, close = [], set()
-    pool = ThreadPoolExecutor(SH_N)   # zlib inflates without the GIL
     for ea, eb in zip(a.shards(), b.shards()):
-        loads = [(pool.submit(a.load_part, p, ea["parts"][p]),
-                  pool.submit(b.load_part, p, eb["parts"][p]))
-                 for p in range(SH_N)]
-        for p, (fa, fb) in enumerate(loads):
-            da, db = fa.result(), fb.result()
-            mass = float(da["state"][ev]) + float(da["state"][cnt].sum())
-            for name, x, y in list(zip(paths, da["state"], db["state"])) \
-                    + [(f"dep{i}", x, y) for i, (x, y) in
-                       enumerate(zip(da["dep"], db["dep"]))]:
-                v = _device_leaf_check(torch, name, torch.from_numpy(x),
-                                       torch.from_numpy(y), mass)
+        for p in range(SH_N):
+            kinds = shard_leaf_verdicts(
+                torch, names, len(paths),
+                a.parts[p].dir / ea["parts"][p]["file"],
+                b.parts[p].dir / eb["parts"][p]["file"], "cpu")
+            for name, v in kinds.items():
                 if v in verdicts:
                     verdicts[v] += 1
                     if v == "close":
                         close.add(name)
                 else:
                     bad.append(f"part {p} {name}: {v}")
-            loads[p] = da = db = None      # a part's leaves, released
-    pool.shutdown()
     perf["parts_leaves"] = dict(verdicts, close_leaves=sorted(close))
     check(not bad, f"14a: the parts of {WK_PROCS} and {WK_PROCS_2} "
           f"workers: {verdicts['exact']} leaves bit-identical, "
@@ -6739,6 +6803,1059 @@ def agent_phase(torch, scatter):
     return perf, {k: v / n for k, v in launches.items()}
 
 
+# ------------------------------------------------------------------ phase 16
+TR_REAL_SEED = 9998         # 16a: the capturing agent, a machine id apart
+TR_INTERVAL = 1.0           # ... its sweep interval, s
+TR_CONNS = 16               # ... conns a live service
+TR_TXNS = 32                # ... transactions a live conn
+TR_ROUNDS = 8               # ... client rounds, each right after a sweep
+TR_ERR_LIVE = 16            # ... one live transaction in 16 an error
+TR_HOSTS = 64               # 16b: phase 15's first 64 sim host ids
+TR_HOST_SVCS = 4            # ... four traced services each
+TR_CONN_TXNS = 256          # ... one conn a service, 256 transactions
+TR_ERR_PCAP = 32            # ... one in 32 an error
+TR_SWEEPS = 2               # ... the records sent over two sweeps
+TR_SEED = 16                # ... the lognormal latencies' draws
+TR_LAT_MU, TR_LAT_SIGMA = math.log(800.0), 1.1     # usec
+TR_T0 = 1_700_000_000_000_000                      # the pcap's clock, usec
+TR_TIMEOUT = 120.0
+
+
+def _be32(n: int) -> bytes:
+    return n.to_bytes(4, "big")
+
+
+class _TrProto:
+    """One traced protocol, as a conn's server answers it: ``feed``
+    frames the client's bytes and returns the replies to the complete
+    messages. A reply is a function of the request and of the conn's
+    transaction count (one transaction in ``err_every`` errs), so the
+    client runs the same model beside its socket and knows every reply
+    before it reads it; the pcap of 16b is written from the same
+    exchanges. ``request(t, k)`` is the client's t-th API template for
+    its k-th transaction; ``APIS[t]`` the signature it normalises to;
+    ``bytes_in`` / ``bytes_out`` what the parser counts of a request
+    and its reply. Bytes are built as the reference's trace tests build
+    them (tests/test_trace.py, test_parsers2.py, test_tds.py)."""
+
+    name = ""
+    APIS: tuple = ()
+
+    def __init__(self, err_every: int):
+        self.err_every = err_every
+        self.n = self.nerr = 0
+        self.buf = b""
+
+    def _txn(self) -> bool:
+        err = self.n % self.err_every == self.err_every - 1
+        self.n += 1
+        self.nerr += err
+        return err
+
+    def opening(self) -> bytes:
+        return b""
+
+    def feed(self, data: bytes) -> bytes:
+        self.buf += data
+        out = b""
+        while (msg := self._next()) is not None:
+            out += self.reply(msg)
+        return out
+
+    def bytes_in(self, req: bytes) -> int:
+        return len(req)
+
+    def bytes_out(self, resp: bytes) -> int:
+        return len(resp)
+
+
+class _TrHttp1(_TrProto):
+    name = "http1"
+    REQS = (("GET", "/api/v1/users/{k}"),
+            ("GET", "/api/v1/orders/{k}/items?page=2"),
+            ("POST", "/api/v1/orders"), ("PUT", "/api/v1/carts/{k}"),
+            ("DELETE", "/api/v1/sessions/{k}"), ("GET", "/healthz"))
+    APIS = ("GET /api/v1/users/{}", "GET /api/v1/orders/{}/items",
+            "POST /api/v1/orders", "PUT /api/v1/carts/{}",
+            "DELETE /api/v1/sessions/{}", "GET /healthz")
+
+    def request(self, t, k):
+        m, p = self.REQS[t]
+        return (f"{m} {p.format(k=k)} HTTP/1.1\r\nHost: svc\r\n"
+                "Content-Length: 0\r\n\r\n").encode()
+
+    def _next(self):
+        i = self.buf.find(b"\r\n\r\n")
+        if i < 0:
+            return None
+        head, self.buf = self.buf[:i + 4], self.buf[i + 4:]
+        return head
+
+    def reply(self, head):
+        if self._txn():
+            return (b"HTTP/1.1 500 Internal Server Error\r\n"
+                    b"Content-Length: 3\r\n\r\nerr")
+        if self.n % TR_TXNS == 7:             # one chunked body in 32
+            return (b"HTTP/1.1 200 OK\r\nTransfer-Encoding: chunked\r\n\r\n"
+                    b"5\r\nhello\r\n6\r\n world\r\n0\r\n\r\n")
+        return b"HTTP/1.1 200 OK\r\nContent-Length: 2\r\n\r\nok"
+
+    def bytes_out(self, resp):
+        return resp.index(b"\r\n\r\n") + 4
+
+
+class _TrPg(_TrProto):
+    name = "postgres"
+    SQL = (("Q", "SELECT * FROM accounts WHERE id = {k}"),
+           ("P", "SELECT name FROM users WHERE id = $1"),
+           ("Q", "UPDATE accounts SET balance = {k}.50 WHERE id = {k}"),
+           ("Q", "INSERT INTO ledger VALUES ({k}, 'note {k}')"),
+           ("P", "DELETE FROM carts WHERE id = $1"),
+           ("Q", "SELECT count(*) FROM orders WHERE ts > {k}"))
+    APIS = ("SELECT * FROM accounts WHERE id = $",
+            "SELECT name FROM users WHERE id = $$",
+            "UPDATE accounts SET balance = $ WHERE id = $",
+            "INSERT INTO ledger VALUES ($, $)",
+            "DELETE FROM carts WHERE id = $$",
+            "SELECT count(*) FROM orders WHERE ts > $")
+
+    def __init__(self, err_every):
+        super().__init__(err_every)
+        self.started = False
+
+    @staticmethod
+    def msg(typ: bytes, body: bytes) -> bytes:
+        return typ + _be32(4 + len(body)) + body
+
+    def opening(self):
+        body = _be32(196608) + b"user\x00app\x00database\x00app\x00\x00"
+        return _be32(4 + len(body)) + body        # startup, protocol 3.0
+
+    def request(self, t, k):
+        typ, sql = self.SQL[t]
+        sql = sql.format(k=k).encode()
+        if typ == "Q":
+            return self.msg(b"Q", sql + b"\x00")
+        # extended query: Parse, Bind, Execute, Sync in one write
+        return (self.msg(b"P", b"\x00" + sql + b"\x00\x00\x00")
+                + self.msg(b"B", b"\x00\x00" + b"\x00" * 6)
+                + self.msg(b"E", b"\x00" + _be32(0))
+                + self.msg(b"S", b""))
+
+    def _next(self):
+        if not self.started:
+            if len(self.buf) < 4 or len(self.buf) < int.from_bytes(
+                    self.buf[:4], "big"):
+                return None
+            ln = int.from_bytes(self.buf[:4], "big")
+            self.buf = self.buf[ln:]
+            self.started = True
+            return b""                            # the startup packet
+        if len(self.buf) < 5:
+            return None
+        ln = int.from_bytes(self.buf[1:5], "big")
+        if len(self.buf) < 1 + ln:
+            return None
+        m, self.buf = self.buf[:1 + ln], self.buf[1 + ln:]
+        return m
+
+    def reply(self, m):
+        if not m:                                 # AuthenticationOk
+            return self.msg(b"R", _be32(0)) + self.msg(b"Z", b"I")
+        typ = m[:1]
+        if typ not in (b"Q", b"S"):
+            return b""
+        if self._txn():
+            body = self.msg(b"E", b"SERROR\x00C42P01\x00Mrelation does not "
+                            b"exist\x00\x00")
+        elif typ == b"Q":
+            body = (self.msg(b"T", b"\x00\x01id\x00" + b"\x00" * 18)
+                    + self.msg(b"D", b"\x00\x01" + _be32(1) + b"1")
+                    + self.msg(b"C", b"SELECT 1\x00"))
+        else:
+            body = (self.msg(b"1", b"") + self.msg(b"2", b"")
+                    + self.msg(b"C", b"SELECT 1\x00"))
+        return body + self.msg(b"Z", b"I")
+
+    def bytes_in(self, req):
+        return 1 + int.from_bytes(req[1:5], "big")    # the Q or P message
+
+
+class _TrMongo(_TrProto):
+    name = "mongo"
+    CMDS = (("find", "orders"), ("insert", "users"), ("update", "carts"),
+            ("delete", "sessions"), ("aggregate", "events"),
+            ("count", "ledger"))
+    APIS = tuple(f"{c} {v}" for c, v in CMDS)
+    OP_MSG = 2013
+
+    @staticmethod
+    def doc(*items) -> bytes:
+        body = b""
+        for name, val in items:
+            nm = name.encode() + b"\x00"
+            if isinstance(val, float):
+                body += b"\x01" + nm + struct.pack("<d", val)
+            elif isinstance(val, int):
+                body += b"\x10" + nm + struct.pack("<i", val)
+            else:
+                s = val.encode() + b"\x00"
+                body += b"\x02" + nm + struct.pack("<i", len(s)) + s
+        return struct.pack("<i", 4 + len(body) + 1) + body + b"\x00"
+
+    def msg(self, reqid, respto, doc) -> bytes:
+        body = b"\x00\x00\x00\x00" + b"\x00" + doc    # flags, kind-0 section
+        return struct.pack("<iiii", 16 + len(body), reqid, respto,
+                           self.OP_MSG) + body
+
+    def opening(self):
+        return self.msg(1, 0, self.doc(("hello", 1), ("$db", "admin")))
+
+    def request(self, t, k):
+        c, v = self.CMDS[t]
+        return self.msg(k + 2, 0, self.doc((c, v), ("limit", k % 97),
+                                           ("$db", "app")))
+
+    def _next(self):
+        if len(self.buf) < 4:
+            return None
+        ln = int.from_bytes(self.buf[:4], "little")
+        if len(self.buf) < ln:
+            return None
+        m, self.buf = self.buf[:ln], self.buf[ln:]
+        return m
+
+    def reply(self, m):
+        reqid = struct.unpack_from("<i", m, 4)[0]
+        # the hello is conn chatter the parser skips: no transaction
+        err = reqid != 1 and self._txn()
+        d = (self.doc(("ok", 0.0), ("errmsg", "E11000 duplicate key"),
+                      ("code", 11000)) if err
+             else self.doc(("ok", 1.0), ("n", 1)))
+        return self.msg(reqid + 1_000_000, reqid, d)
+
+
+def _huffman(s: bytes) -> bytes:
+    """HPACK Huffman encoding (RFC 7541 Appendix B) of ``s``."""
+    from gyeeta_tpu_torch.trace.http2 import _HUFF
+    acc = nbits = 0
+    out = bytearray()
+    for ch in s:
+        code, bits = _HUFF[ch]
+        acc, nbits = (acc << bits) | code, nbits + bits
+        while nbits >= 8:
+            nbits -= 8
+            out.append((acc >> nbits) & 0xFF)
+        acc &= (1 << nbits) - 1
+    if nbits:                                     # pad with EOS's ones
+        out.append(((acc << (8 - nbits)) | ((1 << (8 - nbits)) - 1)) & 0xFF)
+    return bytes(out)
+
+
+class _TrH2(_TrProto):
+    name = "http2"
+    REQS = (("GET", "/v2/items/{k}", False), ("POST", "/pkg.Cart/Add", True),
+            ("GET", "/v2/users/{k}", False),
+            ("POST", "/pkg.Cart/Remove", True),
+            ("PUT", "/v2/profiles/{k}", False),
+            ("DELETE", "/v2/tokens/{k}", False))
+    APIS = ("GET /v2/items/{}", "POST /pkg.Cart/Add", "GET /v2/users/{}",
+            "POST /pkg.Cart/Remove", "PUT /v2/profiles/{}",
+            "DELETE /v2/tokens/{}")
+    PREFACE = b"PRI * HTTP/2.0\r\n\r\nSM\r\n\r\n"
+    HEADERS, DATA = 0x1, 0x0
+    END_STREAM, END_HEADERS = 0x1, 0x4
+
+    def __init__(self, err_every):
+        super().__init__(err_every)
+        self.preface = False
+
+    @staticmethod
+    def frame(ftype, flags, sid, payload) -> bytes:
+        return (len(payload).to_bytes(3, "big") + bytes([ftype, flags])
+                + sid.to_bytes(4, "big") + payload)
+
+    @staticmethod
+    def hstr(s: bytes) -> bytes:
+        enc = _huffman(s)
+        return bytes([0x80 | len(enc)]) + enc
+
+    def opening(self):
+        return self.PREFACE
+
+    def request(self, t, k):
+        method, path, grpc = self.REQS[t]
+        sid = 2 * k + 1
+        block = {"GET": b"\x82", "POST": b"\x83"}.get(method) or (
+            b"\x02" + bytes([len(method)]) + method.encode())
+        block += b"\x04" + self.hstr(path.format(k=k).encode())
+        if not grpc:
+            return self.frame(self.HEADERS, self.END_HEADERS
+                              | self.END_STREAM, sid, block)
+        block += b"\x0f\x10" + self.hstr(b"application/grpc")
+        return (self.frame(self.HEADERS, self.END_HEADERS, sid, block)
+                + self.frame(self.DATA, self.END_STREAM, sid,
+                             b"\x00" + _be32(3) + b"abc"))
+
+    def _next(self):
+        if not self.preface:
+            if len(self.buf) < len(self.PREFACE):
+                return None
+            self.buf = self.buf[len(self.PREFACE):]
+            self.preface = True
+        if len(self.buf) < 9:
+            return None
+        n = int.from_bytes(self.buf[:3], "big")
+        if len(self.buf) < 9 + n:
+            return None
+        f, self.buf = self.buf[:9 + n], self.buf[9 + n:]
+        return f
+
+    def reply(self, f):
+        ftype, flags = f[3], f[4]
+        sid = int.from_bytes(f[5:9], "big") & 0x7FFFFFFF
+        if not flags & self.END_STREAM:
+            return b""
+        err = self._txn()
+        if ftype == self.HEADERS:                 # a plain request
+            return (self.frame(self.HEADERS, self.END_HEADERS, sid,
+                               b"\x8e" if err else b"\x88")
+                    + self.frame(self.DATA, self.END_STREAM, sid, b"ok"))
+        trailers = b"\x00" + self.hstr(b"grpc-status") + self.hstr(
+            b"13" if err else b"0")
+        if err:
+            trailers += (b"\x00" + self.hstr(b"grpc-message")
+                         + self.hstr(b"internal"))
+        return (self.frame(self.HEADERS, self.END_HEADERS, sid,
+                           b"\x88\x0f\x10" + self.hstr(b"application/grpc"))
+                + self.frame(self.DATA, 0, sid, b"\x00" + _be32(2) + b"ok")
+                + self.frame(self.HEADERS, self.END_HEADERS
+                             | self.END_STREAM, sid, trailers))
+
+    def bytes_in(self, req):
+        return int.from_bytes(req[:3], "big")     # the header block
+
+    def bytes_out(self, resp):
+        off = last = 0
+        while off < len(resp):                    # the last header block
+            n = int.from_bytes(resp[off:off + 3], "big")
+            if resp[off + 3] == self.HEADERS:
+                last = n
+            off += 9 + n
+        return last
+
+
+class _TrTds(_TrProto):
+    name = "sybase"
+    LANG, LOGIN, RPC, RESPONSE, NORMAL = 1, 2, 3, 4, 15
+    REQS = (("lang", "select * from orders where id = {k}"),
+            ("rpc", "sp_who2"),
+            ("token", "update t set x = 'abc' where k={k}"),
+            ("dbrpc", "sp_helpdb"),
+            ("lang", "insert into audit values ({k}, 'x')"),
+            ("lang", "delete from carts where id = {k}"))
+    APIS = ("select * from orders where id = $", "EXEC sp_who2",
+            "update t set x = $ where k=$", "EXEC sp_helpdb",
+            "insert into audit values ($, $)",
+            "delete from carts where id = $")
+
+    @staticmethod
+    def pkt(ptype, body) -> bytes:
+        return struct.pack(">BBH", ptype, 0x01, 8 + len(body)) + \
+            b"\x00\x00\x00\x00"
+
+    def packet(self, ptype, body):
+        return self.pkt(ptype, body) + body
+
+    @staticmethod
+    def done(status=0, count=1) -> bytes:
+        return b"\xfd" + struct.pack("<HHI", status, 0, count)
+
+    def opening(self):
+        return self.packet(self.LOGIN, b"\x00" * 64)
+
+    def request(self, t, k):
+        kind, s = self.REQS[t]
+        s = s.format(k=k).encode()
+        if kind == "lang":
+            return self.packet(self.LANG, s)
+        if kind == "rpc":
+            return self.packet(self.RPC, bytes([len(s)]) + s + b"\x00\x00")
+        if kind == "token":                       # a LANGUAGE token
+            return self.packet(self.NORMAL, b"\x21" + struct.pack(
+                "<I", 1 + len(s)) + b"\x00" + s)
+        seg = bytes([len(s)]) + s + b"\x00\x00"   # a DBRPC token
+        return self.packet(self.NORMAL, b"\xe6" + struct.pack(
+            "<H", len(seg)) + seg)
+
+    def _next(self):
+        if len(self.buf) < 8:
+            return None
+        ln = (self.buf[2] << 8) | self.buf[3]
+        if len(self.buf) < ln:
+            return None
+        p, self.buf = self.buf[:ln], self.buf[ln:]
+        return p
+
+    def reply(self, p):
+        if p[0] == self.LOGIN:                    # the login ack
+            return self.packet(self.RESPONSE, self.done())
+        if self._txn():
+            body = struct.pack("<IBB", 2601, 1, 14) + b"deadlock" + \
+                b"\x00" * 8
+            toks = b"\xe5" + struct.pack("<H", len(body)) + body + \
+                self.done(0x0002, 0)
+        else:
+            toks = b"\xd1rowbytes" + self.done(0, 1)
+        return self.packet(self.RESPONSE, toks)
+
+
+class _TrTls(_TrProto):
+    """A ClientHello with SNI and ALPN: the TLS parser records the
+    handshake's names and yields no transaction (as the reference's)."""
+
+    name = "tls"
+
+    def request(self, t, k):
+        sni, alpn = f"svc{k}.internal".encode(), b"h2"
+        ext = struct.pack(">HBH", len(sni) + 3, 0, len(sni)) + sni
+        exts = struct.pack(">HH", 0, len(ext)) + ext
+        al = bytes([len(alpn)]) + alpn
+        al = struct.pack(">H", len(al)) + al
+        exts += struct.pack(">HH", 16, len(al)) + al
+        body = (struct.pack(">H", 0x0303) + b"\x00" * 32 + b"\x00"
+                + struct.pack(">H", 2) + b"\x13\x01" + b"\x01\x00"
+                + struct.pack(">H", len(exts)) + exts)
+        hs = b"\x01" + len(body).to_bytes(3, "big") + body
+        return b"\x16\x03\x01" + struct.pack(">H", len(hs)) + hs
+
+    def _next(self):
+        if len(self.buf) < 5:
+            return None
+        ln = 5 + int.from_bytes(self.buf[3:5], "big")
+        if len(self.buf) < ln:
+            return None
+        r, self.buf = self.buf[:ln], self.buf[ln:]
+        return r
+
+    def reply(self, rec):                         # a ServerHello's head
+        return b"\x16\x03\x03\x00\x04\x02\x00\x00\x00"
+
+
+TR_PROTOS = (_TrHttp1, _TrPg, _TrMongo, _TrH2, _TrTds, _TrTls)
+TR_TXN_PROTOS = TR_PROTOS[:5]   # the TLS parser yields no transaction
+TR_PORTS = {"http1": 8080, "postgres": 5432, "mongo": 27017,
+            "http2": 50051, "sybase": 5000, "tls": 443}
+
+
+def _tr_client_conn(cls, port: int, conn: int) -> tuple:
+    """One client conn against the live service of ``cls`` → (its
+    transactions, errors). HTTP/1.1 pipelines its first two requests."""
+    model = cls(TR_ERR_LIVE)
+    with socket.create_connection(("127.0.0.1", port), timeout=10) as s:
+        s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+
+        def exchange(req):
+            want = model.feed(req)
+            s.sendall(req)
+            got = b""
+            while len(got) < len(want):
+                chunk = s.recv(1 << 16)
+                if not chunk:
+                    raise ConnectionError(f"{cls.name}: closed early")
+                got += chunk
+            if got != want:
+                raise AssertionError(f"{cls.name}: unexpected reply")
+
+        if model.opening():
+            exchange(model.opening())
+        if cls is _TrTls:
+            exchange(model.request(0, conn))
+            return 0, 0
+        k = 0
+        while k < TR_TXNS:
+            if cls is _TrHttp1 and k == 0:        # two pipelined requests
+                exchange(model.request(0, 0) + model.request(1, 1))
+                k = 2
+                continue
+            exchange(model.request(k % 6, conn * TR_TXNS + k))
+            k += 1
+    return model.n, model.nerr
+
+
+def _tr_serve_conn(cls, c) -> None:
+    model = cls(TR_ERR_LIVE)
+    try:
+        with c:
+            while True:
+                data = c.recv(1 << 16)
+                if not data:
+                    return
+                out = model.feed(data)
+                if out:
+                    c.sendall(out)
+                    if cls is _TrTls:
+                        return
+    except OSError:
+        pass
+
+
+def trace_services_main() -> int:
+    """``chip_smoke.py --trace-services``: the six loopback services of
+    phase 16a and their clients, in one child process. It prints the
+    services' ports as one JSON line, then runs client round r for each
+    ``round r`` line on its standard input (conns r·C..r·C+C-1 of each
+    service, C = TR_CONNS / TR_ROUNDS, the six services at once) and
+    prints each round's transactions and errors by protocol."""
+    import threading
+
+    lsn = {}
+    for cls in TR_PROTOS:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        s.listen(64)
+        lsn[cls] = s
+
+        def accept(s=s, cls=cls):
+            while True:
+                try:
+                    c, _ = s.accept()
+                except OSError:
+                    return
+                threading.Thread(target=_tr_serve_conn, args=(cls, c),
+                                 daemon=True).start()
+        threading.Thread(target=accept, daemon=True).start()
+    print(json.dumps({"ports": {cls.name: s.getsockname()[1]
+                                for cls, s in lsn.items()}}), flush=True)
+    per = TR_CONNS // TR_ROUNDS
+    for line in sys.stdin:
+        if not line.startswith("round"):
+            break
+        r = int(line.split()[1])
+        out, errs, t0 = {}, [], time.perf_counter()
+
+        def run(cls):
+            n = e = 0
+            try:
+                for c in range(r * per, (r + 1) * per):
+                    a, b = _tr_client_conn(cls, lsn[cls].getsockname()[1], c)
+                    n, e = n + a, e + b
+            except Exception as ex:              # reported to the parent
+                errs.append(f"{cls.name}: {ex!r}")
+            out[cls.name] = [n, e]
+        ths = [threading.Thread(target=run, args=(cls,)) for cls in TR_PROTOS]
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join()
+        print(json.dumps({"round": r, "txns": out, "errors": errs,
+                          "s": time.perf_counter() - t0}), flush=True)
+    for s in lsn.values():
+        s.close()
+    return 0
+
+
+def _tr_frame(src, dst, seq, payload=b"", flags=0x18) -> bytes:
+    """Ethernet + IPv4 + TCP around ``payload`` (tests/test_pcapfile.py's
+    builder, copied)."""
+    (sa, sport), (da, dport) = src, dst
+    tcp = struct.pack(">HHIIBBHHH", sport, dport, seq & 0xFFFFFFFF, 0,
+                      5 << 4, flags, 65535, 0, 0) + payload
+    ip = struct.pack(">BBHHHBBH4s4s", 0x45, 0, 20 + len(tcp), 1, 0, 64, 6,
+                     0, sa, da)
+    return b"\xaa" * 6 + b"\xbb" * 6 + b"\x08\x00" + ip + tcp
+
+
+def trace_pcap(n_svcs: int, seed: int = TR_SEED) -> tuple:
+    """16b's capture: one conn a traced service (the five
+    transaction-bearing protocols round-robin), ``TR_CONN_TXNS``
+    transactions each with lognormal latencies, and one TLS ClientHello
+    conn a host → (frames, the server endpoint of each service, the
+    written transactions as columns)."""
+    rng = np.random.default_rng(seed)
+    frames, ends = [], []
+    cols = {k: [] for k in ("svc", "api", "err", "bin", "bout", "lat",
+                            "proto")}
+    for i in range(n_svcs + n_svcs // TR_HOST_SVCS):
+        tls = i >= n_svcs
+        cls = _TrTls if tls else TR_TXN_PROTOS[i % len(TR_TXN_PROTOS)]
+        srv = (bytes([10, 1 + tls, i >> 8, i & 255]), TR_PORTS[cls.name])
+        cli = (bytes([10, 9, i >> 8, i & 255]), 40000 + i)
+        if not tls:
+            ends.append(srv)
+        model = cls(TR_ERR_PCAP)
+        seq = {cli: 1000 + 7 * i, srv: 900_000 + 13 * i}
+        t = TR_T0 + i * 50_000_000
+        frames.append((t, _tr_frame(cli, srv, seq[cli] - 1, flags=0x02)))
+
+        def seg(src, dst, payload, tus):
+            frames.append((tus, _tr_frame(src, dst, seq[src], payload)))
+            seq[src] += len(payload)
+
+        if model.opening():
+            rep = model.feed(model.opening())
+            seg(cli, srv, model.opening(), t + 10)
+            if rep:
+                seg(srv, cli, rep, t + 40)
+            t += 100
+        if tls:
+            seg(cli, srv, model.request(0, i), t)
+            seg(srv, cli, model.feed(model.request(0, i)), t + 50)
+            continue
+        lat = np.maximum(rng.lognormal(TR_LAT_MU, TR_LAT_SIGMA,
+                                       TR_CONN_TXNS), 1.0).astype(np.int64)
+        for k in range(TR_CONN_TXNS):
+            req = model.request(k % 6, k)
+            e0 = model.nerr
+            rep = model.feed(req)
+            dt = int(lat[k])
+            seg(cli, srv, req, t)
+            seg(srv, cli, rep, t + dt)
+            for key, v in (("svc", i), ("api", k % 6),
+                           ("err", model.nerr > e0),
+                           ("bin", model.bytes_in(req)),
+                           ("bout", model.bytes_out(rep)), ("lat", dt),
+                           ("proto", i % len(TR_TXN_PROTOS))):
+                cols[key].append(v)
+            t += dt + 25
+    return frames, ends, {k: np.asarray(v) for k, v in cols.items()}
+
+
+def _af_packet_refusal():
+    """None where this process may open AF_PACKET on ``lo``, else the
+    error (the agent's capture then turns itself off, ``_cap_denied``)."""
+    try:
+        s = socket.socket(socket.AF_PACKET, socket.SOCK_RAW,
+                          socket.htons(0x0003))
+        try:
+            s.bind(("lo", 0))
+        finally:
+            s.close()
+    except OSError as e:
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+def _tr_rows(out) -> list:
+    return sorted(out["recs"], key=lambda r: (r["svcid"], r["api"]))
+
+
+async def trace_run(torch, scatter, tmp) -> tuple:
+    """16a and 16b (see trace_phase) → (perf, launches a conn/resp
+    dispatch)."""
+    import asyncio
+
+    from gyeeta_tpu_torch import server_main
+    from gyeeta_tpu_torch.ingest import wire
+    from gyeeta_tpu_torch.net.agent import QueryClient, register
+    from gyeeta_tpu_torch.sketch import exact, loghist
+    from gyeeta_tpu_torch.trace import PROTO_NAMES
+    from gyeeta_tpu_torch.trace import pcapfile as PF
+    from gyeeta_tpu_torch.trace.proto import transactions_to_records
+    from gyeeta_tpu_torch.utils import hashing as H
+    from gyeeta_tpu_torch.utils import replay
+
+    cfgf = tmp / "gyt_trace.json"
+    cfgf.write_text(json.dumps({"engine": AG_CFG}))
+    cap = tmp / "trace.gytrec"
+
+    def daemon(device, record=None):
+        args = server_main.parse_args(
+            ["--config", str(cfgf), "--host", "127.0.0.1", "--port", "0",
+             "--device", device, "--log-level", "WARNING"]
+            + (["--record", str(record)] if record else []))
+        args.tick_interval = None         # manual ticks
+        return server_main.Daemon(args, env={})
+
+    perf, procs, daemons, conns = {}, [], [], []
+    qc = QueryClient(request_timeout=TR_TIMEOUT)
+    try:
+        d1 = daemon(DEV, cap)
+        daemons.append(d1)
+        rt, srv = d1.rt, d1.srv
+        ctr = rt.stats.counters
+        n_cr, disp_ms, timing = [0], [], [False]
+        dispatch = rt._dispatch_fused
+
+        def counting(connresp=None):
+            if connresp is not None:
+                n_cr[0] += 1
+            if not timing[0]:
+                return dispatch(connresp)
+            t = time.perf_counter()
+            out = dispatch(connresp)
+            torch.cuda.synchronize()
+            disp_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+        rt._dispatch_fused = counting
+        host, port = await _w(srv.start())
+        mods = sketch_modules()
+        reset_launches(scatter, mods)
+        await _w(qc.connect(host, port))
+
+        async def q(name, **kw):
+            return await _w(qc.query({"subsys": name, "maxrecs": 100000,
+                                      "consistency": "strong", **kw}))
+
+        # ---- 16a: live traffic through the agent's capture
+        t0 = time.perf_counter()
+        refusal = _af_packet_refusal()
+        perf["af_packet_refused"] = refusal
+        if refusal:
+            log(f"  16a: this host refuses AF_PACKET on lo ({refusal}): "
+                "the agent's capture turns itself off; the live capture "
+                "is checked on the CPU only (tests/test_torch_livecap.py)")
+        svc = await asyncio.create_subprocess_exec(
+            sys.executable, str(ROOT / "chip_smoke.py"), "--trace-services",
+            cwd=str(ROOT), stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE)
+        procs.append(svc)
+        ports = json.loads(await _w(svc.stdout.readline()))["ports"]
+        agent = await _spawn(procs, "agent", "--port", str(port),
+                             "--collect", "--real", "--livecap",
+                             "--seed", str(TR_REAL_SEED),
+                             "--interval", str(TR_INTERVAL))
+        mid = _agent_mid(TR_REAL_SEED)
+
+        def marks():
+            hid = srv.hostmap.get(mid)
+            return 0 if hid is None else rt._sweep_last_seq.get(hid, 0)
+
+        async def sweeps(n, what):
+            m0 = marks()
+            await _until_children(lambda: marks() >= m0 + n, what,
+                                  [svc, agent])
+
+        await sweeps(1, "the capturing agent's first sweep")
+        hid = srv.hostmap[mid]
+        listeners = {}
+        for _ in range(int(10 / TR_INTERVAL)):
+            srv._feed_barrier()
+            rt.flush()
+            listeners = {r["port"]: r["svcid"]
+                         for r in (await q("svcinfo"))["recs"]
+                         if r.get("hostid") == hid
+                         and r.get("port") in ports.values()}
+            if len(listeners) == len(ports):
+                break
+            await sweeps(1, "the services' listeners")
+        check(len(listeners) == len(ports),
+              f"16a: svcinfo holds the {len(ports)} loopback services' "
+              f"listeners of the capturing agent's host: "
+              f"{sorted(listeners)}")
+        svcid = {name: listeners[p] for name, p in ports.items()}
+        filt = ("{ svcinfo.port in "
+                + ",".join(str(p) for p in sorted(ports.values())) + " }")
+        add = await _w(qc.query({"op": "add", "objtype": "tracedef",
+                                 "name": "phase16", "filter": filt}))
+        srv._feed_barrier()
+        rt.flush()
+        rt.run_tick()
+        pushed = await _w(srv.push_trace_control())
+        check(add.get("ok") and pushed == len(ports),
+              f"16a: the tracedef {filt} went out through "
+              f"push_trace_control: {pushed} enables")
+        await sweeps(2, "the sweep that opens the capture")
+        live = {cls.name: [0, 0] for cls in TR_PROTOS}
+        round_s = []
+        if not refusal:
+            for r in range(TR_ROUNDS):
+                await sweeps(1, "a sweep before a client round")
+                svc.stdin.write(f"round {r}\n".encode())
+                await _w(svc.stdin.drain())
+                res = json.loads(await _w(svc.stdout.readline()))
+                check(not res["errors"], f"16a: client round {r}: every "
+                      f"exchange got its reply {res['errors']}")
+                round_s.append(res["s"])
+                last = res["txns"]
+                for k, (n, e) in last.items():
+                    live[k][0] += n
+                    live[k][1] += e
+            # the round began right after a poll and ends well before
+            # the next: the next sweep carries all of it
+            await sweeps(1, "the drain after the last round")
+        perf["live_txns"], perf["round_s"] = live, round_s
+        srv._feed_barrier()
+        rt.flush()
+        if not refusal:
+            # the live engine's current window (no tick ran since the
+            # tracedef went out) and the last sweep's gauges: the bridge
+            # adds a sweep's parsed errors to its listener's sererr
+            ss = {r["svcid"]: r for r in (await q("svcstate"))["recs"]}
+            bridged = {c.name: [ss.get(svcid[c.name], {}).get(f, -1)
+                                for f in ("nqry5s", "sererr")]
+                       for c in TR_PROTOS}
+            perf["live_svcstate"] = bridged
+            check(all(bridged[c.name] == [live[c.name][0], last[c.name][1]]
+                      for c in TR_TXN_PROTOS),
+                  f"16a: the traced listeners' svcstate rows carry the "
+                  f"bridged transactions of the window (nqry5s) and the "
+                  f"last sweep's parsed errors (sererr): {bridged}")
+        rows = [r for r in (await q("tracereq"))["recs"]
+                if r["svcid"] in svcid.values()]
+        got = {cls.name: [sum(r["nreq"] for r in rows
+                              if r["proto"] == cls.name),
+                          sum(r["nerr"] for r in rows
+                              if r["proto"] == cls.name)]
+               for cls in TR_PROTOS}
+        perf["live_tracereq"] = got
+        if not refusal:
+            want = {(c.name, a) for c in TR_TXN_PROTOS for a in c.APIS}
+            seen = {(r["proto"], r["api"]) for r in rows}
+            check(seen == want, f"16a: tracereq holds every expected "
+                  f"signature, {len(want)} of {len(TR_TXN_PROTOS)} "
+                  f"protocols, and no other {sorted(seen ^ want)[:6]}")
+            check(got == live and sum(n for n, _ in live.values())
+                  == len(TR_TXN_PROTOS) * TR_CONNS * TR_TXNS,
+                  f"16a: tracereq's nreq and nerr by protocol equal the "
+                  f"transactions the clients completed and the errors "
+                  f"the services sent, over {TR_ROUNDS} sweeps: {got}")
+            srv._feed_barrier()
+            rt.flush()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rt.run_tick()
+            torch.cuda.synchronize()
+            perf["live_tick_ms"] = (time.perf_counter() - t1) * 1e3
+        else:
+            check(got == {c.name: [0, 0] for c in TR_PROTOS},
+                  "16a: no trace reached the server with the capture "
+                  "refused")
+        dele = await _w(qc.query({"op": "delete", "objtype": "tracedef",
+                                  "name": "phase16"}))
+        pushed = await _w(srv.push_trace_control())
+        check(dele.get("ok") and pushed == len(ports),
+              f"16a: the tracedef deleted: {pushed} disables pushed")
+        await sweeps(2, "the sweep that closes the capture")
+        (rep,) = await _stop_agents(agent, "the capturing agent")
+        lc = rep["livecap"]
+        perf["agent_livecap"] = lc
+        if refusal:
+            check(lc["denied"] and lc["opens"] == 0,
+                  f"16a: the agent's capture was refused and turned "
+                  f"itself off (_cap_denied): {lc}")
+        else:
+            check(not lc["denied"] and lc["opens"] == 1
+                  and lc["closes"] == 1 and lc["ports"] == [],
+                  f"16a: the agent opened its capture once and the sweep "
+                  f"after the tracedef's deletion closed it: {lc}")
+        check(_ledger_ok(rep), "16a: the capturing agent's ledger adds "
+              f"up: {rep['counters'].get('records_built')} records built")
+        svc.stdin.write(b"exit\n")
+        await _w(svc.stdin.drain())
+        await _finish(svc, "the trace services")
+        perf["live_s"] = time.perf_counter() - t0
+
+        # ---- 16b: a pcap at volume through the parsers into serve
+        t0 = time.perf_counter()
+        n_svcs = TR_HOSTS * TR_HOST_SVCS
+        frames, ends, cols = trace_pcap(n_svcs)
+        buf = PF.write_pcap(frames)
+        perf["pcap_bytes"], perf["pcap_frames"] = len(buf), len(frames)
+        t1 = time.perf_counter()
+        flows = PF.parse_pcap(buf)
+        parse_s = time.perf_counter() - t1
+        n_txn = sum(len(f.transactions) for f in flows)
+        perf["parse_s"] = parse_s
+        perf["parse_txns_per_s_host_cpu"] = n_txn / parse_s
+        idx = {e: i for i, e in enumerate(ends)}
+        parsed = {PROTO_NAMES[p]: sum(len(f.transactions) for f in flows
+                                      if f.proto == p) for p in range(7)}
+        written = {c.name: int((cols["proto"] == j).sum()) if
+                   c in TR_TXN_PROTOS else 0
+                   for j, c in enumerate(TR_PROTOS)}
+        perf["parsed"] = {k: parsed[k] for k in written}
+        check(perf["parsed"] == written and len(flows) == n_svcs
+              and all(f.ser in idx for f in flows),
+              f"16b: {len(frames)} frames ({len(buf)} bytes) parsed into "
+              f"{n_txn} transactions of {len(flows)} conns, by protocol "
+              f"the transactions written: {written}")
+        log(f"  16b: parse_pcap {n_txn / parse_s:.0f} transactions/s on "
+            f"this host's CPU (not the card), {parse_s:.2f} s")
+        status = []
+        for s in range(TR_HOSTS):
+            r, w, st, h = await _w(register(host, port, _agent_mid(s),
+                                            wire.CONN_EVENT))
+            status.append(st)
+            conns.append((r, w, h))
+        check(status == [wire.REG_OK] * TR_HOSTS
+              and len({h for _, _, h in conns}) == TR_HOSTS,
+              f"16b: {TR_HOSTS} of phase 15's sim host ids registered, a "
+              "host id each")
+        gids = [H.hash_bytes_np(f"phase16-svc-{i}".encode())
+                for i in range(n_svcs)]
+        recs = [None] * n_svcs
+        t1 = time.perf_counter()
+        for f in flows:
+            i = idx[f.ser]
+            recs[i] = transactions_to_records(
+                f.transactions, svc_glob_id=gids[i],
+                host_id=conns[i // TR_HOST_SVCS][2])
+        perf["records_s"] = time.perf_counter() - t1
+        srv._feed_barrier()
+        rt.flush()
+        n_live0 = int(rt.state.api_tbl.n_live)
+        n_tr0 = ctr.get("trace_records", 0)
+        timing[0], n_cr0 = True, n_cr[0]
+        disp_ms.clear()
+        half = TR_CONN_TXNS // TR_SWEEPS
+        perf["volume_tick_ms"] = []
+        for s in range(TR_SWEEPS):
+            for h, (_, w, hid_) in enumerate(conns):
+                out = b""
+                for i in range(h * TR_HOST_SVCS, (h + 1) * TR_HOST_SVCS):
+                    tr, names = recs[i]
+                    if s == 0:
+                        out += wire.encode_frames_chunked(
+                            wire.NOTIFY_NAME_INTERN, names)
+                    out += wire.encode_frames_chunked(
+                        wire.NOTIFY_REQ_TRACE, tr[s * half:(s + 1) * half])
+                w.write(out)
+            for _, w, _ in conns:
+                await _w(w.drain())
+            want = n_tr0 + (s + 1) * half * n_svcs
+            await _until(lambda: ctr.get("trace_records", 0) >= want,
+                         f"16b: sweep {s} folded", timeout=TR_TIMEOUT)
+            srv._feed_barrier()
+            rt.flush()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rt.run_tick()
+            torch.cuda.synchronize()
+            perf["volume_tick_ms"].append((time.perf_counter() - t1) * 1e3)
+        timing[0] = False
+        perf["volume_dispatches"] = len(disp_ms)
+        perf["volume_connresp_dispatches"] = n_cr[0] - n_cr0
+        perf["volume_dispatch_ms"] = {"sum": sum(disp_ms), **_pcts(disp_ms)}
+        n_live = int(rt.state.api_tbl.n_live)
+        perf["api_live"] = [n_live0, n_live]
+        check(n_live - n_live0 == n_svcs * 6 and n_live <= AG_CFG.get(
+            "api_capacity", 4096) // 2,
+              f"16b: api_tbl.n_live rose by {n_live - n_live0} (service, "
+              f"api) keys to {n_live} ({100 * n_live / 4096:.1f} % of the "
+              "4,096 slots)")
+        gidx = {format(g, "016x"): i for i, g in enumerate(gids)}
+        trq = _tr_rows(await q("tracereq"))
+        rows = [r for r in trq if r["svcid"] in gidx]
+        keys = (cols["svc"].astype(np.uint64), cols["api"].astype(np.uint64))
+        tot = {f: exact.key_totals(*keys, v) for f, v in (
+            ("nreq", np.ones(len(cols["svc"]))), ("nerr", cols["err"]),
+            ("bytesin", cols["bin"]), ("bytesout", cols["bout"]))}
+        spec = rt.cfg.apiresp_spec
+        apis = {(c.name, a): j for c in TR_TXN_PROTOS
+                for j, a in enumerate(c.APIS)}
+        bad, n_apart = [], 0
+        for r in rows:
+            i = gidx[r["svcid"]]
+            j = apis.get((r["proto"], r["api"]))
+            k = (i << 32) | (j if j is not None else 1 << 31)
+            for f, t in tot.items():
+                if t.get(k) != r[f]:
+                    bad.append((r["svcid"], r["api"], f, t.get(k), r[f]))
+            m = (cols["svc"] == i) & (cols["api"] == (j or 0))
+            p95 = float(exact.quantiles(cols["lat"][m], [0.95])[0])
+            b = loghist.bucket_of(spec, torch.tensor(
+                [r["p95resp"] * 1e3, p95], dtype=torch.float32))
+            d = abs(int(b[0]) - int(b[1]))
+            n_apart += d == 1
+            if d > 1:
+                bad.append((r["svcid"], r["api"], "p95resp", p95,
+                            r["p95resp"]))
+        perf["p95_bucket_apart"] = n_apart
+        check(len(rows) == n_svcs * 6 and not bad,
+              f"16b: tracereq's {len(rows)} (service, api) rows: nreq, "
+              f"nerr, bytesin and bytesout equal exact.key_totals of what "
+              f"was written, each p95 within one loghist bucket of "
+              f"exact.quantiles ({n_apart} one bucket apart) {bad[:4]}")
+        launches = read_launches(scatter, mods)
+        n = n_cr[0]
+        perf["launches"], perf["connresp_dispatches"] = launches, n
+        check(n > 0 and launches == {
+            "hll_update": 2 * n, "cms_update": n, "inv_update": n,
+            "scatter_max": 0, "scatter_add": 0},
+              f"16: each of the phase's {n} conn/resp dispatches (the "
+              f"capturing agent's conns, the bridged transactions) "
+              f"launched hll_update 2x, cms_update and inv_update 1x, no "
+              f"generic kernel: {launches}")
+        vd = perf["volume_dispatch_ms"]
+        log(f"  16b: {len(disp_ms)} dispatches folded the "
+            f"{n_svcs * TR_CONN_TXNS} records ({vd['sum']:.1f} ms, p50 "
+            f"{vd['p50']:.2f} ms, {perf['volume_connresp_dispatches']} of "
+            f"them conn/resp for the bridge); run_tick ms "
+            f"{[round(x, 2) for x in perf['volume_tick_ms']]}")
+        for _, w, _ in conns:
+            w.close()
+        conns.clear()
+        perf["volume_s"] = time.perf_counter() - t0
+
+        # ---- the capture, replayed into a CPU server
+        t0 = time.perf_counter()
+        srv._feed_barrier()
+        rt.flush()
+        card = _tr_rows(await q("tracereq"))
+        d2 = daemon("cpu")
+        daemons.append(d2)
+        rt2, srv2 = d2.rt, d2.srv
+        h2, p2 = await _w(srv2.start())
+        rp = await _spawn(procs, "replay", str(cap), "--port", str(p2))
+        await _finish(rp, "replay")
+        c2 = rt2.stats.counters
+        await _until(lambda: all(c2.get(k, 0) == ctr.get(k, 0) for k in (
+            "trace_records", "conn_events")), "the replayed capture folded",
+            timeout=TR_TIMEOUT)
+        srv2._feed_barrier()
+        rt2.flush()
+        cpu = _tr_rows(rt2.query({"subsys": "tracereq", "maxrecs": 100000}))
+        bufs = [c for _, c in replay.read_chunks(cap)]
+        moved = {k: _moved(torch, loghist, getattr(rt.cfg, k), v)
+                 for k, v in hist_inputs(bufs).items()}
+        n_q = [0, 0]
+        _json_diff(torch, loghist, rt.cfg, cpu, card, moved, "16 tracereq",
+                   n_q)
+        perf["cpu_bucket_apart"], perf["cpu_rounding_apart"] = n_q
+        check(len(card) == len(cpu) > n_svcs * 6,
+              f"16: the --record capture replayed into a CPU GytServer: "
+              f"tracereq's {len(cpu)} rows equal the card's ({n_q[0]} "
+              f"quantiles one loghist bucket apart, {n_q[1]} values one "
+              "unit apart in the third decimal)")
+        perf["replay_s"] = time.perf_counter() - t0
+    finally:
+        for _, w, _ in conns:
+            w.close()
+        await qc.close()
+        for p in procs:
+            if p.returncode is None:
+                p.kill()
+                await p.wait()
+        for d in daemons:
+            await d.shutdown()
+    return perf, {k: v / max(perf["connresp_dispatches"], 1)
+                  for k, v in perf["launches"].items()}
+
+
+def trace_phase(torch, scatter):
+    """Phase 16: the request-trace capture into ``serve`` on the card."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    log(f"phase 16: the request-trace capture into serve on the card at "
+        f"the madhava geometry: 16a six loopback services captured live by "
+        f"agent --livecap; 16b a pcap of {TR_HOSTS * TR_HOST_SVCS} services "
+        f"x {TR_CONN_TXNS} transactions through parse_pcap")
+    tmp = Path(tempfile.mkdtemp(prefix="gyt_smoke_trace_"))
+    try:
+        perf, launches = asyncio.run(trace_run(torch, scatter, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    perf["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 16: {perf['phase_s']:.1f} s")
+    return perf, launches
+
+
 def _no_lookup(*a, **kw):
     raise OSError("chip_smoke resolves no names")
 
@@ -6747,6 +7864,8 @@ def main(argv) -> int:
     import shutil
     import tempfile
 
+    if argv[:1] == ["--trace-services"]:      # phase 16a's child
+        return trace_services_main()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -6768,45 +7887,69 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
+    t_all = time.perf_counter()
+    # each phase's seconds, printed on one line before the result line
+    phase_s, clock = {}, [t_all]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - clock[0], 1)
+        clock[0] = now
+
     libs = scatter.build()
     log(f"phase 0: built {', '.join(str(p.relative_to(ROOT)) for p in libs)}"
-        f" in {time.perf_counter() - t0:.1f}s")
+        f" in {time.perf_counter() - t_all:.1f}s")
+    lap("0")
 
     torch.cuda.reset_peak_memory_stats()
     st, captured, launches, perf = ns_phase(torch, scatter)
     del st
     torch.cuda.empty_cache()
+    lap("1-3")
     tiny_phase(torch)
+    lap("4")
     kernels = fused_phase(torch, scatter, captured, launches) + \
         generic_phase(torch, scatter, captured, launches)
     torch.cuda.empty_cache()
+    lap("5")
     fa = fold_all_phase(torch, scatter)
     torch.cuda.empty_cache()
+    lap("7")
     rtp, rt_launches, frames = runtime_phase(torch, scatter)
     gc.collect()              # a published snapshot refers to its runtime
     torch.cuda.empty_cache()
+    lap("8")
     dp, d_launches, d_sites = delta_phase(torch, scatter)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("9")
     # phase 10 writes its WAL and shards here; phase 12a ships them
     hist_dir = Path(tempfile.mkdtemp(prefix="gyt_smoke_hist_"))
     try:
-        hp, h_launches, h_opts = history_phase(
+        hp, h_launches, h_opts, h_at = history_phase(
             torch, scatter, frames, rtp["buffer_ms"], hist_dir)
         gc.collect()
         torch.cuda.empty_cache()
-        rp, r_launches = region_phase(torch, scatter, hist_dir, h_opts)
+        lap("10")
+        rp, r_launches = region_phase(torch, scatter, hist_dir, h_opts,
+                                      h_at)
     finally:
         shutil.rmtree(hist_dir, ignore_errors=True)
+    lap("12a")
     sp, s_launches = serving_phase(torch, scatter, frames, rtp)
+    lap("11+12b")
     shp, sh_launches, oracle = sharded_phase(torch, scatter, frames, rtp)
+    lap("13")
     wp, part_launches, ring_launches = worker_phase(torch, scatter, frames,
                                                     oracle, rtp)
     del frames, oracle
     gc.collect()
     torch.cuda.empty_cache()
+    lap("14")
     ap, ag_launches = agent_phase(torch, scatter)
+    lap("15")
+    tp, tr_launches = trace_phase(torch, scatter)
+    lap("16")
     for k in kernels:
         k["launches_fold_all"] = fa["launches"][k["name"]]
         k["launches_runtime"] = rt_launches[k["name"]]
@@ -6818,6 +7961,7 @@ def main(argv) -> int:
         k["launches_part_slab"] = part_launches[k["name"]]
         k["launches_ring_slab"] = ring_launches[k["name"]]
         k["launches_agents"] = ag_launches[k["name"]]
+        k["launches_trace"] = tr_launches[k["name"]]
         cs = d_sites.get(k["name"])
         if cs:
             k["delta"] = {f: sum(c[f] for c in cs) for f in (
@@ -6849,8 +7993,11 @@ def main(argv) -> int:
     log(json.dumps({"sharded": shp}, default=float))
     log(json.dumps({"workers": wp}, default=float))
     log(json.dumps({"agents": ap}, default=float))
+    log(json.dumps({"trace": tp}, default=float))
     log(smi)
     log(json.dumps({"kernels": kernels}))
+    phase_s["total"] = round(time.perf_counter() - t_all, 1)
+    log(json.dumps({"phase_s": phase_s}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -85,9 +85,11 @@ def _cmd_agent(argv) -> None:
                     "listeners (sock_diag sweep) instead of simulated "
                     "flows; implies --collect semantics for flows only")
     ap.add_argument("--livecap", action="store_true",
-                    help="with --real: capture traced listeners' live "
-                    "traffic via AF_PACKET (the request-trace slice, "
-                    "not ported yet: refused)")
+                    help="with --real: when the server enables tracing "
+                    "for a listener (REQ_TRACE_SET), capture its "
+                    "port's live traffic via AF_PACKET and stream "
+                    "parsed transactions (needs CAP_NET_RAW; degrades "
+                    "cleanly without)")
     ap.add_argument("--cap-ifname", default="lo",
                     help="interface for --livecap captures")
     ap.add_argument("--n-agents", type=int, default=1)
@@ -107,9 +109,7 @@ def _cmd_agent(argv) -> None:
     ap.add_argument("--spool-mb", type=float, default=8.0,
                     help="outage sweep-spool bound (MB, drop-oldest)")
     args = ap.parse_args(argv)
-    from gyeeta_tpu_torch.net.agent import LIVECAP_MISSING, NetAgent
-    if args.livecap:
-        raise NotImplementedError(LIVECAP_MISSING)
+    from gyeeta_tpu_torch.net.agent import NetAgent
 
     async def run():
         agents = [NetAgent(seed=args.seed + i, collect=args.collect,
@@ -158,7 +158,10 @@ def agent_report(a) -> dict:
             "host_id": a.host_id, "sweep_seq": a._sweep_seq,
             "spool_len": a.spool_len(),
             "spool_records": a.spool_records(),
-            "counters": {k: int(v) for k, v in a.stats.counters.items()}}
+            "counters": {k: int(v) for k, v in a.stats.counters.items()},
+            "livecap": {"enabled": a.livecap, "denied": a._cap_denied,
+                        "ports": sorted(a._cap_ports),
+                        "opens": a._cap_opens, "closes": a._cap_closes}}
 
 
 def _cmd_chaos(argv) -> None:

@@ -29,10 +29,11 @@ sweep count build the same wire bytes, through the port's ``wire``,
 ``ParthaSim``, ``EdgeFold`` and ``hash_bytes_np``. The agent does no
 device work and imports no ``torch`` on its raw path; the host
 collectors read their knobs from the ``env`` mapping a caller hands
-over (``None`` means no environment). The live packet capture behind
-``livecap=True`` (``trace/livecap.py`` and the protocol parsers) is
-the request-trace slice, which the port does not have yet: asking for
-it raises ``NotImplementedError`` at construction.
+over (``None`` means no environment). ``livecap=True`` opens the
+port's ``trace/livecap.LiveCapture`` on the traced listeners' ports and
+parses their traffic with the port's protocol parsers, as the
+reference does; a refused AF_PACKET socket (no CAP_NET_RAW) turns the
+capture off for good (``_cap_denied``) and raises nothing.
 """
 
 from __future__ import annotations
@@ -61,14 +62,6 @@ _read_frame = wire.read_frame
 _CONN_ERRORS = (ConnectionError, OSError, EOFError,
                 asyncio.IncompleteReadError, wire.FrameError,
                 asyncio.TimeoutError, TimeoutError)
-
-# the live capture (trace/livecap.py, the protocol parsers and
-# NetAgent._livecap_frames) is the request-trace slice, not yet ported
-LIVECAP_MISSING = (
-    "livecap: the live request-trace capture (trace/livecap.py, the "
-    "protocol parsers and NetAgent._livecap_frames) belongs to the "
-    "port's request-trace slice, which is not ported yet; run the "
-    "agent without livecap")
 
 
 async def register_ex(host: str, port: int, machine_id: int,
@@ -127,8 +120,6 @@ class NetAgent:
                  resend_last: int = 2,
                  preagg: Optional[bool] = None,
                  env=None):
-        if livecap:
-            raise NotImplementedError(LIVECAP_MISSING)
         self.machine_id = machine_id if machine_id is not None \
             else H.hash_bytes_np(f"sim-agent-{seed}".encode())
         self.seed = seed
@@ -146,6 +137,20 @@ class NetAgent:
         # absent in real mode (they need eBPF the reference has and
         # userspace does not).
         self.real = real
+        # livecap=True (with real=True): REQ_TRACE_SET enables start a
+        # privilege-gated AF_PACKET capture of the traced listeners'
+        # ports; parsed transactions stream as REQ_TRACE frames — the
+        # reference's per-svc capture activation (gy_svc_net_capture.h
+        # :153), with the packet socket as the observation point
+        self.livecap = livecap
+        self.cap_ifname = cap_ifname
+        self._cap = None
+        self._cap_ports: set = set()
+        self._cap_denied = False      # CAP_NET_RAW refused (final)
+        # captures opened, and closed by a sweep that found no traced
+        # port (the exit report's ``livecap`` entry)
+        self._cap_opens = 0
+        self._cap_closes = 0
         self.host_id: Optional[int] = None
         self.sim: Optional[ParthaSim] = None
         self._tcpconn = None
@@ -494,6 +499,59 @@ class NetAgent:
         hs[0]["curr_state"] = 1               # OK; issues come from the
         hs[0]["host_id"] = self.host_id       # server-side classifiers
         buf += wire.encode_frame(wire.NOTIFY_HOST_STATE, hs)
+        if self.livecap:
+            buf += self._livecap_frames()
+        return buf
+
+    def _livecap_frames(self) -> bytes:
+        """Drain the live capture → REQ_TRACE frames for traced svcs.
+
+        The capture's port set tracks the TRACED listeners (trace
+        control diff → ports via the sock_diag listener registry).
+        Retargeting mutates the live socket's port filter in place —
+        still-traced services keep their buffered frames and in-flight
+        TCP state. Degrades to no-op without CAP_NET_RAW (cached);
+        transient open failures retry next sweep."""
+        from gyeeta_tpu_torch.trace import livecap as LC
+        from gyeeta_tpu_torch.trace.proto import transactions_to_records
+
+        want = self._tcpconn.listener_ports(self.trace_enabled)
+        if not want:
+            if self._cap is not None:
+                self._cap.close()
+                self._cap = None
+                self._cap_closes += 1
+            self._cap_ports = set()
+            return b""
+        if self._cap is None:
+            if self._cap_denied:
+                return b""
+            try:
+                self._cap = LC.LiveCapture(self.cap_ifname, ports=want)
+                self._cap_ports = set(want)
+                self._cap_opens += 1
+            except PermissionError:
+                self._cap_denied = True       # no CAP_NET_RAW: final
+                return b""
+            except OSError:
+                return b""                    # transient: retry later
+        elif want != self._cap_ports:
+            # in-place retarget: keep the socket + buffered frames
+            self._cap.ports = set(want)
+            self._cap_ports = set(want)
+        self._cap.poll()
+        buf = b""
+        for f in self._cap.drain():
+            gid = self._tcpconn.resolve_listener(
+                f.ser[0], f.ser[1], gids=self.trace_enabled)
+            if gid is None:
+                continue
+            recs, name_recs = transactions_to_records(
+                f.transactions, svc_glob_id=gid, host_id=self.host_id)
+            buf += (wire.encode_frames_chunked(
+                wire.NOTIFY_NAME_INTERN, name_recs)
+                + wire.encode_frames_chunked(wire.NOTIFY_REQ_TRACE,
+                                             recs))
         return buf
 
     # --------------------------------------------------- supervision tier
@@ -735,6 +793,9 @@ class NetAgent:
         if self._taskproc is not None:
             self._taskproc.close()        # netlink TASKSTATS socket
             self._taskproc = None
+        if self._cap is not None:
+            self._cap.close()             # AF_PACKET socket
+            self._cap = None
         if self._writer:
             self._writer.close()
             try:

@@ -321,10 +321,8 @@ CPUMEM_FIELDS = (
 # --------------------------------------------------------------- tracereq
 # ref json_db_tracereq_arr (request-trace aggregates): one row per
 # (service, normalized API signature)
-# application protocol names by REQ_TRACE proto id (the reference's
-# trace/proto.py PROTO_NAMES, kept here as the port's own copy)
-_PROTO_NAMES = ("unknown", "http1", "postgres", "mongo", "http2", "tls",
-                "sybase")
+from gyeeta_tpu_torch.trace.proto import (  # noqa: E402
+    PROTO_NAMES as _PROTO_NAMES)
 
 _proto_enc, _proto_dec = _enum_codec(_PROTO_NAMES)
 

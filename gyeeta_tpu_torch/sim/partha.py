@@ -19,11 +19,8 @@ import numpy as np
 
 from gyeeta_tpu_torch.ingest import wire
 from gyeeta_tpu_torch.semantic import states as S
+from gyeeta_tpu_torch.trace.proto import PROTO_HTTP1, PROTO_POSTGRES
 from gyeeta_tpu_torch.utils import hashing as H
-
-# trace protocol ids of REQ_TRACE records (the reference's trace.PROTO_*)
-PROTO_HTTP1 = 1
-PROTO_POSTGRES = 2
 
 # salt of interned comm names (the reference's wire.NAME_KIND_COMM)
 _NAME_KIND_COMM = 1

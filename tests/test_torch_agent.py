@@ -16,8 +16,10 @@ Against the port's ``GytServer(device="cpu")`` over loopback: a
 supervised agent (``run_forever``) loses its conn, spools, reconnects
 under its host id and resends the spool; the server's batched feeds
 (``Runtime.feed_batch``) fold a fleet as one feed a conn read does, and
-a failing piece fails its own conn alone; the live capture is refused at
-construction; the agent's import chain loads no ``torch``. The fleet's
+a failing piece fails its own conn alone; the live capture constructs,
+and a refused AF_PACKET socket turns it off for good without an error;
+the agent's import chain, the capture and its parsers included, loads no
+``torch``. The fleet's
 task groups at a madhava's task table (3,072 groups in 4,096 slots) meet
 the same probe failures in both packages' table. Everything compared is
 exact: no float is computed on a device.
@@ -218,9 +220,55 @@ def test_spool_ledger_equal():
                      + c["spool_dropped_records"])
 
 
-def test_livecap_refused_at_construction():
-    with pytest.raises(NotImplementedError, match="request-trace"):
-        t_agent.NetAgent(seed=1, real=True, livecap=True)
+def test_livecap_constructs():
+    a = t_agent.NetAgent(seed=1, real=True, livecap=True, cap_ifname="lo")
+    assert a.livecap and a.cap_ifname == "lo"
+    assert a._cap is None and a._cap_ports == set() and not a._cap_denied
+
+
+class _Tcp:
+    """A stand-in for the socket sweep: one traced listener port."""
+
+    def __init__(self, ports):
+        self.ports = ports
+
+    def listener_ports(self, gids):
+        return set(self.ports) if gids else set()
+
+
+def test_livecap_denied_is_final(monkeypatch):
+    """No CAP_NET_RAW: the first sweep that wants a capture meets a
+    PermissionError, sets ``_cap_denied`` and never asks again."""
+    import socket as _socket
+    tries = []
+
+    def refuse(*a, **k):
+        tries.append(a)
+        raise PermissionError(1, "Operation not permitted")
+    monkeypatch.setattr(_socket, "socket", refuse)
+    a = t_agent.NetAgent(seed=1, real=True, livecap=True)
+    a._tcpconn = _Tcp({8080})
+    a.trace_enabled = {7}
+    assert a._livecap_frames() == b"" and a._cap_denied
+    assert a._cap is None and len(tries) == 1
+    assert a._livecap_frames() == b"" and len(tries) == 1
+
+
+def test_livecap_transient_error_retries(monkeypatch):
+    """Another OSError is transient: no capture, not denied, and the
+    next sweep tries again."""
+    import socket as _socket
+    tries = []
+
+    def fail(*a, **k):
+        tries.append(a)
+        raise OSError(19, "No such device")
+    monkeypatch.setattr(_socket, "socket", fail)
+    a = t_agent.NetAgent(seed=1, real=True, livecap=True)
+    a._tcpconn = _Tcp({8080})
+    a.trace_enabled = {7}
+    assert a._livecap_frames() == b"" and not a._cap_denied
+    assert a._livecap_frames() == b"" and len(tries) == 2
 
 
 def test_agent_import_chain_loads_no_torch():
@@ -234,6 +282,7 @@ def test_agent_import_chain_loads_no_torch():
         "from gyeeta_tpu_torch.sim import chaos, nodeweb\n"
         "from gyeeta_tpu_torch.utils import cloudmeta, ids, replay\n"
         "from gyeeta_tpu_torch.obs import format_top\n"
+        "from gyeeta_tpu_torch.trace import livecap, dnssnoop\n"
         "a = agent.NetAgent(seed=1)\n"
         "a.host_id = 0\n"
         "from gyeeta_tpu_torch.sim.partha import ParthaSim\n"

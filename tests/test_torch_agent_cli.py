@@ -16,7 +16,8 @@ runs in this process against the port's ``GytServer(device="cpu")``
 - ``nm probe --crud`` passes;
 - ``chaos`` forwards a query through its proxy and prints its fault
   counts when SIGINT stops it;
-- ``agent --livecap`` is refused before anything starts.
+- ``agent --collect --real --livecap`` parses and starts, and its exit
+  report carries the capture's state.
 """
 
 import argparse
@@ -70,9 +71,20 @@ def test_flags_match_reference(cmd, monkeypatch):
                                                      monkeypatch)
 
 
-def test_livecap_refused_at_parse():
-    with pytest.raises(NotImplementedError, match="request-trace"):
-        t_cli.main(["agent", "--livecap", "--port", "1"])
+def test_livecap_parses():
+    args = {}
+
+    def grab(self, argv=None, namespace=None):
+        args.update(vars(argparse.ArgumentParser.parse_known_args(
+            self, argv, namespace)[0]))
+        raise _Parsed(self)
+    import unittest.mock as um
+    with um.patch.object(argparse.ArgumentParser, "parse_args", grab):
+        with pytest.raises(_Parsed):
+            t_cli.main(["agent", "--collect", "--real", "--livecap",
+                        "--cap-ifname", "eth7", "--port", "1"])
+    assert args["livecap"] and args["real"] and args["collect"]
+    assert args["cap_ifname"] == "eth7"
 
 
 class _ServerThread:
@@ -185,6 +197,54 @@ def test_agent_replay_obs_nm_in_process(tmp_path, capsys):
         s1.close()
         if s2 is not None:
             s2.close()
+
+
+def test_agent_livecap_starts_in_process(capsys):
+    """``agent --collect --real --livecap`` starts and sweeps this host; a
+    tracedef that matches every listener opens the capture on the next
+    sweep, or, where AF_PACKET is refused, turns it off for good."""
+    from gyeeta_tpu_torch.trace import livecap
+    s1 = _ServerThread()
+    base = {}
+
+    def trace_all():
+        s1.srv._feed_barrier()
+        s1.rt.flush()
+        out = s1.rt.query({"op": "add", "objtype": "tracedef",
+                           "name": "cap-all"})
+        s1.rt.run_tick()
+        return out
+
+    def watch():
+        t0 = time.monotonic()
+        while s1.ctr("sweep_marks") < 1 and time.monotonic() - t0 < TIMEOUT:
+            time.sleep(0.01)
+        base["add"] = s1.on_loop(trace_all)
+        s1.call(s1.srv.push_trace_control())
+        base["marks"] = s1.ctr("sweep_marks")
+        while (s1.ctr("sweep_marks") < base["marks"] + 3
+               and time.monotonic() - t0 < TIMEOUT):
+            time.sleep(0.01)
+        os.kill(os.getpid(), signal.SIGINT)
+
+    th = threading.Thread(target=watch, daemon=True)
+    th.start()
+    try:
+        t_cli.main(["agent", "--collect", "--real", "--livecap",
+                    "--port", str(s1.port), "--seed", "9999",
+                    "--interval", "0.2"])
+        th.join(TIMEOUT)
+    finally:
+        s1.close()
+    assert base["add"]["ok"]
+    rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cap = rep["agent_report"][0]["livecap"]
+    assert cap["enabled"] and cap["closes"] == 0
+    if livecap.available("lo"):
+        assert cap["opens"] == 1 and not cap["denied"]
+        assert s1.port in cap["ports"]
+    else:
+        assert cap["opens"] == 0 and cap["denied"]
 
 
 def test_chaos_in_process(capsys):

@@ -42,8 +42,8 @@ def test_no_jax_or_reference_import(path):
 # modules of the edge pre-aggregation and snapshot slice, of the
 # registries and alert slice, of the history and journal slice, of the
 # serving edge, of the fabric gateway and the remote compaction region,
-# of the sharded tier, of its worker processes and of the agent tier,
-# each of which the AST check above must cover
+# of the sharded tier, of its worker processes, of the agent tier and of
+# the request-trace capture, each of which the AST check above must cover
 SLICE_MODULES = ("sketch/edgefold.py", "query/snapshot.py",
                  "query/normalize.py", "query/crud.py", "obs/prom.py",
                  "obs/spans.py", "utils/selfstats.py", "ingest/decode.py",
@@ -84,7 +84,12 @@ SLICE_MODULES = ("sketch/edgefold.py", "query/snapshot.py",
                  "utils/ids.py", "utils/cloudmeta.py", "net/collect.py",
                  "net/tcpconn.py", "net/procconn.py", "net/taskdelays.py",
                  "net/taskproc.py", "sim/nodeweb.py", "sim/chaos.py",
-                 "obs/__init__.py")
+                 "obs/__init__.py",
+                 # the request-trace capture
+                 "trace/__init__.py", "trace/tds.py", "trace/http2.py",
+                 "trace/mongo.py", "trace/tls.py", "trace/dnssnoop.py",
+                 "trace/pcapfile.py", "trace/livecap.py",
+                 "sketch/exact.py")
 
 
 @pytest.mark.parametrize("mod", SLICE_MODULES)
@@ -99,7 +104,11 @@ AGENT_MODULES = ("net/agent.py", "utils/ids.py", "utils/cloudmeta.py",
                  "net/collect.py", "net/tcpconn.py", "net/procconn.py",
                  "net/taskdelays.py", "net/taskproc.py", "sim/nodeweb.py",
                  "sim/chaos.py", "obs/__init__.py", "sim/partha.py",
-                 "utils/hashing.py", "utils/intern.py", "cli.py")
+                 "utils/hashing.py", "utils/intern.py", "cli.py",
+                 "trace/__init__.py", "trace/proto.py", "trace/tds.py",
+                 "trace/http2.py", "trace/mongo.py", "trace/tls.py",
+                 "trace/dnssnoop.py", "trace/pcapfile.py",
+                 "trace/livecap.py")
 
 
 @pytest.mark.parametrize("mod", AGENT_MODULES)
