@@ -19,7 +19,9 @@ checkout of the repository. Phases:
    + ``svc_rows_to_host`` and ``flow_snapshot``. The kernels' launch
    counters are zeroed just before and read just after: each dispatch
    launches the fused ``hll_update`` twice and ``cms_update`` and
-   ``inv_update`` once, and no generic scatter kernel.
+   ``inv_update`` once, and the generic kernel once, as the int32
+   scatter-add of the t-digest stage counts (``add_drop``; no int32
+   ``index_put_(accumulate=True)`` is left in a dispatch).
 3. Checks on the result: live rows, ``n_conn``, ``n_resp_unknown``, each
    service's p50 against the exact median of what it was fed, the CMS
    total against the bytes fed, the global HLL against the distinct
@@ -34,7 +36,8 @@ checkout of the repository. Phases:
    DepGraph leaves.
 5. Each fused kernel against its plain version at the inputs one main
    path dispatch gave it (5a), then each generic scatter kernel at the
-   lanes the plain hash chains give for the same inputs (5b), each timed
+   lanes the plain hash chains give for the same inputs, and the int32
+   scatter-add at that dispatch's stage counts (5b), each timed
    beside its plain version (and, for the generic kernels, the one
    PyTorch call computing the same function; for the fused HLL and CMS
    calls, the route they replaced: hash chain + generic kernel): device
@@ -67,7 +70,8 @@ checkout of the repository. Phases:
    variants, each timed first and cached, and 20 rounds of a feed
    buffer followed by a svcstate query (its p50/p99). The launch counters are zeroed
    before the measured ticks: each dispatch that carries a conn/resp
-   slab launches the fused kernels 2/1/1 times, the generic ones never.
+   slab launches the fused kernels 2/1/1 times and the int32
+   scatter-add once.
    Each sweep also carries the announce-rate records at full width
    (LISTENER_INFO for all 65,536 listeners, HOST_INFO and CGROUP_STATE
    for the 512 hosts, 4 MOUNT_STATE and 2 NETIF_STATE records a host,
@@ -99,14 +103,17 @@ checkout of the repository. Phases:
    snapshot). The launch counters are zeroed before the measured tick:
    each
    delta dispatch launches ``cms_update`` and ``inv_update`` once, the
-   generic ``scatter_max`` twice (the per-service and global HLL
-   registers) and ``scatter_add`` once (the loghist buckets), and no
-   ``hll_update``. A second Runtime folds the same records raw, and the
-   reference's delta-vs-raw bounds (tests/test_preagg.py) are held
-   between the two. Then host syncs a delta dispatch, four delta
-   dispatches under torch.profiler, each kernel of the delta section
-   against its plain version on one delta dispatch's inputs (timed
-   beside it and the library call), a snapshot query per served
+   generic kernel once as ``delta_merge`` (the loghist add and the
+   per-service and global HLL maxes in one launch) and once as the
+   int32 scatter-add of the stage counts, and no ``hll_update``. A
+   second Runtime folds the same records raw, and the reference's
+   delta-vs-raw bounds (tests/test_preagg.py) are held between the two.
+   Then host syncs a delta dispatch, four delta dispatches under
+   torch.profiler (device ops, busy µs, the top kernels, the launches
+   of each kernel entry), each kernel of the delta section against its
+   plain version on one delta dispatch's inputs (timed beside it and
+   the library call; the merge also beside its sites as one launch
+   each), a snapshot query per served
    subsystem (first and cached), ``selfstats``, ``metrics``, a 16-wide
    ``multiquery``, the snapshot's isolation from a later feed, and the
    tiny delta stream of ``tests/test_torch_delta_fold.py`` card vs CPU
@@ -120,11 +127,12 @@ checkout of the repository. Phases:
    and a windowed alertdef through ``"op"``; a ``Compactor`` whose
    replay runtime re-folds the whole WAL on the card, with the launch
    counters zeroed before it (each replayed conn/resp slab launches the
-   fused kernels 2/1/1), ``compact_replay_ev_per_sec``, ``compact_emit``
-   ms and shard bytes, and deflate at levels 6 and 1 over a sample of a
-   shard's leaves. Checks: the newest shard's 85 + 29 leaves against
-   the live state at its tick, on the card (integer and max-merged
-   leaves exact, float sums rtol 1e-6); ``at=tick:2`` JSON of svcstate,
+   fused kernels 2/1/1 and the int32 scatter-add once),
+   ``compact_replay_ev_per_sec``, ``compact_emit`` ms and shard bytes,
+   and deflate at levels 6 and 1 over a sample of a shard's leaves.
+   Checks: the newest shard's 85 + 29 leaves against the live state at
+   its tick, on the card (integer and max-merged leaves exact, float
+   sums rtol 1e-6); ``at=tick:2`` JSON of svcstate,
    topk, flowstate and svcdependency against the live JSON then (values
    read off float sums counted); ``window=`` and ``at=`` queries timed
    from a cold snapshot cache and again; ``tstart`` against sqlite's
@@ -143,7 +151,8 @@ checkout of the repository. Phases:
    buffer and events/s
    wire→fold, synchronised, beside phase 8's direct feed); the launch
    counters are zeroed before these ticks and read after the tick-loop
-   stretch below (``launches_serving``: 2/1/1 a conn/resp dispatch); a
+   stretch below (``launches_serving``: 2/1/1 and the int32 add 1 a
+   conn/resp dispatch); a
    ``svcstate`` subscription pushed after each tick; a stock partha
    (PS_REGISTER → PM_CONNECT → NOTIFY frames built from the port's
    ``REF_*_DT``: ``ref_native_decoded`` > 0, ``ref_fallback_decoded``
@@ -163,7 +172,8 @@ checkout of the repository. Phases:
    staging sweep fed its floors; ship MB/s, landed → compacted s, the
    region's replay records/s and ``compact_emit`` ms; the launch
    counters zeroed before it (``launches_region``: 2/1/1 a replayed
-   conn/resp dispatch, generic 0). Checks: sealed == shipped + dropped
+   conn/resp dispatch, the int32 add 1, generic 0 else). Checks:
+   sealed == shipped + dropped
    with no hash mismatch, the landed segments equal the source's, the
    region's two shards equal phase 10's (integer and max leaves exact,
    float sums rtol 1e-6), and ``at=tick:2`` svcstate and topk JSON from
@@ -211,10 +221,11 @@ checkout of the repository. Phases:
    every shard), compacted by ``ParallelCompactor`` with 4 and with 2
    spawned replay workers, each a CUDA context on the card: records/s,
    each part's wall and CPU s, ``compact_emit`` ms and peak device
-   memory, the workers' launch counts (``launches_part_slab``: 2/1/1 a
-   replayed conn/resp dispatch); the two passes' parts held to each
-   other (integer and max leaves exact, float sums rtol 1e-6, the root
-   windows equal), ``at=tick:2`` svcstate over the parted store against
+   memory, the workers' launch counts (``launches_part_slab``: 2/1/1 and
+   the int32 add 1 a replayed conn/resp dispatch); the two passes'
+   parts held to each other (integer and max leaves exact, float sums
+   rtol 1e-6, the root windows equal), ``at=tick:2`` svcstate over the
+   parted store against
    13b's live runtime at tick 2 row for row, ``compact list`` on the
    parted root. 14b: ``serve --shards 4 --ingest-procs 4`` (the daemon
    in this process, manual ticks) over 127.0.0.1: one GYT conn a worker
@@ -245,7 +256,8 @@ checkout of the repository. Phases:
    --collect --real`` measuring this host; three sweeps each, then
    SIGTERM, each child's exit report read: registrations, sweeps folded
    by sequence mark, ms of the tick, launches (2/1/1 a conn/resp
-   dispatch, generic 0), peak memory; the fused calls of the fleet's
+   dispatch, the int32 add 1, generic 0 else), peak memory; the fused
+   calls of the fleet's
    first two conn/resp dispatches held against their plain versions on
    the CPU at this geometry; the server's conn and resp counts
    equal the agents' sweeps and the capture; 512 sim hosts in
@@ -291,7 +303,8 @@ checkout of the repository. Phases:
    conns in two sweeps; api_tbl.n_live rises by 1,536; per (service,
    api) key nreq, nerr and bytes equal ``sketch/exact.key_totals`` and
    p95 lies within one loghist bucket of ``exact.quantiles``; the
-   phase's conn/resp dispatches launch 2/1/1, generic 0. Last the
+   phase's conn/resp dispatches launch 2/1/1, the int32 add 1, generic
+   0 else. Last the
    ``--record`` capture replayed into a CPU ``GytServer``: tracereq
    JSON equal to the card's.
 6. Fold rate and device ops a dispatch, memory, the card's name and
@@ -348,12 +361,18 @@ FUSED = {
     "cms_update": "gyeeta_tpu/sketch/pallas_scatter.py:99",
     "inv_update": "gyeeta_tpu/sketch/pallas_scatter.py:81",
 }
-# the generic scatter kernels, function for function the Pallas calls; the
-# fold path no longer launches them, the delta section does (phase 9)
+# the generic scatter kernel's entries, one a route into its one kernel,
+# gyt_scatter_sites (scatter.launches counts each route): single-site max
+# and f32 add, function for function the Pallas calls, launched on no
+# path since the delta section merges its three sites in one launch
+# (delta_merge, phase 9); the int32 add of the t-digest stage counts
+# (add_drop), once a conn/resp or delta dispatch
 GENERIC_SOURCE = "gyeeta_tpu_torch/csrc/scatter.cu"
 GENERIC = {
     "scatter_max": "gyeeta_tpu/sketch/pallas_scatter.py:81",
     "scatter_add": "gyeeta_tpu/sketch/pallas_scatter.py:99",
+    "add_drop": "gyeeta_tpu/sketch/pallas_scatter.py:99",
+    "delta_merge": "gyeeta_tpu/sketch/pallas_scatter.py:81",
 }
 # (fused kernel, module, function, target shape at ns geometry, dtype,
 # generic kernel its lanes feed) in the order ingest_conn calls them
@@ -486,19 +505,38 @@ def ns_phase(torch, scatter):
             return fn(sk, *args, **kw)
         return rec
 
+    # ... and the int32 scatter-add of its t-digest stage counts
+    stage = []
+    add = scatter.scatter_add
+
+    def rec_add(target, *args, **kw):
+        stage.append((_clone(target), _clone(args),
+                      _clone({k: v for k, v in kw.items() if k != "route"})))
+        return add(target, *args, **kw)
+
     for (m, f), fn in originals.items():
         setattr(mods[m], f, recorder(m, f, fn))
+    scatter.scatter_add = rec_add
+    box = [st]
     try:
-        st = step.fold_many(cfg, st, *slabs[0])
+        puts = accumulate_puts(torch, lambda: box.__setitem__(
+            0, step.fold_many(cfg, box[0], *slabs[0])))
+        st = box[0]
     finally:
         for (m, f), fn in originals.items():
             setattr(mods[m], f, fn)
+        scatter.scatter_add = add
     uses = [1] + [0] * (N_DISTINCT - 1)
     got = [(m, f, tuple(sk[0].shape), str(sk[0].dtype).split(".")[1])
            for m, f, sk, _, _ in captured]
     check(got == [(m, f, s_, d) for _, m, f, s_, d, _ in NS_CALLS],
           f"one dispatch calls {[f'{m}.{f}' for _, m, f, *_ in NS_CALLS]} "
           f"at {[c[3] for c in NS_CALLS]}")
+    check(len(stage) == 1 and stage[0][0].dtype == torch.int32,
+          "... and the int32 scatter-add once (add_drop of the t-digest "
+          f"stage counts, {stage[0][1][0].numel()} lanes)")
+    check("int32" not in puts, "no int32 index_put_(accumulate=True) in a "
+          f"conn/resp dispatch (by dtype: {puts})")
 
     # ---- the main path, counted
     reset_launches(scatter, mods)
@@ -537,11 +575,10 @@ def ns_phase(torch, scatter):
         f"{perf['events_per_s']:.0f} events/s, {n_flush} partial flushes); "
         f"td_flush+tick+readback {tail_s:.2f}s")
     log(f"  kernel launches on the main path: {launches}")
-    check(launches == {"hll_update": 2 * N_DISPATCH,
-                       "cms_update": N_DISPATCH, "inv_update": N_DISPATCH,
-                       "scatter_max": 0, "scatter_add": 0},
-          "every dispatch launched hll_update 2x, cms_update 1x and "
-          "inv_update 1x, and no generic scatter kernel")
+    check(launches == path_launches(N_DISPATCH),
+          "every dispatch launched hll_update 2x, cms_update 1x, "
+          "inv_update 1x and the int32 scatter-add of the stage counts "
+          "1x, and no other generic scatter kernel")
 
     for (c, r), n in zip(host_slabs, uses):
         fed.conn(concat(c), times=n)
@@ -588,7 +625,7 @@ def ns_phase(torch, scatter):
     perf["p50_moved_samples"] = n_moved
     # after the checks: these dispatches fold more data
     st, perf["profile"] = profile_dispatches(torch, cfg, st, step, slabs)
-    return st, captured, launches, perf
+    return st, captured, stage[0], launches, perf
 
 
 def _leaves(st):
@@ -612,14 +649,29 @@ def read_launches(scatter, mods) -> dict:
     return {"hll_update": mods["hyperloglog"].launches,
             "cms_update": mods["countmin"].launches,
             "inv_update": mods["invertible"].launches,
-            "scatter_max": scatter.scatter_max_launches,
-            "scatter_add": scatter.scatter_add_launches}
+            **scatter.launch_counts()}
+
+
+def path_launches(connresp: int, delta: int = 0) -> dict:
+    """The launches of ``connresp`` conn/resp dispatches and ``delta``
+    delta-only dispatches: a conn/resp dispatch launches the fused
+    hll_update 2x, cms_update and inv_update 1x, and the int32
+    scatter-add of the t-digest stage counts (``add_drop``) 1x; a delta
+    dispatch cms_update and inv_update 1x, the one-launch merge of its
+    loghist add and two HLL maxes (``delta_merge``) 1x and the int32
+    add 1x. The single-site generic wrappers launch on no path."""
+    return {"hll_update": 2 * connresp, "cms_update": connresp + delta,
+            "inv_update": connresp + delta, "scatter_max": 0,
+            "scatter_add": 0, "add_drop": connresp + delta,
+            "delta_merge": delta}
 
 
 def _clone(x):
-    """A copy of a tensor, or of a tuple / dict of them."""
+    """A copy of a tensor, or of a tuple / list / dict of them."""
     if isinstance(x, dict):
         return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_clone(v) for v in x]
     if isinstance(x, tuple):
         return type(x)(*(_clone(v) for v in x)) if hasattr(x, "_fields") \
             else tuple(_clone(v) for v in x)
@@ -669,6 +721,28 @@ def device_us(torch, prof):
     cuda = torch.autograd.DeviceType.CUDA
     return sum(e.time_range.elapsed_us() for e in prof.events()
                if e.device_type == cuda)
+
+
+def accumulate_puts(torch, fn) -> dict:
+    """→ the ``index_put_(accumulate=True)`` calls ``fn`` makes, by target
+    dtype: on CUDA each is a sort and then ``indexing_backward_kernel``,
+    which adds the duplicates of one index serially."""
+    from torch.overrides import TorchFunctionMode
+
+    seen: dict = {}
+
+    class Count(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func is torch.Tensor.index_put_ and (
+                    kwargs.get("accumulate") or len(args) > 3 and args[3]):
+                k = str(args[0].dtype).split(".")[1]
+                seen[k] = seen.get(k, 0) + 1
+            return func(*args, **kwargs)
+
+    with Count():
+        fn()
+    return seen
 
 
 def profile_dispatches(torch, cfg, st, step, slabs, n=4):
@@ -1123,54 +1197,165 @@ def _entry(kind, source, replaces, launches, cs, library) -> dict:
         "calls": cs}
 
 
-def generic_call(torch, scatter, kind, site, target, idx, val):
-    """One generic scatter call held against its plain version (max:
-    exact; add: rtol 1e-6) and timed beside it and beside the one
-    PyTorch call computing the same function → its entry."""
-    wrapper = getattr(scatter, kind)
-    plain = getattr(scatter, kind + "_plain")
-    got = wrapper(target.clone(), idx, val)
-    want = plain(target.clone(), idx, val)
+def _wrapper(scatter, kind):
+    """A generic kernel's wrapper and plain version by its entry name."""
+    op = "scatter_max" if kind == "scatter_max" else "scatter_add"
+    return getattr(scatter, op), getattr(scatter, op + "_plain")
+
+
+def _site_lanes(torch, scatter, site):
+    """A site's lanes as the library call takes them, masked outside any
+    timing: (flat int64 index, value; dropped lanes at 0 with the op's
+    identity), the kept lanes' distinct targets, and the lane bytes the
+    function must read at this data: every lane's mask (its keep, or its
+    row where there is no keep), the row of each lane its keep lets
+    through, and the value and column of each kept lane."""
+    op, target, row, val, keep, col, stride = site
+    ok = row >= 0 if keep is None else keep & (row >= 0)
+    flat = row.to(torch.int64) * stride + (0 if col is None else col)
+    ident = scatter.identity(op, val.dtype)
+    v = torch.where(ok, val, torch.full((), ident, dtype=val.dtype,
+                                        device=val.device))
+    n_ok = int(ok.sum())
+    read = row.numel() * row.element_size() if keep is None else \
+        keep.numel() * keep.element_size() \
+        + int(keep.sum()) * row.element_size()
+    read += n_ok * (val.element_size()
+                    + (0 if col is None else col.element_size()))
+    return torch.where(ok, flat, 0), v, \
+        int(torch.unique(flat[ok]).numel()), read
+
+
+def _library(torch, site, idx64, v):
+    """The one PyTorch call computing a site's function on pre-masked
+    lanes (the yardstick; the port never calls it)."""
+    flat = site.target.clone().view(-1)
+    if site.op == "max":
+        return lambda: flat.scatter_reduce_(0, idx64, v, "amax",
+                                            include_self=True)
+    return lambda: flat.index_add_(0, idx64, v)
+
+
+def _rtol(site) -> float:
+    """max and int32 add: exact in any order; f32 add: rtol 1e-6 (atomics
+    and the warp's shuffle sum add in no fixed order)."""
+    return 1e-6 if site.op == "add" and site.target.is_floating_point() \
+        else 0
+
+
+def generic_call(torch, scatter, kind, site, target, idx, val, keep=None,
+                 col=None, stride=1):
+    """One generic scatter call held against its plain version (max,
+    int32 add: exact; f32 add: rtol 1e-6) and timed beside it and beside
+    the one PyTorch call computing the same function → its entry."""
+    wrapper, plain = _wrapper(scatter, kind)
+    kw = dict(keep=keep, col=col, stride=stride)
+    s_ = scatter.Site("max" if kind == "scatter_max" else "add", target,
+                      idx, val, keep, col, stride)
+    got = wrapper(target.clone(), idx, val, **kw)
+    want = plain(target.clone(), idx, val, **kw)
     torch.cuda.synchronize()
-    if kind == "scatter_max":
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
-    else:
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
-    err = float((got.double() - want.double()).abs().max())
-    idx64 = idx.to(torch.int64)
-    flat = target.clone().view(-1)
-    if kind == "scatter_max":
-        lib = lambda: flat.scatter_reduce_(0, idx64, val, "amax",  # noqa: E731,E501
-                                           include_self=True)
-    else:
-        lib = lambda: flat.index_add_(0, idx64, val)  # noqa: E731
+    torch.testing.assert_close(got, want, rtol=_rtol(s_), atol=0)
+    err = float((got.double() - want.double()).abs().max()) \
+        if got.numel() else 0.0
+    idx64, v, distinct, lane_bytes = _site_lanes(torch, scatter, s_)
+    lib = _library(torch, s_, idx64, v)
     work = target.clone()
-    ms, issue_ms = timed(torch, lambda: wrapper(work, idx, val))
-    plain_ms, plain_issue_ms = timed(torch, lambda: plain(work, idx, val))
+    ms, issue_ms = timed(torch, lambda: wrapper(work, idx, val, **kw))
+    plain_ms, plain_issue_ms = timed(torch,
+                                     lambda: plain(work, idx, val, **kw))
     library_ms, library_issue_ms = timed(torch, lib)
     n = idx.numel()
-    distinct = int(torch.unique(idx).numel())
     c = {"site": site, "target": list(target.shape),
          "dtype": str(target.dtype).split(".")[1], "lanes": n,
+         "kept": int(((idx >= 0) if keep is None
+                      else keep & (idx >= 0)).sum()),
          "distinct_targets": distinct, "max_abs_err": err, "ms": ms,
          "plain_ms": plain_ms, "library_ms": library_ms,
          "issue_ms": issue_ms, "plain_issue_ms": plain_issue_ms,
          "library_issue_ms": library_issue_ms}
-    # idx + val read once; each element read and written once
-    c |= _bound(8 * n + 8 * distinct, n)
-    log(f"  {kind} @ {site} {c['target']} {c['dtype']}, {n} lanes, "
-        f"{distinct} targets: device kernel {ms * 1e3:.2f} us, plain "
-        f"{plain_ms * 1e3:.2f} us, library {library_ms * 1e3:.2f} us, "
-        f"bound {c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}); issue "
-        f"rate {issue_ms * 1e3:.1f} / {plain_issue_ms * 1e3:.1f} / "
-        f"{library_issue_ms * 1e3:.1f} us per call; max_abs_err {err}")
+    # the lanes' needed columns read once; each kept target read and
+    # written once
+    c |= _bound(lane_bytes + 2 * target.element_size() * distinct, n)
+    log(f"  {kind} @ {site} {c['target']} {c['dtype']}, {n} lanes "
+        f"({c['kept']} kept), {distinct} targets: device kernel "
+        f"{ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, library "
+        f"{library_ms * 1e3:.2f} us, bound {c['bound_ms'] * 1e3:.3f} us "
+        f"({c['bound_by']}); issue rate {issue_ms * 1e3:.1f} / "
+        f"{plain_issue_ms * 1e3:.1f} / {library_issue_ms * 1e3:.1f} us per "
+        f"call; max_abs_err {err}")
     return c
 
 
-def generic_phase(torch, scatter, captured, launches):
+def sites_call(torch, scatter, site, sites):
+    """The one-launch merge of ``sites`` held against its plain version
+    (each site: max, int32 add exact; f32 add rtol 1e-6), timed beside
+    it, beside the same sites as one single-site launch each, and beside
+    one library call a site (summed: no one PyTorch call merges them) →
+    its entry."""
+    got = [s._replace(target=s.target.clone()) for s in sites]
+    want = [s._replace(target=s.target.clone()) for s in sites]
+    scatter.scatter_sites(got, route="delta_merge")
+    scatter.scatter_sites_plain(want)
+    torch.cuda.synchronize()
+    err = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        torch.testing.assert_close(g.target, w.target, rtol=_rtol(g),
+                                   atol=0, msg=lambda m: f"site {k}: {m}")
+        err = max(err, float((g.target.double()
+                              - w.target.double()).abs().max()))
+    work = [s._replace(target=s.target.clone()) for s in sites]
+    lanes = [_site_lanes(torch, scatter, s) for s in work]
+    libs = [_library(torch, s, i, v) for s, (i, v, _, _) in zip(work, lanes)]
+
+    def singles():
+        for s in work:
+            _wrapper(scatter, "scatter_max" if s.op == "max"
+                     else "scatter_add")[0](s.target, s.row, s.val,
+                                            keep=s.keep, col=s.col,
+                                            stride=s.stride)
+
+    ms, issue_ms = timed(torch, lambda: scatter.scatter_sites(
+        work, route="delta_merge"))
+    plain_ms, plain_issue_ms = timed(
+        torch, lambda: scatter.scatter_sites_plain(work))
+    single_ms, single_issue_ms = timed(torch, singles)
+    library_ms, library_issue_ms = timed(torch, lambda: [f() for f in libs])
+    n = sum(s.row.numel() for s in sites)
+    nbytes = sum(lb + 2 * s.target.element_size() * d
+                 for s, (_, _, d, lb) in zip(sites, lanes))
+    c = {"site": site, "sites": [
+            {"op": s.op, "target": list(s.target.shape),
+             "dtype": str(s.target.dtype).split(".")[1],
+             "lanes": s.row.numel(),
+             "kept": int(((s.row >= 0) if s.keep is None
+                          else s.keep & (s.row >= 0)).sum()),
+             "distinct_targets": d}
+            for s, (_, _, d, _) in zip(sites, lanes)],
+         "lanes": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+         "single_launches_ms": single_ms, "library_ms": library_ms,
+         "issue_ms": issue_ms, "plain_issue_ms": plain_issue_ms,
+         "single_launches_issue_ms": single_issue_ms,
+         "library_issue_ms": library_issue_ms}
+    c |= _bound(nbytes, n)
+    log(f"  delta_merge @ {site}: {len(sites)} sites, {n} lanes, "
+        f"{[x['kept'] for x in c['sites']]} kept, "
+        f"{[x['distinct_targets'] for x in c['sites']]} targets: one "
+        f"launch {ms * 1e3:.2f} us, the same sites as {len(sites)} "
+        f"launches {single_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} "
+        f"us, library ({len(sites)} calls) {library_ms * 1e3:.2f} us, "
+        f"bound {c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}); issue "
+        f"rate {issue_ms * 1e3:.1f} / {single_issue_ms * 1e3:.1f} / "
+        f"{plain_issue_ms * 1e3:.1f} / {library_issue_ms * 1e3:.1f} us "
+        f"per call; max_abs_err {err}")
+    return c
+
+
+def generic_phase(torch, scatter, captured, stage, launches):
     log("phase 5b: each generic scatter kernel vs its plain version at the "
-        "lanes the fused calls' hash chains give (max: exact; add: rtol "
-        "1e-6)")
+        "lanes the fused calls' hash chains give and, for the int32 add, "
+        "at one dispatch's t-digest stage counts (max, int32 add: exact; "
+        "f32 add: rtol 1e-6)")
     mods = sketch_modules()
     calls = {k: [] for k in GENERIC}
     for (_, mod, fn, _, _, kind), (_, _, sk, args, kw) in zip(NS_CALLS,
@@ -1178,8 +1363,12 @@ def generic_phase(torch, scatter, captured, launches):
         idx, val, _ = generic_lanes(torch, mods, mod, fn, sk[0], args, kw)
         calls[kind].append(generic_call(torch, scatter, kind, f"{mod}.{fn}",
                                         sk[0], idx, val))
+    target, args, kw = stage
+    calls["add_drop"].append(generic_call(
+        torch, scatter, "add_drop", "tdigest.stage_samples:add_drop",
+        target, *args, **kw))
     return [_entry(kind, GENERIC_SOURCE, GENERIC[kind], launches[kind], cs,
-                   library=True) for kind, cs in calls.items()]
+                   library=True) for kind, cs in calls.items() if cs]
 
 
 # ----------------------------------------------------------- phase 7
@@ -1481,12 +1670,10 @@ def fold_all_phase(torch, scatter):
         f"{k} {', '.join(f'{v:.2f}' for v in vs)}"
         for k, vs in upkeep_ms.items()))
     log(f"  kernel launches on the fold_all path: {launches}")
-    check(launches == {"hll_update": 2 * n_dispatch,
-                       "cms_update": n_dispatch, "inv_update": n_dispatch,
-                       "scatter_max": 0, "scatter_add": 0},
+    check(launches == path_launches(n_dispatch),
           f"each of the {n_dispatch} fold_all dispatches launched "
-          "hll_update 2x, cms_update 1x and inv_update 1x, and no generic "
-          "scatter kernel")
+          "hll_update 2x, cms_update 1x, inv_update 1x and the int32 "
+          "scatter-add 1x, and no other generic scatter kernel")
 
     # ---- checks
     check(int(st.tbl.n_live) == n_svcs, f"live services = {n_svcs}")
@@ -2199,13 +2386,10 @@ def runtime_phase(torch, scatter):
         f"drop-pressure step: "
         f"{', '.join(f'{m:.2f}' for m in perf['drop_pressure_step_ms'])}")
     log(f"  kernel launches on the Runtime path: {launches}")
-    check(launches == {"hll_update": 2 * connresp[0],
-                       "cms_update": connresp[0], "inv_update": connresp[0],
-                       "scatter_max": 0, "scatter_add": 0}
-          and connresp[0] > 0,
+    check(launches == path_launches(connresp[0]) and connresp[0] > 0,
           f"each of the {connresp[0]} fold_all dispatches with a conn/resp "
-          "slab launched hll_update 2x, cms_update 1x and inv_update 1x, "
-          "and no generic scatter kernel")
+          "slab launched hll_update 2x, cms_update 1x, inv_update 1x and "
+          "the int32 scatter-add 1x, and no other generic scatter kernel")
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2399,13 +2583,14 @@ DELTA_WARM_BUFFERS = 1      # ... of the warm-up tick
 DELTA_FEED_BYTES = 1 << 20  # SKETCH_DELTA frames fed in ~1 MB buffers
 DELTA_PROFILED = 4          # delta dispatches under torch.profiler
 # launches of each kernel in a delta-only dispatch (hh_width > 0)
-DELTA_LAUNCHES = {"hll_update": 0, "cms_update": 1, "inv_update": 1,
-                  "scatter_max": 2, "scatter_add": 1}
-# the delta section's kernel call sites: (kernel, module, function)
+DELTA_LAUNCHES = path_launches(0, 1)
+# the delta section's kernel call sites: (kernel, module, function); the
+# generic kernel's two are told apart by their route: the one-launch
+# merge and t-digest stage_samples' add_drop of the counts
 DELTA_SITES = (("cms_update", "countmin", "update"),
                ("inv_update", "invertible", "write_candidates"),
-               ("scatter_max", "scatter", "scatter_max"),
-               ("scatter_add", "scatter", "scatter_add"))
+               ("delta_merge", "scatter", "scatter_sites"),
+               ("add_drop", "scatter", "scatter_sites"))
 # the tiny delta stream of tests/test_torch_delta_fold.py (card vs CPU)
 TINY_DELTA_CFG = dict(
     svc_capacity=64, n_hosts=8, hll_p_svc=4, hll_p_global=8, cms_depth=2,
@@ -2754,8 +2939,9 @@ def delta_phase(torch, scatter):
     want = {k: v * n_d for k, v in DELTA_LAUNCHES.items()}
     check(n_connresp[0] == 0 and n_d > 0 and launches == want,
           f"each of the {n_d} delta dispatches launched cms_update 1x, "
-          "inv_update 1x, scatter_max 2x and scatter_add 1x, and "
-          "hll_update never")
+          "inv_update 1x, the one-launch generic merge (loghist add, "
+          "per-service and global HLL max) 1x and the int32 scatter-add "
+          "of the stage counts 1x, and hll_update never")
 
     # ---- the same records raw, and the reference's bounds
     raw = Runtime(cfg, RuntimeOpts(**RT_OPTS), device=DEV)
@@ -2797,6 +2983,7 @@ def delta_phase(torch, scatter):
         wire.NOTIFY_SKETCH_DELTA, last[:DELTA_PROFILED * 256])
     cuda = torch.autograd.DeviceType.CUDA
     d0 = rt.stats.counters["fold_dispatches"]
+    reset_launches(scatter, mods)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2805,6 +2992,7 @@ def delta_phase(torch, scatter):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     nd = rt.stats.counters["fold_dispatches"] - d0
+    prof_launches = read_launches(scatter, mods)
     check(nd == DELTA_PROFILED, f"{DELTA_PROFILED * 256} delta records "
           f"fold in {DELTA_PROFILED} dispatches")
     busy_us = device_us(torch, prof)
@@ -2823,6 +3011,23 @@ def delta_phase(torch, scatter):
     for dev_us, count, key in rows[:12]:
         log(f"    {dev_us / nd:9.1f} us/dispatch  {count / nd:6.1f} calls  "
             f"{key[:100]}")
+    back = [(us, c) for us, c, k in rows if "indexing_backward" in k]
+    perf["profile"] |= {
+        "launches": prof_launches,
+        "indexing_backward_us_per_dispatch": sum(u for u, _ in back) / nd,
+        "indexing_backward_calls_per_dispatch": sum(c for _, c in back) / nd,
+        "top_kernels": [{"key": k, "us_per_dispatch": us / nd,
+                         "calls_per_dispatch": c / nd}
+                        for us, c, k in rows[:12]]}
+    log(f"  launches of each kernel entry in the profiled dispatches: "
+        f"{prof_launches}; indexing_backward kernels (index_put_'s "
+        f"sorted accumulate): "
+        f"{perf['profile']['indexing_backward_calls_per_dispatch']:.1f} "
+        f"calls, {perf['profile']['indexing_backward_us_per_dispatch']:.1f}"
+        f" us a dispatch")
+    check(prof_launches == {k: v * nd for k, v in DELTA_LAUNCHES.items()},
+          f"the {nd} profiled delta dispatches launched each entry as "
+          "every delta dispatch does")
 
     # one delta dispatch with each kernel's inputs recorded: records of
     # every kind the ticks shipped (the later sweeps ship few HLL
@@ -2830,36 +3035,44 @@ def delta_phase(torch, scatter):
     allrecs = np.concatenate([t["recs"] for t in ticks])
     site_mods = dict(sketch_modules(), scatter=scatter)
     captured = []
-    saved = [(site_mods[m], f, getattr(site_mods[m], f))
-             for _, m, f in DELTA_SITES]
+    kinds = {(m, f): kind for kind, m, f in DELTA_SITES}
+    saved = [(site_mods[m], f, getattr(site_mods[m], f)) for m, f in kinds]
 
-    def recorder(kind, mod, fn, orig):
+    def recorder(mod, fn, orig):
         def rec(target, *args, **kw):
+            kind = kw["route"] if mod == "scatter" else kinds[(mod, fn)]
             captured.append((kind, mod, fn, _clone(target), _clone(args),
                              _clone(kw)))
             return orig(target, *args, **kw)
         return rec
 
-    for (kind, m, f), (mod, _, orig) in zip(DELTA_SITES, saved):
-        setattr(mod, f, recorder(kind, m, f, orig))
+    for (m, f), (mod, _, orig) in zip(kinds, saved):
+        setattr(mod, f, recorder(m, f, orig))
     try:
-        rt.feed(mixed_dispatch(wire, allrecs, 0))
+        puts = accumulate_puts(torch, lambda: rt.feed(
+            mixed_dispatch(wire, allrecs, 0)))
     finally:
         for mod, f, orig in saved:
             setattr(mod, f, orig)
     got = [(k, m, f) for k, m, f, *_ in captured]
-    check(sorted(got) == sorted([s for s in DELTA_SITES
-                                 if s[0] != "scatter_max"]
-                                + [DELTA_SITES[2]] * 2),
+    check(sorted(got) == sorted(DELTA_SITES),
           f"one delta dispatch calls {got}")
+    check("int32" not in puts, "no int32 index_put_(accumulate=True) in a "
+          f"delta dispatch (by dtype: {puts})")
+    perf["accumulate_puts"] = puts
     log("  each kernel of the delta section vs its plain version at one "
-        "delta dispatch's inputs (inv, scatter_max: exact; cms, "
-        "scatter_add: rtol 1e-6)")
+        "delta dispatch's inputs (inv, max, int32 add: exact; cms, f32 "
+        "add: rtol 1e-6)")
     sites = {}
     for kind, mod, fn, target, args, kw in captured:
-        if mod == "scatter":
-            c = generic_call(torch, scatter, kind,
-                             f"step.ingest_delta:{kind}", target, *args)
+        if kind == "delta_merge":
+            c = sites_call(torch, scatter, "step.ingest_delta", target)
+        elif kind == "add_drop":
+            (st_,) = target
+            c = generic_call(torch, scatter, kind, "tdigest.stage_samples:"
+                             "add_drop (delta)", st_.target, st_.row,
+                             st_.val, keep=st_.keep, col=st_.col,
+                             stride=st_.stride)
         else:
             generic = "scatter_add" if mod == "countmin" else "scatter_max"
             c = fused_call(torch, scatter, kind, mod, fn, generic, target,
@@ -3448,13 +3661,10 @@ def history_phase(torch, scatter, frames, rt_perf, tmp):
     log(f"  kernel launches during the compaction: {launches}")
     check(crep["windows"] == 2 and len(shards) == 2,
           f"two raw shards emitted (ticks {[e['tick1'] for e in shards]})")
-    check(launches == {"hll_update": 2 * connresp[0],
-                       "cms_update": connresp[0],
-                       "inv_update": connresp[0],
-                       "scatter_max": 0, "scatter_add": 0}
-          and connresp[0] > 0,
+    check(launches == path_launches(connresp[0]) and connresp[0] > 0,
           f"each of the replay's {connresp[0]} conn/resp dispatches "
-          "launched hll_update 2x, cms_update 1x and inv_update 1x")
+          "launched hll_update 2x, cms_update 1x, inv_update 1x and the "
+          "int32 scatter-add 1x")
 
     # ---- the newest raw shard against the live state, on the card
     ent = [e for e in shards if e["tick1"] == 2 * HIST_WINDOW][0]
@@ -4171,9 +4381,11 @@ async def serving_run(torch, scatter, frames, rt_perf) -> tuple:
             "fold_dispatches", "ref_native_decoded", "net_queries",
             "conns_ref_adapted", "net_subscribes")}
         slabs = ctr["slab_dispatches"] - slabs0
-        # each conn/resp dispatch: hll_update twice, inv and cms once
+        # each conn/resp dispatch: hll_update twice, inv, cms and the
+        # int32 scatter-add once
         check(launches["hll_update"] == 2 * launches["inv_update"]
               == 2 * launches["cms_update"]
+              == 2 * launches["add_drop"]
               and launches["inv_update"] >= slabs > 0,
               f"kernels launched during the serving run: {launches} "
               f"({slabs} slab dispatches)")
@@ -4689,14 +4901,11 @@ async def region_run(torch, scatter, hist_dir, opts, local_at) -> tuple:
               f"(blake2b over the whole file; {n_whole} still staged "
               f"compared byte for byte, {c.get('ship_staged_swept', 0)} "
               "reclaimed by the staging sweep)")
-        check(launches == {"hll_update": 2 * connresp[0],
-                           "cms_update": connresp[0],
-                           "inv_update": connresp[0],
-                           "scatter_max": 0, "scatter_add": 0}
-              and connresp[0] > 0,
+        check(launches == path_launches(connresp[0]) and connresp[0] > 0,
               f"each of the region replay's {connresp[0]} conn/resp "
-              "dispatches launched hll_update 2x, cms_update 1x and "
-              f"inv_update 1x, the generic kernels never: {launches}")
+              "dispatches launched hll_update 2x, cms_update 1x, "
+              "inv_update 1x and the int32 scatter-add 1x, the other "
+              f"generic kernels never: {launches}")
         perf["launches"] = launches
         local, remote = ShardStore(hist_dir / "shards"), ShardStore(region)
         perf["shards"], mass = _shards_equal(torch, local, remote, cfg)
@@ -4744,7 +4953,8 @@ def region_phase(torch, scatter, hist_dir, opts, local_at):
     fresh shard dir, the receiver's staging sweep fed its floors, as the
     daemon wires them. Checks: the ledger closes (sealed == shipped +
     dropped, no hash mismatch), the landed segments equal the source's,
-    2/1/1 launches a replayed conn/resp dispatch with no generic launch,
+    2/1/1 launches and one int32 scatter-add a replayed conn/resp
+    dispatch, no other generic launch,
     the region's two shards equal phase 10's local ones (integer and max
     leaves exact, float sums rtol 1e-6), and at= the newest window's end
     svcstate and topk JSON from the region's store equal phase 10's
@@ -5123,13 +5333,10 @@ def sharded_ns_run(torch, scatter, frames, rt_perf, oracle):
         f"pairing dispatch {perf['pairing_dispatch_ms']:.2f} ms; "
         f"{routed['lanes']} halves routed, n_dropped "
         f"{perf['n_dropped']:.0f}, n_paired {perf['n_paired_ticks']:.0f}")
-    check(launches == {"hll_update": 2 * SH_N * disp,
-                       "cms_update": SH_N * disp,
-                       "inv_update": SH_N * disp,
-                       "scatter_max": 0, "scatter_add": 0} and slabs > 0,
+    check(launches == path_launches(SH_N * disp) and slabs > 0,
           f"13b: each of the {disp} sharded dispatches launched "
-          f"hll_update {2 * SH_N}x, cms_update and inv_update {SH_N}x "
-          "(once a shard), no generic scatter kernel")
+          f"hll_update {2 * SH_N}x, cms_update, inv_update and the int32 "
+          f"scatter-add {SH_N}x (once a shard), no other generic kernel")
     log("  13b: ms a run_tick " + ", ".join(
         f"{m:.1f}" for m in perf["tick_ms"]) + "; parts (synchronised): "
         + " | ".join(", ".join(f"{k} {v:.1f}" for k, v in p.items())
@@ -5163,11 +5370,13 @@ def sharded_ns_run(torch, scatter, frames, rt_perf, oracle):
     log(f"  13b: {len(dbufs)} delta buffers ({len(recs)} records) "
         f"{perf['delta_ms_per_buffer']:.2f} ms a buffer; launches "
         f"{perf['launches_delta']}")
-    check(perf["launches_delta"]["cms_update"] > 0
-          and perf["launches_delta"]["scatter_max"] > 0
-          and perf["launches_delta"]["hll_update"] == 0,
-          "13b: the delta section launched cms/inv and the generic "
-          "kernels on its shard")
+    ld = perf["launches_delta"]
+    check(ld["cms_update"] > 0 and ld["delta_merge"] > 0
+          and ld["add_drop"] > 0 and ld["hll_update"]
+          == ld["scatter_max"] == ld["scatter_add"] == 0,
+          "13b: the delta section launched cms/inv, the one-launch "
+          "generic merge and the int32 scatter-add on its shard, and no "
+          "single-site generic kernel")
 
     perf["query_ms"] = {}
     outs = {}
@@ -5540,14 +5749,12 @@ def parted_run(torch, scatter, frames, oracle, tmp) -> tuple:
 
     def fused_only(ps):
         n = ps["dispatches"]["connresp_dispatches"]
-        return n > 0 and ps["launches"] == {
-            "hll_update": 2 * n, "cms_update": n, "inv_update": n,
-            "scatter_max": 0, "scatter_add": 0}
+        return n > 0 and ps["launches"] == path_launches(n)
 
     check(all(fused_only(ps) for ps in per.values()),
           f"14a: each of the workers' {n_cr} replayed conn/resp "
-          f"dispatches launched hll_update 2x, cms_update and inv_update "
-          f"once, no generic kernel: {tot}")
+          f"dispatches launched hll_update 2x, cms_update, inv_update and "
+          f"the int32 scatter-add once, no other generic kernel: {tot}")
 
     # the parts of the two passes against each other
     a, b = (SH.open_shard_store(tmp / f"parts_{p}")
@@ -5749,13 +5956,10 @@ async def ingest_procs_run(torch, scatter, frames, oracle, rt_perf,
             f"run_tick {', '.join(f'{m:.0f}' for m in perf['tick_ms'])} "
             f"ms (parts: {perf['tick_parts_ms']}); ring backlog {perf['ring_backlog_slots']} slots; ledger "
             f"{lg}")
-        check(launches == {"hll_update": 2 * SH_N * disp,
-                           "cms_update": SH_N * disp,
-                           "inv_update": SH_N * disp,
-                           "scatter_max": 0, "scatter_add": 0} and disp > 0,
+        check(launches == path_launches(SH_N * disp) and disp > 0,
               f"14b: each of the {disp} ring-drained sharded dispatches "
-              f"launched hll_update {2 * SH_N}x, cms_update and inv_update "
-              f"{SH_N}x, no generic kernel")
+              f"launched hll_update {2 * SH_N}x, cms_update, inv_update and "
+              f"the int32 scatter-add {SH_N}x, no other generic kernel")
         check(lg["dropped"] == 0 and lg["accepted"] == lg["published"]
               == lg["consumed"] > 0,
               f"14b: the ledger: accepted {lg['accepted']} == published == "
@@ -6462,12 +6666,11 @@ async def fleet_run(torch, scatter, tmp) -> tuple:
               == len(sim_mids) + 1,
               f"15a: {len(sim_mids)} sim agents and the chip host's "
               "agent registered, each under a host id of its own")
-        check(n_cr[0] > 0 and launches == {
-            "hll_update": 2 * n_cr[0], "cms_update": n_cr[0],
-            "inv_update": n_cr[0], "scatter_max": 0, "scatter_add": 0},
+        check(n_cr[0] > 0 and launches == path_launches(n_cr[0]),
               f"15a: each of the {n_cr[0]} conn/resp dispatches of the "
-              "fleet's sweeps launched hll_update 2x, cms_update and "
-              "inv_update 1x, no generic kernel")
+              "fleet's sweeps launched hll_update 2x, cms_update, "
+              "inv_update and the int32 scatter-add 1x, no other generic "
+              "kernel")
         stack.close()
         n_held = min(n_cr[0], AG_HOLD)
         check(len(held.calls) == len(NS_CALLS) * n_held,
@@ -7770,13 +7973,11 @@ async def trace_run(torch, scatter, tmp) -> tuple:
         launches = read_launches(scatter, mods)
         n = n_cr[0]
         perf["launches"], perf["connresp_dispatches"] = launches, n
-        check(n > 0 and launches == {
-            "hll_update": 2 * n, "cms_update": n, "inv_update": n,
-            "scatter_max": 0, "scatter_add": 0},
+        check(n > 0 and launches == path_launches(n),
               f"16: each of the phase's {n} conn/resp dispatches (the "
               f"capturing agent's conns, the bridged transactions) "
-              f"launched hll_update 2x, cms_update and inv_update 1x, no "
-              f"generic kernel: {launches}")
+              f"launched hll_update 2x, cms_update, inv_update and the "
+              f"int32 scatter-add 1x, no other generic kernel: {launches}")
         vd = perf["volume_dispatch_ms"]
         log(f"  16b: {len(disp_ms)} dispatches folded the "
             f"{n_svcs * TR_CONN_TXNS} records ({vd['sum']:.1f} ms, p50 "
@@ -7902,14 +8103,14 @@ def main(argv) -> int:
     lap("0")
 
     torch.cuda.reset_peak_memory_stats()
-    st, captured, launches, perf = ns_phase(torch, scatter)
+    st, captured, stage, launches, perf = ns_phase(torch, scatter)
     del st
     torch.cuda.empty_cache()
     lap("1-3")
     tiny_phase(torch)
     lap("4")
     kernels = fused_phase(torch, scatter, captured, launches) + \
-        generic_phase(torch, scatter, captured, launches)
+        generic_phase(torch, scatter, captured, stage, launches)
     torch.cuda.empty_cache()
     lap("5")
     fa = fold_all_phase(torch, scatter)
@@ -7950,6 +8151,11 @@ def main(argv) -> int:
     lap("15")
     tp, tr_launches = trace_phase(torch, scatter)
     lap("16")
+    # the one-launch merge runs only in the delta section: its entry is
+    # phase 9's call at one delta dispatch's inputs
+    kernels.append(_entry("delta_merge", GENERIC_SOURCE,
+                          GENERIC["delta_merge"], d_launches["delta_merge"],
+                          d_sites["delta_merge"], library=True))
     for k in kernels:
         k["launches_fold_all"] = fa["launches"][k["name"]]
         k["launches_runtime"] = rt_launches[k["name"]]

@@ -281,11 +281,11 @@ def ingest_delta(cfg: EngineCfg, st: AggState, dep, db, tick):
     agent's declared flow truncation:
 
     - counters, dependency edges: row scatter-adds of per-sweep sums;
-    - loghist bucket counts: :func:`scatter.scatter_add` at
-      ``row * B + bucket`` (integer-valued counts: the sum is exact in
-      any order);
-    - per-service and global HLL registers: :func:`scatter.scatter_max`
-      at ``row * m + reg`` (invalid lanes carry rank 0 at index 0);
+    - loghist bucket counts (an add at ``row * B + bucket``; integer-
+      valued counts: the sum is exact in any order) and the per-service
+      and global HLL registers (a max at ``row * m + reg`` and at
+      ``reg``): ONE :func:`scatter.scatter_sites` launch, whose masked
+      lanes write nothing;
     - flows: aggregated ``(key, bytes)`` lanes into the CMS, top-K and
       invertible buckets as raw lanes go, the agent's truncated residual
       charged to the top-K ``evicted`` bound.
@@ -306,29 +306,20 @@ def ingest_delta(cfg: EngineCfg, st: AggState, dep, db, tick):
     n_conn_add = torch.sum(torch.where(ok_c, db.ctr_vals[:, 4], 0.0))
     n_resp_add = torch.sum(torch.where(ok_c, db.ctr_vals[:, 5], 0.0))
 
-    # ---- per-service resp loghist bucket counts
+    # ---- one launch: per-service resp loghist bucket counts,
+    # per-service distinct-client HLL register maxes and global flow HLL
+    # register maxes (lanes whose row is missing write nothing)
     rh = table.lookup(tbl, db.hist_hi, db.hist_lo, db.hist_valid)
-    ok_h = db.hist_valid & (rh >= 0)
-    nb = cfg.resp_spec.nbuckets
-    scatter.scatter_add(
-        st.resp_win.cur,
-        torch.where(ok_h, rh * nb + db.hist_bucket, 0).to(torch.int32),
-        torch.where(ok_h, db.hist_w, 0.0))
-
-    # ---- per-service distinct-client HLL register maxes
     rs = table.lookup(tbl, db.shll_hi, db.shll_lo, db.shll_valid)
-    ok_s = db.shll_valid & (rs >= 0)
-    m = st.svc_hll.regs.shape[-1]
-    scatter.scatter_max(
-        st.svc_hll.regs,
-        torch.where(ok_s, rs * m + db.shll_reg, 0).to(torch.int32),
-        torch.where(ok_s, db.shll_rank, 0).to(torch.int32))
-
-    # ---- global flow HLL register maxes
-    scatter.scatter_max(
-        st.glob_hll.regs,
-        torch.where(db.ghll_valid, db.ghll_reg, 0).to(torch.int32),
-        torch.where(db.ghll_valid, db.ghll_rank, 0).to(torch.int32))
+    scatter.scatter_sites((
+        scatter.Site("add", st.resp_win.cur, rh, db.hist_w,
+                     keep=db.hist_valid, col=db.hist_bucket,
+                     stride=cfg.resp_spec.nbuckets),
+        scatter.Site("max", st.svc_hll.regs, rs, db.shll_rank,
+                     keep=db.shll_valid, col=db.shll_reg,
+                     stride=st.svc_hll.regs.shape[-1]),
+        scatter.Site("max", st.glob_hll.regs, db.ghll_reg, db.ghll_rank,
+                     keep=db.ghll_valid)), route="delta_merge")
 
     # ---- t-digest stage (strided at the agent)
     rt_ = table.lookup(tbl, db.td_hi, db.td_lo, db.td_valid)

@@ -98,9 +98,7 @@ def _launches() -> dict:
         scatter
     return {"hll_update": hyperloglog.launches,
             "cms_update": countmin.launches,
-            "inv_update": invertible.launches,
-            "scatter_max": scatter.scatter_max_launches,
-            "scatter_add": scatter.scatter_add_launches}
+            "inv_update": invertible.launches, **scatter.launch_counts()}
 
 
 def _counting_runtime(device):

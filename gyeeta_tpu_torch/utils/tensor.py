@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from gyeeta_tpu_torch.sketch import scatter
+
 
 def top_k(x: torch.Tensor, k: int):
     """(values, indices) of the ``k`` largest entries of a 1-D tensor,
@@ -51,8 +53,25 @@ def set_drop(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
 def add_drop(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
              keep: torch.Tensor) -> None:
     """In place: ``dst[idx[i]] += vals[i]`` (along dim 0) where ``keep[i]``,
-    in lane order on the CPU. Dropped lanes add zero to row 0, which
-    leaves it unchanged (the callers' sums never hold −0.0)."""
+    in lane order on the CPU.
+
+    A 1-D int32 ``dst`` on CUDA with 1-D values (the t-digest stage
+    counts) launches the int32 scatter-add of ``csrc/scatter.cu``
+    (``scatter.scatter_add`` with ``keep``, counted as the ``add_drop``
+    route): dropped lanes write nothing, and an integer sum is exact in
+    any order, so the result is the one the sorted
+    ``index_put_(accumulate=True)`` gives. Everything else —
+    float targets, 2-D values, the CPU — stays on ``index_put_``: its
+    dropped lanes add zero to row 0, which leaves it unchanged (the
+    callers' sums never hold −0.0). Floats stay there because atomic
+    float sums in another order would move the card-vs-CPU leaf
+    comparisons of the float counters off bit equality."""
+    if dst.device.type == "cuda" and dst.dtype == torch.int32 \
+            and dst.dim() == 1 and vals.dim() == 1:
+        scatter.scatter_add(dst, idx.contiguous(),
+                            vals.to(torch.int32).contiguous(),
+                            keep=keep.contiguous(), route="add_drop")
+        return
     tgt = torch.where(keep, idx.to(torch.int64), 0)
     shape = (-1,) + (1,) * (vals.dim() - 1)
     v = torch.where(keep.view(shape), vals.to(dst.dtype),

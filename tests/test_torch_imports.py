@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``gyeeta_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or anything of the JAX package, and its
-entry points refuse to run without a GPU unless the CPU is asked for."""
+"""The port stands alone: no module of ``gyeeta_tpu_torch``, not
+``chip_smoke.py`` and not the card's A/B scripts import JAX or anything
+of the JAX package, and its entry points refuse to run without a GPU
+unless the CPU is asked for."""
 
 import ast
 import subprocess
@@ -16,7 +17,8 @@ from gyeeta_tpu_torch.ingest import wire
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "gyeeta_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    [ROOT / f for f in ("chip_smoke.py", "feed_ab.py", "scatter_ab.py",
+                        "delta_ab.py")]
 
 
 def _imports(path):
