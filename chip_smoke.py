@@ -95,7 +95,7 @@ checkout of the repository. Phases:
    may sit one loghist bucket apart, counted).
 9. Edge pre-aggregation through the ``Runtime`` at ns geometry: one
    agent-side ``EdgeFold`` turns each tick's records (8 feed buffers'
-   worth of plain conn and resp records, 16 before phase 15 came; 1 for
+   worth of plain conn and resp records, 16 before phase 17 came; 1 for
    the warm-up tick) into
    SKETCH_DELTA records on the host before any timer starts; a warm-up
    tick and a measured tick, each the raw 5 s state sweep and the delta
@@ -202,8 +202,9 @@ checkout of the repository. Phases:
    launch counters (8 / 4 / 4 a sharded dispatch), ms of
    ``fold_step_dep_sharded`` and of its pairing dispatch, halves routed
    and dropped, ``run_tick`` and its parts (the fleet rollup among
-   them), host syncs over the buffers of one slab, two SKETCH_DELTA
-   buffers, queries first and cached, peak memory; then a single
+   them), host syncs over the buffers of one slab, one SKETCH_DELTA
+   buffer (two before phase 17), queries first and cached, peak memory;
+   then a single
    ``Runtime`` at ns fed the same frames: svcstate, hoststate,
    taskstate and clusterstate equal row for row, svcdependency the same
    edges with each edge short only by the pairs the single runtime made
@@ -213,8 +214,8 @@ checkout of the repository. Phases:
    card) over 127.0.0.1: two GYT conns feed 4,096 services, the tick
    loop runs 3.5 s at 1 s, ``shardlist`` and ``svcstate`` answer over
    GYT, ``--journal-dir`` holds ``shard_00/``–``shard_03/``, one
-   compaction of that WAL on the card writes shards an ``at=`` query
-   reads.
+   compaction of that WAL on the card (a window of 2 ticks; a window a
+   tick before phase 17) writes shards an ``at=`` query reads.
 14. The sharded tier's worker processes, four on the card. 14a: 13b's
    frames to its tick 2 as a per-shard WAL (each buffer's records split
    by ``host_id % 4`` into ``shard_00/``–``shard_03/``, the names to
@@ -307,10 +308,32 @@ checkout of the repository. Phases:
    0 else. Last the
    ``--record`` capture replayed into a CPU ``GytServer``: tracereq
    JSON equal to the card's.
+17. The sharded tier's history and the mergeable sketches on the card
+   (run after phase 14). 17a: a ``ShardedRuntime`` of 4 shards at ns ÷
+   4 a shard with a per-shard journal, fed phase 8's names and 8 feed
+   buffers a tick for 2 ticks, then a ``Compactor`` whose
+   ``runtime_factory`` builds a 4-shard ``ShardedRuntime`` on the card
+   replays that WAL into one window: the stacked ``(4, ...)`` shard
+   against the live mesh at tick 2 (leaves whose CRC-32 agree with the
+   live leaves' ``.npy`` bytes exact without inflating them; the rest
+   integer and max exact, f32 sums rtol 1e-6), ``at=tick:2`` svcstate
+   on the mesh equal to live row for row; replay records/s,
+   ``compact_emit`` ms, the shard's bytes, peak memory and the launches
+   a replayed sharded slab (8 / 4 / 4, the int32 add 4). 17b: every
+   sketch update and merge of the port's mergeable API on the card
+   against the CPU (HLL, CMS, invertible, top-K, windows exact; loghist
+   exact but for samples CUDA's ``logf`` moves a bucket; t-digest
+   counts exact, a centroid's weight moved only to its neighbour,
+   quantiles within the reference's bounds of the exact ones). 17c:
+   ``FoldProfiler`` over 4 fold dispatches of a ``Runtime`` at ns ÷ 4: the
+   Chrome trace holds 4 ``gyt_fold`` ranges, each kernel entry's range
+   (``gyt_hll_update`` 8, ``gyt_inv_update``, ``gyt_cms_update`` and
+   ``gyt_scatter_sites`` 4) and its device kernel.
 6. Fold rate and device ops a dispatch, memory, the card's name and
    power limit, the JSON lines (fold, fold_all, runtime, delta,
-   history, serving, region, sharded, workers, agents, trace, kernels),
-   each phase's seconds and the total, and last the result line.
+   history, serving, region, sharded, workers, agents, trace,
+   sharded_history, kernels), each phase's seconds and the total, and
+   last the result line.
 """
 
 from __future__ import annotations
@@ -326,6 +349,7 @@ import struct
 import subprocess
 import sys
 import time
+import zlib
 from collections import deque
 from pathlib import Path
 
@@ -2575,10 +2599,10 @@ def runtime_phase(torch, scatter):
 
 
 # ----------------------------------------------------------- phase 9
-# one measured tick at a tick's full load (16 buffers), to keep the
-# script inside its time limit
+# one measured tick of 8 buffers' worth (16 before phase 17), to keep
+# the script inside its time limit
 DELTA_TICKS = 1             # measured ticks
-DELTA_BUFFERS = 16          # phase-8 feed buffers' worth of records a tick
+DELTA_BUFFERS = 8           # phase-8 feed buffers' worth of records a tick
 DELTA_WARM_BUFFERS = 1      # ... of the warm-up tick
 DELTA_FEED_BYTES = 1 << 20  # SKETCH_DELTA frames fed in ~1 MB buffers
 DELTA_PROFILED = 4          # delta dispatches under torch.profiler
@@ -3247,7 +3271,11 @@ def _device_leaf_check(torch, name, live, shard, mass) -> str:
             "svc_td.vmin", "svc_td.vmax", "h_bytes"):
         return f"{n} of {live.numel()} elements differ"
     if name == "flow_topk.evicted":
-        ok = abs(float(live) - float(shard)) <= 1e-5 * mass
+        # a stacked (n_shards,) leaf goes shard by shard, ``mass`` then
+        # each shard's top-K mass
+        apart = (live.double() - shard.double()).abs()
+        ok = bool((apart <= 1e-5 * torch.as_tensor(
+            mass, dtype=torch.float64, device=live.device)).all())
     else:
         rtol = 1e-5 if name.startswith("svc_td.") else 1e-6
         ok = torch.allclose(shard, live, rtol=rtol, atol=0.0)
@@ -4983,7 +5011,8 @@ SH_CFG = dict(NS_CFG, svc_capacity=NS_CFG["svc_capacity"] // SH_N,
 # runtime oracle and in 14b (~35 s)
 SH_TICKS = 1
 SH_BUFFERS = 16             # phase 8's feed buffers a measured tick
-SH_DELTA_BUFFERS = 2        # ~1 MB SKETCH_DELTA buffers after the ticks
+SH_DELTA_BUFFERS = 1        # ~1 MB SKETCH_DELTA buffers after the ticks
+#                             (2 before phase 17)
 SH_QUERIES = ("svcstate", "hoststate", "svcdependency", "flowstate",
               "taskstate", "topk", "shardlist", "serverstatus")
 # the fleet-view oracle (the reference's tests/test_shardedrt.py and
@@ -5007,6 +5036,8 @@ SRV_SH_SIM = dict(n_hosts=64, n_svcs=64, n_clients=2048,
 SRV_SH_CONNS = 2            # registered GYT event conns
 SRV_SH_LOOP_S = 3.5         # the stretch under the server's tick loop
 SRV_SH_TICK_S = 1.0         # ... at this tick_interval
+SRV_SH_WINDOW = 2           # hist_window_ticks of its WAL's compaction
+#                             (1 before phase 17: a window a tick)
 
 
 def tiny_sharded_stream():
@@ -5495,7 +5526,7 @@ async def sharded_serve_run(torch, scatter, tmp) -> dict:
         feed_buffer(sim, scfg, wire)[0] for _ in range(4)]
     cfgf = tmp / "gyt.json"
     cfgf.write_text(json.dumps({"engine": SH_CFG, "runtime": dict(
-        RT_OPTS, hist_window_ticks=1)}))
+        RT_OPTS, hist_window_ticks=SRV_SH_WINDOW)}))
     argv = ["--config", str(cfgf), "--host", "127.0.0.1", "--port", "0",
             "--tick-interval", str(SRV_SH_TICK_S), "--shards", str(SH_N),
             "--device", DEV, "--journal-dir", str(tmp / "wal"),
@@ -8057,6 +8088,573 @@ def trace_phase(torch, scatter):
     return perf, launches
 
 
+# ----------------------------------------------------------- phase 17
+SR_TICKS = 2                # 17a: live ticks, one compaction window
+SR_BUFFERS = 4              # phase 8's feed buffers a live tick (a slab)
+SR_SAMPLES = 1 << 20        # 17b: samples (lanes) of an update case
+SR_CHUNKS = 16              # ... folded in this many calls
+# 17b: rtol of the t-digest means whose weights agree, card vs CPU, in
+# the updates after a sample moved to a neighbouring centroid (PERF.md)
+SR_CARRY_RTOL = 5e-5
+SR_FOLDS = 4                # 17c: fold dispatches the trace brackets
+SR_TRACE_BUFFERS = 6        # ... of this many feed buffers' dispatches
+# each kernel entry → its launches a conn/resp dispatch (the trace names
+# the entry's device kernel ``<entry>_kernel``)
+SR_KERNELS = {"gyt_hll_update": 2, "gyt_inv_update": 1, "gyt_cms_update": 1,
+              "gyt_scatter_sites": 1}
+
+
+class _CrcFile:
+    """A write-only file that keeps the CRC-32 and length of its bytes."""
+
+    def __init__(self):
+        self.crc = 0
+        self.n = 0
+
+    def write(self, b) -> int:
+        self.crc = zlib.crc32(b, self.crc)
+        self.n += len(b)
+        return len(b)
+
+
+def _stacked_npy_crc(parts) -> tuple:
+    """(CRC-32, length) of the ``.npy`` bytes of ``np.stack(parts)`` as a
+    shard file's member holds them (``history/shards.py`` writes every
+    leaf with ``np.lib.format.write_array``, whose header is format 1.0
+    where it fits): what ``_leaf_crcs`` reads from the zip directory,
+    without stacking the parts. The stacked array's C-order bytes are
+    the parts' bytes one after another."""
+    f = _CrcFile()
+    parts = [np.asarray(p) for p in parts]
+    hdr = np.lib.format.header_data_from_array_1_0(parts[0])
+    hdr["shape"] = (len(parts),) + parts[0].shape
+    hdr["fortran_order"] = False
+    np.lib.format.write_array_header_1_0(f, hdr)
+    for p in parts:
+        f.write(memoryview(np.ascontiguousarray(p.reshape(-1))).cast("B"))
+    return f.crc, f.n
+
+
+def sharded_history_run(torch, scatter, names, bufs, tmp) -> tuple:
+    """17a: a sharded runtime's WAL replayed through a ``ShardedRuntime``
+    factory into stacked shards, held to the live mesh (see
+    sharded_history_phase) → (perf, launches a replayed slab)."""
+    from gyeeta_tpu_torch.engine import aggstate
+    from gyeeta_tpu_torch.history.compactor import Compactor
+    from gyeeta_tpu_torch.parallel import depgraph, sharded
+    from gyeeta_tpu_torch.parallel.mesh import make_mesh
+    from gyeeta_tpu_torch.parallel.shardedrt import ShardedRuntime
+    from gyeeta_tpu_torch.sketch import loghist
+    from gyeeta_tpu_torch.utils.config import RuntimeOpts
+    from gyeeta_tpu_torch.utils.selfstats import Stats
+    from gyeeta_tpu_torch.utils.tensor import tree_paths
+
+    scfg = aggstate.EngineCfg(**SH_CFG)
+    opts = RuntimeOpts(**RT_OPTS, journal_dir=str(tmp / "wal"),
+                       hist_shard_dir=str(tmp / "shards"),
+                       hist_window_ticks=SR_TICKS)
+    perf = {}
+
+    def factory(cfg, o):
+        return ShardedRuntime(cfg, make_mesh(SH_N, device=DEV), o)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = factory(scfg, opts)
+    try:
+        rt.feed(names)
+        j = 0
+        for _ in range(SR_TICKS):
+            for _ in range(SR_BUFFERS):
+                rt.feed(bufs[j % len(bufs)][0])
+                j += 1
+            rt.run_tick()
+        torch.cuda.synchronize()
+        perf["live_s"] = time.perf_counter() - t0
+        live_json = rt.query({"subsys": "svcstate", "maxrecs": 200000})
+        t0 = time.perf_counter()
+        # each shard's leaves; a leaf's stacked form is built only where
+        # its CRC-32 disagrees with the shard's
+        live = list(zip(*(aggstate.state_to_numpy(st)
+                          + depgraph.dep_to_numpy(d)
+                          for st, d in zip(rt.state, rt.dep))))
+        perf["live_leaves_s"] = time.perf_counter() - t0
+        log(f"  17a: live mesh of {SH_N} shards, names and "
+            f"{SR_BUFFERS} buffers a tick for {SR_TICKS} ticks "
+            f"({live_json['nrecs']} services): {perf['live_s']:.1f} s; "
+            f"its stacked leaves to the host {perf['live_leaves_s']:.1f} s")
+
+        mods = sketch_modules()
+        stats = Stats()
+        comp = Compactor(scfg, opts, journal=rt.journal, stats=stats,
+                         runtime_factory=factory)
+        try:
+            reset_launches(scatter, mods)
+            t0 = time.perf_counter()
+            rep = comp.compact_once(seal=True, upto_tick=rt._tick_no)
+            torch.cuda.synchronize()
+            perf["compact_s"] = time.perf_counter() - t0
+            launches = read_launches(scatter, mods)
+            disp = comp._rt.stats.counters["fold_dispatches"]
+            perf["peak_device_gib"] = \
+                torch.cuda.max_memory_allocated() / 2**30
+            n_emit, emit_ms = stats.timing_totals()["compact_emit"]
+            shards = comp.store.shards("raw")
+            perf.update(compact=rep, replay_dispatches=disp,
+                        launches=launches,
+                        compact_replay_ev_per_sec=stats.gauges[
+                            "compact_replay_ev_per_sec"],
+                        compact_emit_ms=emit_ms / max(n_emit, 1),
+                        shard_bytes=[e["bytes"] for e in shards])
+            log(f"  17a: compaction through a {SH_N}-shard ShardedRuntime "
+                f"factory: {rep}; {perf['compact_s']:.1f} s, "
+                f"compact_replay_ev_per_sec "
+                f"{perf['compact_replay_ev_per_sec']}, compact_emit "
+                f"{perf['compact_emit_ms']:.1f} ms, shard bytes "
+                f"{perf['shard_bytes']}, peak device memory "
+                f"{perf['peak_device_gib']:.3f} GiB")
+            check(rep["windows"] == 1
+                  and [e["tick1"] for e in shards] == [SR_TICKS],
+                  f"17a: one window emitted, a stacked shard at tick "
+                  f"{SR_TICKS}")
+            check(disp > 0 and launches == path_launches(SH_N * disp),
+                  f"17a: each of the replay's {disp} sharded dispatches "
+                  f"launched hll_update {2 * SH_N}x, cms_update, "
+                  f"inv_update and the int32 scatter-add {SH_N}x, no other "
+                  f"generic kernel: {launches}")
+
+            # the stacked shard against the live mesh, CRC-32 first
+            path = comp.store.dir / shards[-1]["file"]
+            snames = tree_paths(aggstate.init(scfg, "meta"))
+            names_ = snames + tree_paths(depgraph.init(1, 1, "meta"))
+            members = [f"s{i}" for i in range(len(snames))] + \
+                [f"d{i}" for i in range(len(names_) - len(snames))]
+            t0 = time.perf_counter()
+            crcs = _leaf_crcs(path)
+            kinds, diff = {}, []
+            for name, m, parts in zip(names_, members, live):
+                if len(parts) != SH_N:
+                    kinds[name] = f"{len(parts)} live shards"
+                elif crcs.get(m) == _stacked_npy_crc(parts):
+                    kinds[name] = "exact"
+                else:
+                    diff.append((name, m, np.stack(parts)))
+            ev = np.stack(live[snames.index("flow_topk.evicted")])
+            mass = ev.astype(np.float64) + np.stack(live[snames.index(
+                "flow_topk.counts")]).astype(np.float64).sum(axis=-1)
+            with np.load(path) as z:
+                for name, m, arr in diff:
+                    kinds[name] = _device_leaf_check(
+                        torch, name, torch.from_numpy(arr).to(DEV),
+                        torch.from_numpy(z[m]).to(DEV), mass)
+            perf["compare_s"] = time.perf_counter() - t0
+        finally:
+            comp.close()
+        close = sorted(n for n, k in kinds.items() if k == "close")
+        bad = {n: k for n, k in kinds.items() if k not in ("exact",
+                                                           "close")}
+        perf["leaves_exact"] = len(kinds) - len(close) - len(bad)
+        perf["leaves_close"] = close
+        perf["leaves_crc_exact"] = len(kinds) - len(diff)
+        check(len(kinds) == 85 + 29 and not bad,
+              f"17a: the stacked shard at tick {SR_TICKS} = the live mesh "
+              f"then: {perf['leaves_exact']} of 114 stacked leaves exact "
+              f"({perf['leaves_crc_exact']} by CRC-32 without inflating), "
+              f"{len(close)} within the float-sum rule {close}, "
+              f"{perf['compare_s']:.1f} s; differing: {bad}")
+
+        t0 = time.perf_counter()
+        at = rt.query({"subsys": "svcstate", "maxrecs": 200000,
+                       "at": f"tick:{SR_TICKS}"})
+        perf["at_ms"] = (time.perf_counter() - t0) * 1e3
+        n_q = [0, 0]
+        _json_diff(torch, loghist, scfg, _rows_by_identity(live_json),
+                   _rows_by_identity(at), {}, "17a at= svcstate", n_q)
+        check(at["nrecs"] == live_json["nrecs"] > 0
+              and at["tick"] == SR_TICKS,
+              f"17a: at=tick:{SR_TICKS} svcstate on the mesh "
+              f"({at['nrecs']} rows, {perf['at_ms']:.0f} ms) equals the "
+              f"live mesh's, row for row (floats rtol 1e-6; {n_q[1]} "
+              f"third-decimal roundings apart)")
+    finally:
+        rt.close()
+    return perf, {k: v / disp for k, v in launches.items()}
+
+
+def _digest_apart(torch, got, ref, unmoved_rtol: float = 1e-5) -> dict:
+    """A t-digest computed on the card against the CPU's, by the rule
+    ``tests/test_torch_sketches.py``'s ``_same_digest`` holds the port to
+    against JAX. The arcsine scale's last ulp differs between CUDA's and
+    the CPU's ``asin``, so a sample on a cluster boundary may land in
+    the neighbouring centroid, and the card's segment sums add in no
+    fixed order: vmin, vmax and the total weight exact; every centroid
+    whose weight is equal has its mean within ``unmoved_rtol`` (1e-5,
+    the test's); where weights differ, they differ in adjacent pairs by
+    whole samples moved from one to the other (at most 1e-4 of the
+    total), the pair's means within rtol 1e-4. Returns the verdict ("ok"
+    or what broke it) and the drift: samples moved, the largest relative
+    mean difference of the unmoved and of the moved centroids, and the
+    unmoved centroids beyond ``unmoved_rtol`` (row, column, rtol,
+    columns to the nearest moved one)."""
+    gm, gw, gmin, gmax = (x.cpu().double() for x in got)
+    rm, rw, rmin, rmax = (x.double() for x in ref)
+    out = {"verdict": "ok"}
+    if not (torch.equal(gmin, rmin) and torch.equal(gmax, rmax)
+            and torch.equal(gw.sum(-1), rw.sum(-1))):
+        out["verdict"] = "vmin, vmax or the total weight differ"
+        return out
+    dw = (gw - rw).reshape(-1, gw.shape[-1])
+    left = torch.zeros_like(dw)
+    left[:, 1:] = dw[:, :-1]
+    right = torch.zeros_like(dw)
+    right[:, :-1] = dw[:, 1:]
+    moved = dw != 0
+    out["moved"] = int(dw.abs().sum()) // 2
+    rel = ((gm - rm).abs() / rm.abs().clamp(min=1e-30)).reshape(dw.shape)
+    out["rel_unmoved"] = float(rel[~moved].max()) if (~moved).any() else 0.
+    out["rel_moved"] = float(rel[moved].max()) if moved.any() else 0.
+    over = torch.nonzero(~moved & (rel > unmoved_rtol)).tolist()
+    cols = [torch.nonzero(m).flatten().tolist() for m in moved]
+    out["over"] = [(r, c, float(rel[r, c]),
+                    min((abs(c - j) for j in cols[r]), default=None))
+                   for r, c in over[:16]]
+    if not torch.equal(dw, dw.round()):
+        out["verdict"] = "a fraction of a sample moved"
+    elif bool((moved & (left != -dw) & (right != -dw)).any()):
+        out["verdict"] = "a weight moved other than to a neighbour"
+    elif float(dw.abs().sum()) > 2e-4 * float(rw.sum()):
+        out["verdict"] = f"{out['moved']} samples moved"
+    elif over:
+        out["verdict"] = (f"{len(over)} unmoved centroids' means beyond "
+                          f"{unmoved_rtol:g}")
+    elif out["rel_moved"] > 1e-4:
+        out["verdict"] = "a moved pair's means beyond 1e-4"
+    return out
+
+
+def merges_on_card(torch) -> dict:
+    """17b: the mergeable sketch API (``update`` and ``merge`` of every
+    sketch, ``dense_topk``, ``windows.add``) on the card against the
+    CPU, on the same inputs (see sharded_history_phase)."""
+    from gyeeta_tpu_torch.sketch import countmin, exact, hyperloglog, \
+        invertible, loghist, tdigest, topk, windows
+    from gyeeta_tpu_torch.utils.tensor import tree_leaves
+
+    rng = np.random.default_rng(1717)
+    n, chunks = SR_SAMPLES, SR_CHUNKS
+    out = {}
+
+    def on(dev, *arrs):
+        return [torch.from_numpy(a.astype(np.int64) if a.dtype == np.uint32
+                                 else a).to(dev) for a in arrs]
+
+    def exact_tree(name, cpu, card):
+        ok = all(torch.equal(a, b.cpu()) for a, b in
+                 zip(tree_leaves(cpu), tree_leaves(card)))
+        out[name] = "exact" if ok else "differs"
+        check(ok, f"17b: {name} on the card equals the CPU's, exactly")
+
+    # loghist: global update and merge (RESP_TIME_SPEC, RATE_SPEC)
+    spec = loghist.RESP_TIME_SPEC
+    v = np.clip(rng.lognormal(-4.0, 1.5, n).astype(np.float32), spec.vmin,
+                spec.vmax * 0.99)
+    hists, moved = {}, 0
+    for dev in ("cpu", DEV):
+        (x,) = on(dev, v)
+        h = loghist.init(spec, device=dev)
+        for part in torch.chunk(x, chunks):
+            h = loghist.update(h, spec, part)
+        hists[dev] = h
+    moved = int((loghist.bucket_of(spec, torch.from_numpy(v))
+                 != loghist.bucket_of(spec, on(DEV, v)[0]).cpu()).sum())
+    apart = float((hists[DEV].cpu() - hists["cpu"]).abs().sum())
+    qs = np.array([0.25, 0.5, 0.95, 0.99], np.float32)
+    q = loghist.quantiles(hists[DEV], spec, tuple(qs)).cpu().numpy()
+    rel = float((np.abs(q - exact.quantiles(v, qs))
+                 / exact.quantiles(v, qs)).max())
+    out["loghist.update"] = {"moved": moved, "rel_err": rel}
+    check(apart <= 2 * moved and float(hists[DEV].sum()) == n
+          and rel < 2 * spec.rel_error + 0.01,
+          f"17b: loghist.update of {n} samples in {chunks} calls equal card "
+          f"vs CPU but for the {moved} samples CUDA's logf moves a bucket "
+          f"({apart:.0f} counts apart); quantile error {rel:.4f} < "
+          f"{2 * spec.rel_error + 0.01:.4f}")
+    rspec = loghist.RATE_SPEC
+    v1 = rng.exponential(100.0, n // 2).astype(np.float32)
+    v2 = rng.exponential(1000.0, n // 2).astype(np.float32)
+    merged = {}
+    for dev in ("cpu", DEV):
+        a, b = on(dev, v1, v2)
+        h1 = loghist.update(loghist.init(rspec, device=dev), rspec, a)
+        h2 = loghist.update(loghist.init(rspec, device=dev), rspec, b)
+        merged[dev] = loghist.merge(h1, h2)
+        check(torch.equal(merged[dev],
+                          loghist.update(h1.clone(), rspec, b)),
+              f"17b: loghist.merge equals the update of both on {dev}")
+    rmoved = sum(int((loghist.bucket_of(rspec, torch.from_numpy(x))
+                      != loghist.bucket_of(rspec, on(DEV, x)[0]).cpu())
+                     .sum()) for x in (v1, v2))
+    apart = float((merged[DEV].cpu() - merged["cpu"]).abs().sum())
+    out["loghist.merge"] = {"moved": rmoved}
+    check(apart <= 2 * rmoved,
+          f"17b: loghist.merge equal card vs CPU but for the {rmoved} "
+          f"samples CUDA's logf moves ({apart:.0f} counts apart)")
+
+    # t-digest: the reference's two cases (tests/test_sketches.py): 200,000
+    # lognormal samples in 20 updates, and two normals merged
+    t1 = rng.lognormal(0.0, 2.0, 200_000).astype(np.float32)
+    m1 = rng.normal(10.0, 2.0, 50_000).astype(np.float32)
+    m2 = rng.normal(20.0, 2.0, 50_000).astype(np.float32)
+    # the update case is held after every one of its 20 updates, and
+    # against a second run on the card: the card's own float atomics
+    # move no sample (the weights are whole counts) and keep the means
+    # within 1e-5 of each other; against the CPU the means are held at
+    # 1e-5 until a sample has moved, and at SR_CARRY_RTOL after (a
+    # moved sample's centroid merges on with other neighbours in the
+    # later compressions, so its difference spreads into centroids
+    # whose weights agree again)
+    dig, steps = {}, {}
+    for dev in ("cpu", DEV, "card2"):
+        a, b, c = on(DEV if dev == "card2" else dev, t1, m1, m2)
+        da = tdigest.init(128, device=a.device)
+        steps[dev] = []
+        for part in torch.chunk(a, 20):
+            da = tdigest.update(da, part)
+            steps[dev].append(da)
+        dig[dev] = (da, tdigest.merge(
+            tdigest.update(tdigest.init(128, device=a.device), b),
+            tdigest.update(tdigest.init(128, device=a.device), c)))
+    drift, first_move = [], None
+    for i, (card, card2, cpu) in enumerate(zip(steps[DEV], steps["card2"],
+                                               steps["cpu"])):
+        rtol = 1e-5 if first_move is None else SR_CARRY_RTOL
+        apart = _digest_apart(torch, card, cpu, rtol)
+        self_apart = _digest_apart(torch, card2, tuple(t.cpu() for t in card))
+        if apart.get("moved") and first_move is None:
+            first_move = i + 1
+        drift.append({"update": i + 1, "unmoved_rtol": rtol,
+                      **{k: apart.get(k) for k in (
+                          "verdict", "moved", "rel_unmoved", "rel_moved",
+                          "over")},
+                      "card_vs_card": self_apart.get("rel_unmoved"),
+                      "card_vs_card_verdict": self_apart["verdict"]
+                      if self_apart.get("moved") == 0 else "a sample moved"})
+    out["tdigest.update"] = {
+        "first_move": first_move,
+        "rel_unmoved_before_move": max(
+            (d["rel_unmoved"] for d in drift[:(first_move or 21) - 1]),
+            default=0.0),
+        "rel_unmoved_after_move": max(
+            (d["rel_unmoved"] for d in drift[(first_move or 21) - 1:]),
+            default=0.0),
+        "rel_moved": max(d["rel_moved"] for d in drift),
+        "card_vs_card": max(d["card_vs_card"] for d in drift),
+        "steps": drift}
+    log(f"  17b: tdigest.update drift after each update [update, samples "
+        f"moved, unmoved means' rtol, moved pairs' rtol, card vs card]: "
+        + json.dumps([[d["update"], d["moved"], f"{d['rel_unmoved']:.2e}",
+                       f"{d['rel_moved']:.2e}",
+                       f"{d['card_vs_card']:.2e}"] for d in drift]))
+    bad = [d for d in drift if d["verdict"] != "ok"
+           or d["card_vs_card_verdict"] != "ok"]
+    u = out["tdigest.update"]
+    check(not bad,
+          f"17b: tdigest.update after each of its 20 updates card vs CPU "
+          f"(unmoved means rtol 1e-5 until a sample moved, at update "
+          f"{first_move}, then {SR_CARRY_RTOL:g}: "
+          f"{u['rel_unmoved_before_move']:.2e} / "
+          f"{u['rel_unmoved_after_move']:.2e}; moved pairs 1e-4: "
+          f"{u['rel_moved']:.2e}) and card vs card (no sample moved, means "
+          f"1e-5: {u['card_vs_card']:.2e}); failing: {bad}")
+    apart = _digest_apart(torch, dig[DEV][1], dig["cpu"][1])
+    out["tdigest.merge"] = apart
+    check(apart["verdict"] == "ok",
+          f"17b: tdigest.merge card vs CPU: {apart}")
+    qs = [0.01, 0.25, 0.5, 0.75, 0.95, 0.99]
+    est = tdigest.quantiles(dig[DEV][0], qs).cpu().numpy()
+    cest = tdigest.quantiles(dig["cpu"][0], qs).numpy()
+    out["tdigest.quantiles_apart"] = float(
+        (np.abs(est - cest) / np.abs(cest)).max())
+    check(out["tdigest.quantiles_apart"] < 1e-5,
+          f"17b: the updated digest's quantiles card vs CPU within "
+          f"{out['tdigest.quantiles_apart']:.2e} (rtol 1e-5)")
+    rel = [float((np.abs(est - exact.quantiles(t1, qs))
+                  / exact.quantiles(t1, qs)).max())]
+    both = exact.quantiles(np.concatenate([m1, m2]), [0.1, 0.5, 0.9])
+    est = tdigest.quantiles(dig[DEV][1], [0.1, 0.5, 0.9]).cpu().numpy()
+    rel.append(float((np.abs(est - both) / np.abs(both)).max()))
+    out["tdigest.rel_err"] = rel
+    check(float(tdigest.count(dig[DEV][0])) == len(t1)
+          and rel[0] < 0.02 and rel[1] < 0.03,
+          f"17b: tdigest count {len(t1)}; quantile error of the updates "
+          f"{rel[0]:.4f} < 0.02, of the merge {rel[1]:.4f} < 0.03 (the "
+          "reference's bounds)")
+    S, cap = 4096, 32
+    rows = rng.integers(0, S, n // 4).astype(np.int32)
+    vals = rng.lognormal(6.0, 1.0, n // 4).astype(np.float32)
+    ent = {}
+    for dev in ("cpu", DEV):
+        r, x = on(dev, rows, vals)
+        parts = []
+        for half in (slice(0, n // 8), slice(n // 8, None)):
+            sv = torch.zeros((S, cap), device=dev)
+            sn = torch.zeros(S, dtype=torch.int32, device=dev)
+            sv, sn, _ = tdigest.stage_samples(sv, sn, r[half], x[half])
+            parts.append(tdigest.flush_staged(
+                tdigest.init(64, (S,), device=dev), sv, sn)[0])
+        ent[dev] = tdigest.merge(*parts)
+    apart = _digest_apart(torch, ent[DEV], ent["cpu"])
+    out["tdigest.merge entities"] = apart
+    check(apart["verdict"] == "ok"
+          and torch.equal(tdigest.count(ent[DEV]).cpu(),
+                          tdigest.count(ent["cpu"])),
+          f"17b: tdigest.merge over {S} entities card vs CPU: {apart}; "
+          "count exact")
+
+    # HLL, CMS, invertible: the fused kernels' updates, then merge
+    hi = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    lo = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    # integer weights whose sums stay below 2^24: f32 sums exact in any
+    # order, so the card's atomics must agree with the CPU exactly
+    w = rng.integers(1, 4, n).astype(np.float32)
+    pr = rng.integers(0, 8, n).astype(np.float32)
+    sk = {}
+    for dev in ("cpu", DEV):
+        h, l, ww, pp = on(dev, hi, lo, w, pr)
+        ok = torch.ones(n, dtype=torch.bool, device=dev)
+        halves = (slice(0, n // 2), slice(n // 2, None))
+        hl = [hyperloglog.update(hyperloglog.init(14, device=dev), h[s],
+                                 l[s]) for s in halves]
+        cm = [countmin.update(countmin.init(4, 1 << 16, device=dev), h[s],
+                              l[s], ww[s]) for s in halves]
+        iv = [invertible.update(invertible.init(2, 4096, device=dev), h[s],
+                                l[s], pp[s], ok[s]) for s in halves]
+        sk[dev] = (hyperloglog.merge(*hl), countmin.merge(*cm),
+                   invertible.merge(*iv))
+    for i, name in enumerate(("hyperloglog.merge", "countmin.merge",
+                              "invertible.merge")):
+        exact_tree(name, sk["cpu"][i], sk[DEV][i])
+
+    # top-K: update over a zipf stream, merge, dense_topk
+    p = 1.0 / np.arange(1, 20001)
+    draws = rng.choice(20000, size=n, p=p / p.sum())
+    khi, klo = hi[:20000][draws], lo[:20000][draws]
+    # a tie-heavy dense stat: lax.top_k's lower-index-first order
+    stat = rng.integers(0, 50, (64, 4096)).astype(np.float32)
+    step = n // chunks
+    tk = {}
+    for dev in ("cpu", DEV):
+        h, l, ww, st = on(dev, khi, klo, w, stat)
+        tabs = []
+        for lo_, hi_ in ((0, n // 2), (n // 2, n)):
+            t = topk.init(256, device=dev)
+            for s in range(lo_, hi_, step):
+                t = topk.update(t, h[s:s + step], l[s:s + step],
+                                ww[s:s + step])
+            tabs.append(t)
+        tk[dev] = (topk.merge(*tabs), topk.dense_topk(st, 100))
+    exact_tree("topk.merge", tk["cpu"][0], tk[DEV][0])
+    exact_tree("topk.dense_topk", tk["cpu"][1], tk[DEV][1])
+
+    # windows.add then tick
+    deltas = rng.integers(0, 1000, (7, 512, 64)).astype(np.float32)
+    wins = {}
+    for dev in ("cpu", DEV):
+        win = windows.init((512, 64), device=dev)
+        for d in on(dev, deltas)[0]:
+            win = windows.tick(windows.add(win, d))
+        wins[dev] = win
+    exact_tree("windows.add", wins["cpu"], wins[DEV])
+    return out
+
+
+def fold_trace_run(torch, names, bufs, tmp) -> dict:
+    """17c: ``FoldProfiler`` over the first fold dispatches of a
+    ``Runtime`` at a shard's geometry (ns ÷ 4; phase 8's buffers, so the
+    kernels see the main path's lanes) on the card (see
+    sharded_history_phase)."""
+    from gyeeta_tpu_torch.engine import aggstate
+    from gyeeta_tpu_torch.obs.spans import FoldProfiler
+    from gyeeta_tpu_torch.runtime import Runtime
+    from gyeeta_tpu_torch.utils.config import RuntimeOpts
+
+    check(not torch.autograd._profiler_enabled(),
+          "17c: no other torch.profiler session is running")
+    prof = FoldProfiler(tmp / "trace", n_folds=SR_FOLDS)
+    rt = Runtime(aggstate.EngineCfg(**SH_CFG), RuntimeOpts(**RT_OPTS),
+                 device=DEV, profiler=prof)
+    t0 = time.perf_counter()
+    try:
+        rt.feed(names)
+        for i in range(SR_TRACE_BUFFERS):
+            rt.feed(bufs[i % len(bufs)][0])
+        rt.flush()
+        torch.cuda.synchronize()
+        disp = rt.stats.counters["fold_dispatches"]
+    finally:
+        rt.close()
+    perf = {"s": time.perf_counter() - t0, "dispatches": disp}
+    check(prof.path is not None and Path(prof.path).is_file()
+          and not prof.active and not torch.autograd._profiler_enabled(),
+          f"17c: the bracket ended after fold {SR_FOLDS} of {disp} and "
+          f"wrote {prof.path}")
+    with open(prof.path) as f:
+        events = json.load(f)["traceEvents"]
+    perf["trace_bytes"] = Path(prof.path).stat().st_size
+    perf["events"] = len(events)
+
+    def count(pred):
+        return sum(1 for e in events if pred(e))
+
+    perf["folds"] = count(lambda e: e.get("cat") == "user_annotation"
+                          and e.get("name") == "gyt_fold")
+    perf["device_kernels"] = {
+        k: count(lambda e, d=f"{k}_kernel": e.get("cat") == "kernel"
+                 and d in e.get("name", ""))
+        for k in SR_KERNELS}
+    log(f"  17c: trace of {perf['events']} events "
+        f"({perf['trace_bytes'] / 2**20:.1f} MiB), {perf['folds']} "
+        f"gyt_fold ranges; device kernels {perf['device_kernels']}")
+    check(perf["folds"] == SR_FOLDS and disp > SR_FOLDS,
+          f"17c: exactly {SR_FOLDS} of the {disp} fold dispatches traced")
+    want = {k: n * SR_FOLDS for k, n in SR_KERNELS.items()}
+    check(perf["device_kernels"] == want,
+          f"17c: the trace names each entry's device kernel as often as "
+          f"{SR_FOLDS} conn/resp dispatches launch it: {want}")
+    return perf
+
+
+def sharded_history_phase(torch, scatter, frames) -> tuple:
+    """Phase 17: the sharded runtime's history replay at ns ÷ 4 a shard
+    (17a), the mergeable sketch API on the card (17b) and the fold
+    dispatches' device trace (17c)."""
+    import shutil
+    import tempfile
+
+    names, _, bufs, _ = frames
+    log(f"phase 17: the sharded runtime's history replay, {SH_N} shards on "
+        f"the card; the mergeable sketches card vs CPU; the fold trace")
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="gyt_smoke_shist_"))
+    try:
+        perf, launches = sharded_history_run(torch, scatter, names, bufs,
+                                             tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        perf["merges"] = merges_on_card(torch)
+        perf["merges_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        perf["trace"] = fold_trace_run(torch, names, bufs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    perf["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 17: {perf['phase_s']:.1f} s")
+    return perf, launches
+
+
 def _no_lookup(*a, **kw):
     raise OSError("chip_smoke resolves no names")
 
@@ -8143,10 +8741,13 @@ def main(argv) -> int:
     lap("13")
     wp, part_launches, ring_launches = worker_phase(torch, scatter, frames,
                                                     oracle, rtp)
-    del frames, oracle
+    del oracle
     gc.collect()
     torch.cuda.empty_cache()
     lap("14")
+    hsp, sr_launches = sharded_history_phase(torch, scatter, frames)
+    del frames
+    lap("17")
     ap, ag_launches = agent_phase(torch, scatter)
     lap("15")
     tp, tr_launches = trace_phase(torch, scatter)
@@ -8168,6 +8769,7 @@ def main(argv) -> int:
         k["launches_ring_slab"] = ring_launches[k["name"]]
         k["launches_agents"] = ag_launches[k["name"]]
         k["launches_trace"] = tr_launches[k["name"]]
+        k["launches_sharded_replay"] = sr_launches[k["name"]]
         cs = d_sites.get(k["name"])
         if cs:
             k["delta"] = {f: sum(c[f] for c in cs) for f in (
@@ -8200,6 +8802,7 @@ def main(argv) -> int:
     log(json.dumps({"workers": wp}, default=float))
     log(json.dumps({"agents": ap}, default=float))
     log(json.dumps({"trace": tp}, default=float))
+    log(json.dumps({"sharded_history": hsp}, default=float))
     log(smi)
     log(json.dumps({"kernels": kernels}))
     phase_s["total"] = round(time.perf_counter() - t_all, 1)

@@ -146,7 +146,7 @@ __device__ __forceinline__ void atomic_max_f32(float* p, unsigned bits) {
     }
 }
 
-__global__ void __launch_bounds__(kThreads) scatter_sites_kernel(const __grid_constant__ Sites sites) {
+__global__ void __launch_bounds__(kThreads) gyt_scatter_sites_kernel(const __grid_constant__ Sites sites) {
     const GytScatterSite& s = sites.s[blockIdx.y];
     if (static_cast<int>(blockIdx.x) * kThreads >= s.n) return;   // whole block past this site
     const int i = blockIdx.x * kThreads + threadIdx.x;
@@ -214,7 +214,7 @@ int gyt_scatter_sites(const GytScatterSite* sites, int n_sites, void* stream) {
     }
     if (max_n == 0) return 0;
     const dim3 grid((max_n + kThreads - 1) / kThreads, n_sites);
-    scatter_sites_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+    gyt_scatter_sites_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -59,7 +59,7 @@ __device__ __forceinline__ bool lane_on(const unsigned char* __restrict__ valid,
 }
 
 // regs is (n_rows, 2^p) int32; row == nullptr means one register file (n_rows 1).
-__global__ void hll_update_kernel(int* __restrict__ regs, const long long* __restrict__ key_hi,
+__global__ void gyt_hll_update_kernel(int* __restrict__ regs, const long long* __restrict__ key_hi,
                                   const long long* __restrict__ key_lo,
                                   const long long* __restrict__ row,
                                   const unsigned char* __restrict__ valid, int n, int p,
@@ -76,7 +76,7 @@ __global__ void hll_update_kernel(int* __restrict__ regs, const long long* __res
 }
 
 // counts is (depth, width) f32.
-__global__ void cms_update_kernel(float* __restrict__ counts, const long long* __restrict__ key_hi,
+__global__ void gyt_cms_update_kernel(float* __restrict__ counts, const long long* __restrict__ key_hi,
                                   const long long* __restrict__ key_lo,
                                   const float* __restrict__ vals,
                                   const unsigned char* __restrict__ valid, int n, int depth,
@@ -119,7 +119,7 @@ __device__ __forceinline__ void atomic_max_f32(float* p, float v) {
 // whose (hi, lo) is the lexicographic maximum. Winners left in a bucket carry
 // one key, so their writes are equal.
 __global__ void __launch_bounds__(kInvThreads)
-inv_update_kernel(float* __restrict__ prio, long long* __restrict__ enc_hi,
+gyt_inv_update_kernel(float* __restrict__ prio, long long* __restrict__ enc_hi,
                   long long* __restrict__ enc_lo, long long* __restrict__ fp,
                   const long long* __restrict__ key_hi, const long long* __restrict__ key_lo,
                   const float* __restrict__ lane_prio, const unsigned char* __restrict__ valid,
@@ -180,7 +180,7 @@ extern "C" {
 int gyt_hll_update(int* regs, const long long* key_hi, const long long* key_lo,
                    const long long* row, const unsigned char* valid, int n, int p,
                    long long n_rows, void* stream) {
-    hll_update_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    gyt_hll_update_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         regs, key_hi, key_lo, row, valid, n, p, n_rows);
     return static_cast<int>(cudaGetLastError());
 }
@@ -188,7 +188,7 @@ int gyt_hll_update(int* regs, const long long* key_hi, const long long* key_lo,
 int gyt_cms_update(float* counts, const long long* key_hi, const long long* key_lo,
                    const float* vals, const unsigned char* valid, int n, int depth, int width,
                    void* stream) {
-    cms_update_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    gyt_cms_update_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         counts, key_hi, key_lo, vals, valid, n, depth, static_cast<uint32_t>(width));
     return static_cast<int>(cudaGetLastError());
 }
@@ -202,10 +202,10 @@ int gyt_inv_update(float* prio, long long* enc_hi, long long* enc_lo, long long*
         cudaGetDevice(&dev);
         cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
         if (smem > static_cast<size_t>(optin)) return -1;
-        cudaFuncSetAttribute(inv_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cudaFuncSetAttribute(gyt_inv_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
     }
-    inv_update_kernel<<<depth, kInvThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+    gyt_inv_update_kernel<<<depth, kInvThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         prio, enc_hi, enc_lo, fp, key_hi, key_lo, lane_prio, valid, n,
         static_cast<uint32_t>(width));
     return static_cast<int>(cudaGetLastError());

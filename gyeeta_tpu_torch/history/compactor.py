@@ -47,10 +47,18 @@ compactor does. ``upto_seq`` is the sealed bound a journal-less reader
 stops at: the parallel compactor's worker processes
 (``history/compactproc.py``) each run one ``Compactor`` a WAL shard
 under it. ``runtime_factory`` (``(cfg, opts) → runtime``) builds the
-replay runtime instead of a ``Runtime`` on ``device``: a
-``ShardedRuntime`` replays a sharded runtime's WAL into stacked state,
-and the workers build a ``Runtime`` that counts its conn/resp
-dispatches for their reports.
+replay runtime instead of a ``Runtime`` on ``device``; the workers
+build a ``Runtime`` that counts its conn/resp dispatches for their
+reports.
+
+The replay runtime owns its state's layout: the compactor writes a
+shard from its ``leaves()`` / ``delta_leaves()`` / ``task_panel()`` and
+resumes through ``load_leaves``. A ``ShardedRuntime`` factory's
+runtime gives the reference's stacked ``(n_shards, ...)`` leaves
+(``parallel/sharded.state_to_numpy``), its delta leaves and task panel
+every slab row of every shard, shard-major, as the stacked leaves lie,
+and its other panels from its merged columns; ``TimeView`` reads such
+a shard back into the mesh for ``at=`` / ``window=`` queries.
 """
 
 from __future__ import annotations
@@ -62,15 +70,11 @@ from typing import Optional
 
 import numpy as np
 
-from gyeeta_tpu_torch.engine import aggstate
 from gyeeta_tpu_torch.history import shards as SH, winquant as WQ
 from gyeeta_tpu_torch.history.timeview import aggregate_window_columns
-from gyeeta_tpu_torch.parallel import depgraph as dg
-from gyeeta_tpu_torch.query import api
 from gyeeta_tpu_torch.query.lazycols import LazyCols
 from gyeeta_tpu_torch.utils import journal as J
-from gyeeta_tpu_torch.utils.checkpoint import _cfg_fingerprint, _ref_dtype
-from gyeeta_tpu_torch.utils.tensor import tree_leaves
+from gyeeta_tpu_torch.utils.checkpoint import _cfg_fingerprint
 
 log = logging.getLogger("gyeeta_tpu_torch.history.compactor")
 
@@ -152,33 +156,16 @@ class Compactor:
         """Re-seed the replay runtime from a shard (restart resume —
         the shard is the compactor's checkpoint)."""
         data = self.store.load(ent)
-
-        def check(leaves, like):
-            refs = tree_leaves(like)
-            if len(leaves) != len(refs):
-                raise ValueError(
-                    f"shard {ent['file']}: {len(leaves)} leaves != "
-                    f"engine {len(refs)}")
-            fixed = []
-            for arr, ref in zip(leaves, refs):
-                if arr.shape != tuple(ref.shape):
-                    raise ValueError(
-                        f"shard {ent['file']}: leaf {arr.shape} != "
-                        f"engine {tuple(ref.shape)}")
-                fixed.append(arr.astype(_ref_dtype(ref), copy=False))
-            return fixed
-
-        rt.state = aggstate.state_from_numpy(
-            check(data["state"], rt.state), rt.device)
-        rt.dep = dg.dep_from_numpy(check(data["dep"], rt.dep), rt.device)
+        try:
+            rt.load_leaves(data["state"], data["dep"])
+        except ValueError as e:
+            raise ValueError(f"shard {ent['file']}: {e}") from None
         # the resumed shard's monotone leaves ARE the delta base: the
         # next window's delta is state-at-next-emit − this state
-        self._delta_base = {name: WQ.leaf_of(rt.state, name)
-                            .astype(np.float64)
-                            for name in WQ.DELTA_SPECS}
+        self._delta_base = {name: leaf.astype(np.float64)
+                            for name, leaf in rt.delta_leaves().items()}
         rt._tick_no = int(ent["tick1"])
         rt._td_dirty = True
-        rt._pressures.clear()
         rt._cols.bump()
         self._last_t = float(ent["t1"])
         wal = data["meta"].get("wal")
@@ -321,11 +308,7 @@ class Compactor:
         columns = {}
         for subsys in SH.SNAP_SUBSYS:
             if subsys == "taskstate":
-                # every slab row, as the reference's panel: the task_cpu
-                # delta panel aligns with the task slab row for row
-                cols, mask = api.task_columns(self.cfg, rt.state,
-                                              names=rt.names,
-                                              live_only=False)
+                cols, mask = rt.task_panel()
             else:
                 cols, mask = rt._cached_columns(subsys)
             if isinstance(cols, LazyCols):
@@ -339,15 +322,15 @@ class Compactor:
         # base for every monotone loghist leaf — the mergeable partial
         # aggregates true windowed quantiles sum (winquant module doc)
         deltas, self._delta_base, diag = WQ.extract_deltas(
-            self.cfg, rt.state, columns, self._delta_base)
+            self.cfg, rt.delta_leaves(), columns, self._delta_base)
         for k, v in diag.items():
             if v:
                 self.stats.bump(k, v)
         with self.stats.timeit("compact_emit"):
+            state_leaves, dep_leaves = rt.leaves()
             ent = self.store.add_shard(
                 level="raw", tick0=tick0, tick1=tick1, t0=t0, t1=t1,
-                state_leaves=aggstate.state_to_numpy(rt.state),
-                dep_leaves=dg.dep_to_numpy(rt.dep),
+                state_leaves=state_leaves, dep_leaves=dep_leaves,
                 columns=columns,
                 cfg_fp=_cfg_fingerprint(self.cfg),
                 wal_pos=self._pos_serial(),

@@ -164,10 +164,12 @@ def composite_keys(subsys: str, cols, idx: np.ndarray) -> np.ndarray:
 
 
 # ----------------------------------------------------------- extraction
-def extract_deltas(cfg, state, columns: dict, base: Optional[dict]
+def extract_deltas(cfg, leaves: dict, columns: dict, base: Optional[dict]
                    ) -> tuple:
     """One window's delta panels.
 
+    ``leaves``: {name: (rows, B) ndarray}, the monotone leaves at this
+    emit (``Runtime.delta_leaves``; shard-major for a sharded runtime).
     ``columns``: the shard's column panels (subsys → (cols, mask)) —
     the identity source; rows align positionally with the loghist
     slabs (both are slab-row order, shard-major when stacked).
@@ -181,7 +183,7 @@ def extract_deltas(cfg, state, columns: dict, base: Optional[dict]
     new_base: dict = {}
     diag = {"wd_clamped_rows": 0, "wd_dead_rows": 0}
     for name, ds in DELTA_SPECS.items():
-        cur = leaf_of(state, name).astype(np.float64)
+        cur = leaves[name].astype(np.float64)
         new_base[name] = cur
         if ds.subsys not in columns:
             continue

@@ -1,4 +1,4 @@
-"""GYT wire format: the subset the flow-event fold path needs.
+"""GYT wire format: framing, record types and the control messages.
 
 Counterpart of ``gyeeta_tpu/ingest/wire.py`` (a copy, since the port
 imports nothing of the reference): COMM_HEADER-compatible framing
@@ -10,12 +10,11 @@ the flow path, ``TCP_CONN`` and ``RESP_SAMPLE``, and the record types of
 the runtime's ``NAME_INTERN`` (with the ``NAME_KIND_*`` namespaces),
 ``SWEEP_SEQ`` and ``AGENT_STATS``; edge pre-aggregation's
 ``SKETCH_DELTA`` (the ``DK_*`` kinds and their payload layouts) with
-the ``PREAGG_DT`` advert; and the record types of the tiers not ported
-yet (``LISTENER_INFO``, ``HOST_INFO``, ``CGROUP_STATE``,
-``MOUNT_STATE``, ``NETIF_STATE``), decoded so that the runtime can
-refuse them by name instead of counting them as unknown.
-Records are fixed width, so a whole batch decodes with one
-``np.frombuffer``.
+the ``PREAGG_DT`` advert; the inventory records the host-side
+registries fold (``LISTENER_INFO``, ``HOST_INFO``, ``CGROUP_STATE``,
+``MOUNT_STATE``, ``NETIF_STATE``); and the agent handshake, capture
+control, throttle and query messages. Records are fixed width, so a
+whole batch decodes with one ``np.frombuffer``.
 
 Frames of any other subtype are skipped and their records counted
 (``counts["unknown_records"]``), the reference's treatment of a subtype

@@ -43,6 +43,7 @@ import torch
 
 from gyeeta_tpu_torch.engine import step, table
 from gyeeta_tpu_torch.engine.aggstate import EngineCfg
+from gyeeta_tpu_torch.history import winquant as WQ
 from gyeeta_tpu_torch.ingest import decode, wire
 from gyeeta_tpu_torch.obs import health as obs_health
 from gyeeta_tpu_torch.parallel import depgraph as dg
@@ -78,14 +79,14 @@ _SECTION_FOLDS = {
 class ShardedRuntime(Runtime):
     def __init__(self, cfg: EngineCfg | None = None, mesh=None,
                  opts: RuntimeOpts | None = None, clock=None,
-                 device=None, deframe: str = "native"):
+                 device=None, deframe: str = "native", profiler=None):
         self.mesh = mesh if mesh is not None else make_mesh(device=device)
         self.n = self.mesh.n
         self.device = self.mesh.devices[0]
         # the one layout: fold, ingest-edge host hash and the per-shard
         # WAL subdirs all ask it
         self.layout = ShardLayout(self.mesh)
-        self._init_host(cfg, opts, clock, deframe)
+        self._init_host(cfg, opts, clock, deframe, profiler)
         self.state = sharded.init_sharded(self.cfg, self.mesh)
         self.dep = sharded.dep_init_sharded(
             self.mesh, self.opts.dep_pair_capacity,
@@ -331,7 +332,8 @@ class ShardedRuntime(Runtime):
         kw = dict(stats=self.stats, native=self._native)
         with self.stats.timeit("fold_dispatch"), \
                 self.spans.span("decode_fold", nrec=nc + nr,
-                                path=self.deframe):
+                                path=self.deframe), \
+                self._profiler.fold(self.device):
             bufs = self._flip_slab_bufs()
             with self.stats.timeit("decode"):
                 cbs = [self._decode_into(b, "conn",
@@ -770,6 +772,36 @@ class ShardedRuntime(Runtime):
             self.stats.bump("checkpoints")
         self._cols.bump()
         return report
+
+    # ------------------------------------------------------ engine leaves
+    def leaves(self) -> tuple:
+        """``(state, dep)`` as the reference's stacked ``(n_shards,
+        ...)`` leaves."""
+        return sharded.state_to_numpy(self.state), \
+            sharded.dep_to_numpy(self.dep)
+
+    def load_leaves(self, state_leaves, dep_leaves) -> None:
+        """Re-seed every shard from :meth:`leaves`' stacked form."""
+        self.state = sharded.state_from_numpy(
+            ckpt.fit_leaves(state_leaves, self.state, "shard"), self.mesh)
+        self.dep = sharded.dep_from_numpy(
+            ckpt.fit_leaves(dep_leaves, self.dep, "shard"), self.mesh)
+        self._pressure = None
+
+    def delta_leaves(self) -> dict:
+        """The monotone loghist leaves, shard-major, as the stacked leaf
+        reads."""
+        return {name: np.concatenate([WQ.leaf_of(st, name)
+                                      for st in self.state])
+                for name in WQ.DELTA_SPECS}
+
+    def task_panel(self) -> tuple:
+        """Every slab row of every shard, shard-major."""
+        parts = [api.task_columns(self.cfg, st, names=self.names,
+                                  live_only=False) for st in self.state]
+        return ({k: np.concatenate([p[0][k] for p in parts])
+                 for k in parts[0][0]},
+                np.concatenate([np.asarray(p[1]) for p in parts]))
 
     # -------------------------------------------------- restore/recovery
     def restore(self, path) -> dict:

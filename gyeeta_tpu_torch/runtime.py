@@ -60,13 +60,13 @@ from gyeeta_tpu_torch.alerts import AlertManager, columns as AC
 from gyeeta_tpu_torch.device import resolve
 from gyeeta_tpu_torch.engine import aggstate, compact, step
 from gyeeta_tpu_torch.engine.aggstate import EngineCfg
-from gyeeta_tpu_torch.history import open_store
+from gyeeta_tpu_torch.history import open_store, winquant as WQ
 from gyeeta_tpu_torch.history.histwriter import HistoryWriter
 from gyeeta_tpu_torch.history.shards import open_shard_store
 from gyeeta_tpu_torch.history.timeview import TimeView, route_historical
 from gyeeta_tpu_torch.ingest import decode, native, wire
 from gyeeta_tpu_torch.obs import health as obs_health
-from gyeeta_tpu_torch.obs.spans import SpanTracer
+from gyeeta_tpu_torch.obs.spans import FoldProfiler, SpanTracer
 from gyeeta_tpu_torch.parallel import depgraph as dg
 from gyeeta_tpu_torch.query import api, crud
 from gyeeta_tpu_torch.query.snapshot import EngineSnapshot, recover
@@ -150,9 +150,10 @@ _AGENT_STATS_COUNTERS = (
 class Runtime:
     def __init__(self, cfg: Optional[EngineCfg] = None,
                  opts: Optional[RuntimeOpts] = None, clock=None,
-                 device=None, deframe: str = "native"):
+                 device=None, deframe: str = "native",
+                 profiler: Optional[FoldProfiler] = None):
         self.device = resolve(device)
-        self._init_host(cfg, opts, clock, deframe)
+        self._init_host(cfg, opts, clock, deframe, profiler)
         self.state = aggstate.init(self.cfg, self.device)
         # pressure scalars of recent dispatches, read at lag 2
         self._pressures: deque = deque()
@@ -182,11 +183,13 @@ class Runtime:
             for _ in range(2)]
         self._slab_active = 0
 
-    def _init_host(self, cfg, opts, clock, deframe: str) -> None:
+    def _init_host(self, cfg, opts, clock, deframe: str,
+                   profiler=None) -> None:
         """The host side of a runtime, shared with the sharded one: the
-        decode path, configuration, counters, the alert manager, the
-        relational history, the journal and the time-travel tier, the
-        registries and the providers of the runtime-answered views."""
+        decode path, configuration, counters, the fold profiler, the
+        alert manager, the relational history, the journal and the
+        time-travel tier, the registries and the providers of the
+        runtime-answered views."""
         # the host decode path: the native C++ deframer and columnar
         # decoders (built at first use; a failed build raises), or the
         # numpy path the tests hold it against
@@ -201,6 +204,9 @@ class Runtime:
         self.opts = opts or RuntimeOpts()
         self.stats = Stats()
         self.spans = SpanTracer()     # pipeline span ring (selfstats)
+        # opt-in torch.profiler bracket of the first fold dispatches
+        self._profiler = profiler if profiler is not None \
+            else FoldProfiler()
         self.alerts = AlertManager(self.cfg, clock=clock)
         # relational history: run_tick renders the sweep on this thread
         # and a single writer thread stores it (reads that need their
@@ -586,7 +592,8 @@ class Runtime:
         names = tuple(k for k in step.FOLD_ALL_ORDER if k in sections)
         with self.stats.timeit("fold_dispatch"), \
                 self.spans.span("decode_fold", nrec=nc + nr,
-                                path=self.deframe):
+                                path=self.deframe), \
+                self._profiler.fold(self.device):
             staged = buf is not None
             secs = {k: (decode.to_device(sections[k][0], self.device,
                                          staged=staged),
@@ -1027,6 +1034,7 @@ class Runtime:
         resolver, the journal's writer (after an fsync) and the history
         writer (after it drains) — and close the history store.
         Idempotent."""
+        self._profiler.close()        # write a short bracket's trace
         self.alerts.close()
         self.dns.close()
         if self.journal is not None:
@@ -1035,6 +1043,36 @@ class Runtime:
             self._histwriter.close()
         if self.history is not None:
             self.history.db.close()       # a second close is a no-op
+
+    # ------------------------------------------------------ engine leaves
+    def leaves(self) -> tuple:
+        """``(state, dep)`` as numpy leaves in the reference's order and
+        dtypes: what a history shard holds (``history/compactor.py``)."""
+        return aggstate.state_to_numpy(self.state), \
+            dg.dep_to_numpy(self.dep)
+
+    def load_leaves(self, state_leaves, dep_leaves) -> None:
+        """Re-seed state and dep from :meth:`leaves`' form, each leaf
+        checked against the live one (ValueError on a mismatch), and
+        forget the pressure of the dispatches before them."""
+        self.state = aggstate.state_from_numpy(
+            ckpt.fit_leaves(state_leaves, self.state, "shard"),
+            self.device)
+        self.dep = dg.dep_from_numpy(
+            ckpt.fit_leaves(dep_leaves, self.dep, "shard"), self.device)
+        self._pressures.clear()
+
+    def delta_leaves(self) -> dict:
+        """The monotone loghist leaves a window's sketch deltas
+        difference, ``{name: (rows, B)}`` (``winquant.DELTA_SPECS``)."""
+        return {name: WQ.leaf_of(self.state, name)
+                for name in WQ.DELTA_SPECS}
+
+    def task_panel(self) -> tuple:
+        """The taskstate panel of every slab row, live or not: the
+        ``task_cpu`` delta leaf's rows, one for one."""
+        return api.task_columns(self.cfg, self.state, names=self.names,
+                                live_only=False)
 
     def restore(self, path) -> dict:
         """Restore a checkpoint (from either package): staged records

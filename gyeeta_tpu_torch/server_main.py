@@ -25,6 +25,9 @@ processes that publish decoded records into shared-memory rings
 accepts remote ingest relays (``net/relay.py``), and ``--compact-procs
 N`` compacts the per-shard WAL with N replay worker processes on
 ``--device`` into a parted shard store (``history/compactproc.py``).
+``--profile-dir D`` writes a ``torch.profiler`` Chrome trace of the
+runtime's first ``--profile-folds`` fold dispatches into ``D``
+(``obs/spans.FoldProfiler``).
 
 Single-controller design: one asyncio loop owns the Runtime; the device
 stream is the concurrency.
@@ -41,6 +44,7 @@ import signal
 from typing import Optional
 
 from gyeeta_tpu_torch.net.server import GytServer
+from gyeeta_tpu_torch.obs.spans import FoldProfiler
 from gyeeta_tpu_torch.runtime import Runtime
 from gyeeta_tpu_torch.utils import config as C
 
@@ -53,15 +57,17 @@ def _make_runtime(args, cfg, opts):
     per-shard WAL subdirs); else the single-device runtime."""
     device = getattr(args, "device", None) or "cuda"
     shards = int(getattr(args, "shards", 0) or 0)
+    profiler = FoldProfiler(getattr(args, "profile_dir", None),
+                            getattr(args, "profile_folds", 20))
     if shards <= 1:
-        return Runtime(cfg, opts, device=device)
+        return Runtime(cfg, opts, device=device, profiler=profiler)
     from gyeeta_tpu_torch.parallel.mesh import make_mesh
     from gyeeta_tpu_torch.parallel.shardedrt import ShardedRuntime
     mesh = make_mesh(shards, device=device)
     log.info("sharded runtime: %d-shard mesh on %s, per-shard WAL %s",
              shards, sorted({str(d) for d in mesh.devices}),
              "on" if opts.journal_dir else "off")
-    return ShardedRuntime(cfg, mesh, opts)
+    return ShardedRuntime(cfg, mesh, opts, profiler=profiler)
 
 
 class _StagingCompactLoop:
@@ -728,6 +734,12 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
                     "--ship-staging (0 = ephemeral; prints "
                     "SHIP_LISTEN host port)")
     ap.add_argument("--ship-listen-host", default="0.0.0.0")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler Chrome trace of the first "
+                         "--profile-folds fold dispatches (CPU and, on a "
+                         "GPU, CUDA activity) into this directory")
+    ap.add_argument("--profile-folds", type=int, default=20,
+                    help="fold dispatches the --profile-dir trace covers")
     ap.add_argument("--log-level", default="INFO")
     return ap.parse_args(argv)
 

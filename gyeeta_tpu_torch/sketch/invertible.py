@@ -209,6 +209,18 @@ def decode(sk: InvSketch, cms):
             "hh_est": est}
 
 
+def merge(a: InvSketch, b: InvSketch) -> InvSketch:
+    """Bucket-wise merge → a new sketch: the higher-priority candidate
+    wins each bucket (the streaming update's rule; ``a`` keeps a tie);
+    ``n_hot`` adds."""
+    take_b = b.prio > a.prio
+    return InvSketch(prio=torch.maximum(a.prio, b.prio),
+                     enc_hi=torch.where(take_b, b.enc_hi, a.enc_hi),
+                     enc_lo=torch.where(take_b, b.enc_lo, a.enc_lo),
+                     fp=torch.where(take_b, b.fp, a.fp),
+                     n_hot=a.n_hot + b.n_hot)
+
+
 def cms_error_term(total_mass, width: int):
     """Per-key CMS overestimate bound, ``2·N/width``: the error term
     every recovered row carries (recovered counts are upper bounds)."""

@@ -16,6 +16,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gyeeta_tpu_torch.device import resolve
+from gyeeta_tpu_torch.utils.tensor import add_drop
 
 
 class LogHistSpec(NamedTuple):
@@ -32,6 +34,21 @@ class LogHistSpec(NamedTuple):
         """Guaranteed max relative quantile error (midpoint interpolation)."""
         g = self.gamma
         return (g - 1.0) / (g + 1.0)
+
+
+# Response-time spec: 10us .. 100s. gamma≈1.0328 → ≤1.7% error.
+RESP_TIME_SPEC = LogHistSpec(vmin=1e-5, vmax=100.0, nbuckets=512)
+# QPS / rate spec, geometric over 0.1 .. 1e7.
+RATE_SPEC = LogHistSpec(vmin=0.1, vmax=1e7, nbuckets=256)
+# Generic percent 0..100.
+PERCENT_SPEC = LogHistSpec(vmin=0.5, vmax=100.0, nbuckets=128)
+
+
+def init(spec: LogHistSpec, entities: tuple = (), dtype=torch.float32,
+         device=None):
+    """Zero counts of shape ``entities + (B,)``."""
+    return torch.zeros(tuple(entities) + (spec.nbuckets,), dtype=dtype,
+                       device=resolve(device))
 
 
 def bucket_of(spec: LogHistSpec, values):
@@ -54,6 +71,19 @@ def bucket_mid(spec: LogHistSpec, bucket):
     g = spec.gamma
     return spec.vmin * torch.exp(
         (bucket.to(torch.float32) + 0.5) * float(np.float32(np.log(g))))
+
+
+def update(hist, spec: LogHistSpec, values, weights=None, valid=None):
+    """Global histogram (no entity axis) scatter-add, in place: each
+    lane adds its weight (1 without ``weights``) to its value's bucket;
+    a lane with ``valid`` False adds nothing."""
+    b = bucket_of(spec, values)
+    w = torch.ones_like(values, dtype=hist.dtype) if weights is None \
+        else weights.to(hist.dtype)
+    keep = torch.ones_like(b, dtype=torch.bool) if valid is None \
+        else valid
+    add_drop(hist, b, w, keep)
+    return hist
 
 
 def update_entities(hist, spec: LogHistSpec, entity_row, values,
@@ -86,6 +116,11 @@ def quantiles(hist, spec: LogHistSpec, qs):
     idx = torch.argmax(ge.to(torch.uint8), dim=-1).to(torch.int32)
     val = bucket_mid(spec, idx)
     return torch.where(tot > 0, val, 0.0)
+
+
+def merge(a, b):
+    """Histograms merge by addition (the shard roll-up)."""
+    return a + b
 
 
 def counts_total(hist):

@@ -72,6 +72,43 @@ def _compress(means, weights, capacity: int):
     return new_m, new_w
 
 
+def update(sk: TDigest, values, valid=None) -> TDigest:
+    """Fold a batch of unit-weight samples into a single-entity digest
+    → a new digest; a lane with ``valid`` False carries no weight."""
+    capacity = sk.means.shape[-1]
+    vals = values.to(torch.float32)
+    w_in = torch.ones_like(vals)
+    if valid is not None:
+        w_in = torch.where(valid, w_in, 0.0)
+    new_m, new_w = _compress(torch.cat([sk.means, vals])[None],
+                             torch.cat([sk.weights, w_in])[None], capacity)
+    return TDigest(
+        means=new_m[0], weights=new_w[0],
+        vmin=torch.minimum(sk.vmin,
+                           torch.where(w_in > 0, vals, math.inf).amin()),
+        vmax=torch.maximum(sk.vmax,
+                           torch.where(w_in > 0, vals, -math.inf).amax()))
+
+
+def merge(a: TDigest, b: TDigest) -> TDigest:
+    """Concatenate and recompress, row by row over any leading entity
+    axes → a new digest of ``a``'s capacity."""
+    capacity = a.means.shape[-1]
+    all_m = torch.cat([a.means, b.means], dim=-1)
+    all_w = torch.cat([a.weights, b.weights], dim=-1)
+    new_m, new_w = _compress(all_m.reshape(-1, all_m.shape[-1]),
+                             all_w.reshape(-1, all_w.shape[-1]), capacity)
+    return TDigest(means=new_m.reshape(a.means.shape),
+                   weights=new_w.reshape(a.weights.shape),
+                   vmin=torch.minimum(a.vmin, b.vmin),
+                   vmax=torch.maximum(a.vmax, b.vmax))
+
+
+def count(sk: TDigest):
+    """Total weight of each digest."""
+    return sk.weights.sum(dim=-1)
+
+
 def stage_samples(stage_v, stage_n, rows, values, valid=None):
     """Append per-entity samples into the (S, cap) staging buffer without
     compressing, in place. Returns (stage_v, stage_n, n_overflow);

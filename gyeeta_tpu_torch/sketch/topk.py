@@ -108,8 +108,23 @@ def update(sk: TopK, key_hi, key_lo, values, valid=None, est=None,
                     torch.cat([sk.counts, vals]), capacity, evicted)
 
 
+def merge(a: TopK, b: TopK) -> TopK:
+    """Two tables → one of ``a``'s capacity: duplicate keys sum, the
+    truncated mass joins both tables' ``evicted``."""
+    return _combine(torch.cat([a.key_hi, b.key_hi]),
+                    torch.cat([a.key_lo, b.key_lo]),
+                    torch.cat([a.counts, b.counts]), a.counts.shape[0],
+                    a.evicted + b.evicted)
+
+
 def query(sk: TopK, k: int):
     """(key_hi, key_lo, counts) of the top k entries, count descending."""
     k = min(k, sk.counts.shape[0])
     v, i = top_k(sk.counts, k)
     return sk.key_hi[i], sk.key_lo[i], v
+
+
+def dense_topk(stats, k: int):
+    """(values, row indices) of the ``k`` largest entries of a dense
+    per-entity stat along its last axis, lower index first on ties."""
+    return top_k(stats, k)

@@ -58,6 +58,13 @@ def init(shape: tuple, levels: Sequence[WindowSpec] = LEVELS_DEFAULT,
     )
 
 
+def add(win: MultiWindow, delta) -> MultiWindow:
+    """Accumulate into the current base slab, in place (called per
+    microbatch)."""
+    win.cur.add_(delta)
+    return win
+
+
 def tick(win: MultiWindow, levels: Sequence[WindowSpec] = LEVELS_DEFAULT
          ) -> MultiWindow:
     """Close the current base slab: fold into every level, advance rings

@@ -91,7 +91,6 @@ def restore(path, cfg, like, device=None):
     path = pathlib.Path(path)
     shards = like if isinstance(like, list) else None
     like_leaves = tree_leaves(like[0] if shards is not None else like)
-    lead = (len(shards),) if shards is not None else ()
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode())
         if meta["cfg"] != _cfg_fingerprint(cfg):
@@ -102,14 +101,8 @@ def restore(path, cfg, like, device=None):
             raise ValueError(
                 f"checkpoint has {meta['nleaves']} leaves, engine state "
                 f"has {len(like_leaves)} — incompatible versions")
-        leaves = []
-        for i, ref in enumerate(like_leaves):
-            arr = z[f"leaf_{i}"]
-            if arr.shape != lead + tuple(ref.shape):
-                raise ValueError(
-                    f"leaf {i}: checkpoint shape {arr.shape} != "
-                    f"state shape {lead + tuple(ref.shape)}")
-            leaves.append(arr.astype(_ref_dtype(ref)))
+        leaves = fit_leaves([z[f"leaf_{i}"] for i in range(len(like_leaves))],
+                            like)
     if shards is not None:
         return [aggstate.state_from_numpy(
                     per, tree_leaves(st)[0].device if device is None
@@ -118,6 +111,27 @@ def restore(path, cfg, like, device=None):
                                    shards)], meta["extra"]
     dev = like_leaves[0].device if device is None else device
     return aggstate.state_from_numpy(leaves, dev), meta["extra"]
+
+
+def fit_leaves(leaves, like, what: str = "checkpoint") -> list:
+    """Numpy ``leaves`` checked against the live tree ``like`` (a state
+    or dep; a list of per-shard ones takes the stacked ``(n_shards,
+    ...)`` leaves) and cast to its leaves' reference dtypes. Raises
+    ValueError on a leaf-count or shape mismatch."""
+    shards = like if isinstance(like, list) else None
+    refs = tree_leaves(like[0] if shards is not None else like)
+    lead = (len(shards),) if shards is not None else ()
+    if len(leaves) != len(refs):
+        raise ValueError(f"{what} has {len(leaves)} leaves, engine state "
+                         f"has {len(refs)} — incompatible versions")
+    out = []
+    for i, (arr, ref) in enumerate(zip(leaves, refs)):
+        if arr.shape != lead + tuple(ref.shape):
+            raise ValueError(
+                f"leaf {i}: {what} shape {arr.shape} != "
+                f"state shape {lead + tuple(ref.shape)}")
+        out.append(arr.astype(_ref_dtype(ref), copy=False))
+    return out
 
 
 def _ref_dtype(t) -> np.dtype:

@@ -23,10 +23,11 @@ from gyeeta_tpu_torch.sketch import scatter
 
 
 def top_k(x: torch.Tensor, k: int):
-    """(values, indices) of the ``k`` largest entries of a 1-D tensor,
-    descending, lower index first on ties (``lax.top_k``'s order)."""
-    v, i = torch.sort(x, descending=True, stable=True)
-    return v[:k], i[:k]
+    """(values, indices) of the ``k`` largest entries along the last
+    axis, descending, lower index first on ties (``lax.top_k``'s
+    order)."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
 
 
 def set_drop(dst: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,

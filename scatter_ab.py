@@ -291,7 +291,7 @@ extern "C" int gyt_staged_add(float* out, const int* row, const int* col, const 
 """
 
 # each variant's kernel, by the name the profiler shows
-KERNELS = {"port": "scatter_sites_kernel", "direct": "ab_direct",
+KERNELS = {"port": "gyt_scatter_sites_kernel", "direct": "ab_direct",
            "redux": "ab_redux", "stage": "staged_add",
            "direct_sites": "ab_sites_direct", "warp": "ab_sites_warp"}
 # (cell, op, dtype, target shape, lanes, distinct targets or None for

@@ -78,6 +78,9 @@ def test_parse_args_defaults_match_reference():
     j, t = vars(j_main.parse_args([])), vars(t_main.parse_args([]))
     assert t.pop("device") == "cuda"
     assert t.pop("preagg") is False
+    # the fold profiler's flags (the reference arms it from the
+    # environment instead)
+    assert (t.pop("profile_dir"), t.pop("profile_folds")) == (None, 20)
     assert t == j
 
 
